@@ -1,0 +1,227 @@
+"""The port's batched DPE slice vs the JAX receiver on the synthetic
+scenario: the fused dispatch (`dpe_batch_blocks`), the receiver's
+`run_batched` end to end, and a JAX -> port resume through the handoff.
+
+Fixes are lattice offsets (argmax mode) filtered on the host in float64, so
+equal argmaxes give fixes equal to 1e-6 m."""
+
+import copy
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from navlab_dpe_sdr_tpu.io.rawfile import DTYPE_IQ16, SampleFile
+from navlab_dpe_sdr_tpu.io.scenario import make_scenario
+from navlab_dpe_sdr_tpu.libgnss import frames
+from navlab_dpe_sdr_tpu.models import dpe as jmodel
+from navlab_dpe_sdr_tpu.models.grid import uniform_grid
+from navlab_dpe_sdr_tpu.ops import dpe_real as jreal
+from navlab_dpe_sdr_tpu_torch.models import dpe as tmodel
+from navlab_dpe_sdr_tpu_torch.ops import dpe_real as treal
+
+torch.set_num_threads(2)
+
+FS = 2.5e6
+N_BLOCKS = 18
+
+
+@pytest.fixture(autouse=True)
+def f32_taps():
+    old = jreal.SCORE_TAP_DTYPE
+    jreal.SCORE_TAP_DTYPE = jnp.float32
+    yield
+    jreal.SCORE_TAP_DTYPE = old
+
+
+@pytest.fixture(scope="module")
+def scenario():
+    """18 blocks of the 8-PRN scenario; the handoff starts 50 m off truth
+    so the argmaxes move; a 7^4 grid at 15 m / 1 m/s spacing."""
+    sim, hand, arr = make_scenario(nav_data=True)
+    n = 50000 * N_BLOCKS
+    iq = sim.generate(n)
+    samples = np.empty(n, DTYPE_IQ16)
+    samples["i"] = np.clip(np.round(iq.real), -32768, 32767)
+    samples["q"] = np.clip(np.round(iq.imag), -32768, 32767)
+    truth = hand.x_ecef.copy()
+    hand.x_ecef[0:3] = frames.enu_to_ecef(truth[0:3],
+                                          np.array([30.0, -40.0, 15.0]))
+    grid = uniform_grid(n=7, pos_spacing=15.0, vel_spacing=1.0)
+    return samples, hand, arr, grid, truth
+
+
+def _receiver(pkg, scenario, handoff=None, use_argmax=True, **kw):
+    samples, hand, arr, grid, _ = scenario
+    cfg = pkg.DPEConfig(ekf_mode="alpha", ekf_alpha=0.3,
+                        use_argmax=use_argmax)
+    if pkg is tmodel:
+        kw["device"] = "cpu"
+    if handoff is None:
+        handoff, kw["eph"] = copy.deepcopy(hand), copy.deepcopy(arr)
+    return pkg.DPEReceiver(SampleFile(samples=samples.copy(), fs=FS),
+                           handoff, grid=grid, config=cfg, **kw)
+
+
+def _capture(samples, pkg):
+    blocks = samples.view(np.int16).reshape(-1, 50000, 2)
+    return jnp.asarray(blocks) if pkg is jmodel else torch.from_numpy(blocks)
+
+
+@pytest.mark.parametrize("group_k,use_argmax", [(1, True), (3, True),
+                                                (1, False)])
+def test_dpe_batch_blocks_matches_jax(scenario, group_k, use_argmax):
+    samples = scenario[0]
+    rx = _receiver(jmodel, scenario)
+    preps = rx._prepare_batch(6)
+    fpk = np.stack([p[0] for p in preps])
+    ipk = np.stack([p[1] for p in preps])
+    pk = jreal.pack_params(fpk, ipk, 2)
+    kw = dict(carr_fftpts=rx.carr_fftpts, period=rx.period,
+              n_periods=rx.S // rx.period, n_blocks=6, l_power=1,
+              interp="quadratic", return_windows=True,
+              code_win=rx.code_win, carr_win=rx.carr_win, group_k=group_k,
+              use_argmax=use_argmax)
+    ref = np.asarray(jreal.dpe_batch_blocks(
+        _capture(samples, jmodel), jnp.asarray(pk), rx._chips_f32,
+        rx._base0, rx._time_idc, rx._d_enu, rx._dt_m, rx._dv_enu,
+        rx._dtdot, **kw))
+    d = tmodel.device_state(rx.grid, rx._chips_np, rx.S, FS, "cpu")
+    out = treal.dpe_batch_blocks(
+        _capture(samples, tmodel), pk, d.chips, d.time_idc, d.d_enu,
+        d.dt_m, d.dv_enu, d.dtdot, **kw).numpy()
+    assert out.shape == ref.shape == (6 // group_k, ref.shape[1])
+    for i in range(2):
+        np.testing.assert_array_equal(treal.unpack_row_indices(out)[i],
+                                      jreal.unpack_row_indices(ref)[i])
+    np.testing.assert_allclose(out[:, [1, 3]], ref[:, [1, 3]], rtol=1e-4)
+    c = fpk.shape[2]
+    np.testing.assert_array_equal(out[:, 4:4 + c], ref[:, 4:4 + c])
+    base = 4 + c
+    if not use_argmax:
+        np.testing.assert_allclose(out[:, base:base + 8],
+                                   ref[:, base:base + 8],
+                                   rtol=1e-4, atol=1e-4)
+        base += 8
+    wins_o, wins_r = out[:, base:], ref[:, base:]
+    assert np.abs(wins_o - wins_r).max() < 1e-4 * np.abs(wins_r).max()
+
+
+def test_run_batched_matches_jax(scenario):
+    """Three pipelined per-block batches at depth 2 (the first drain comes
+    after the third dispatch) then a grouped K=3 batch: every fix equal to
+    the JAX receiver's."""
+    samples, *_, truth = scenario
+    runs = []
+    for pkg in (jmodel, tmodel):
+        rx = _receiver(pkg, scenario)
+        cap = _capture(samples, pkg)
+        rx.run_batched(12, lookahead=4, raw_blocks_dev=cap, pipeline=True,
+                       pipeline_depth=2)
+        rx.run_batched(6, lookahead=6, raw_blocks_dev=cap, start_block=12,
+                       pipeline=True, pipeline_depth=2, group_k=3)
+        runs.append(rx)
+    jrx, trx = runs
+    assert len(trx.fixes) == len(jrx.fixes) == 14
+    for fj, ft in zip(jrx.fixes, trx.fixes):
+        assert fj.mc == ft.mc
+        np.testing.assert_allclose(ft.x_ecef, fj.x_ecef, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(ft.pos_score, fj.pos_score, rtol=1e-4)
+    for a, b in zip(jrx.flip_log, trx.flip_log):
+        np.testing.assert_array_equal(a, b)
+    # the receiver started 52 m off: it must have moved toward truth
+    err = np.linalg.norm(trx.fixes[-1].x_ecef[:3] - truth[:3])
+    assert err < 40.0, err
+
+
+def test_handoff_resume_from_jax_receiver(scenario):
+    """The JAX receiver runs 6 blocks; its save_handoff() starts a port
+    receiver (reading the same SampleFile from the handoff's byte offset)
+    whose next 6 fixes equal the uninterrupted JAX run's."""
+    full = _receiver(jmodel, scenario)
+    full.run_batched(12, lookahead=6)
+    first = _receiver(jmodel, scenario)
+    first.run_batched(6, lookahead=6)
+    h = first.save_handoff()
+    assert h.bytes_read == 6 * 50000 * 4
+    resumed = _receiver(tmodel, scenario, handoff=h)
+    resumed.run_batched(6, lookahead=6)
+    assert [f.mc for f in resumed.fixes] == list(range(1, 7))
+    for fa, fb in zip(full.fixes[6:], resumed.fixes):
+        np.testing.assert_allclose(fb.x_ecef, fa.x_ecef, rtol=0, atol=1e-6)
+    # and the port's own checkpoint lands where the JAX one does (channel
+    # phases differ at the 1e-6 level: each receiver anchors its own
+    # satellite-state cache, as a JAX -> JAX resume does too)
+    h2 = resumed.save_handoff()
+    h1 = full.save_handoff()
+    np.testing.assert_allclose(h2.x_ecef, h1.x_ecef, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(h2.cp, h1.cp)
+    assert (h2.bytes_read, h2.rx_time) == (h1.bytes_read, h1.rx_time)
+
+
+def _rereference(e, dt: float):
+    """The same Kepler orbit re-referenced to toe+dt (a new ephemeris set
+    with zero orbit discontinuity), as tests/test_eph_manager.py builds
+    it."""
+    import dataclasses
+
+    from navlab_dpe_sdr_tpu.constants import MU
+
+    n = np.sqrt(MU / (e.sqrt_A ** 2) ** 3) + e.delta_n
+    e2 = dataclasses.replace(e)
+    e2.t_oe = e.t_oe + dt
+    e2.M_0 = e.M_0 + n * dt
+    e2.OMEGA_0 = e.OMEGA_0 + e.OMEGADOT * dt
+    e2.i_0 = e.i_0 + e.IDOT * dt
+    e2.IODE = (e.IODE + 1) % 256
+    return e2
+
+
+def test_run_batched_ephemeris_cutover_matches_jax(scenario):
+    """A closest-toe set switch inside the first batch sends the port down
+    the exact per-block prep path (_prepare_block), as the JAX receiver:
+    fixes equal."""
+    from navlab_dpe_sdr_tpu.libgnss.ephemeris import EphManager
+
+    samples, hand, arr, grid, _ = scenario
+    runs = []
+    for pkg in (jmodel, tmodel):
+        table = {e.prn: [copy.deepcopy(e), _rereference(e, 2 * 120.0 + 0.16)]
+                 for e in arr.ephs}
+        mgr = EphManager(table, hand.prn_list, fit_interval_s=7200.0)
+        kw = dict(device="cpu") if pkg is tmodel else {}
+        rx = pkg.DPEReceiver(SampleFile(samples=samples.copy(), fs=FS),
+                             copy.deepcopy(hand), grid=grid,
+                             config=pkg.DPEConfig(ekf_mode="alpha"),
+                             eph_manager=mgr, **kw)
+        rx.run_batched(12, lookahead=6, raw_blocks_dev=_capture(samples, pkg))
+        assert mgr.current_idx == [1] * len(hand.prn_list)
+        runs.append(rx)
+    for fj, ft in zip(*(r.fixes for r in runs)):
+        np.testing.assert_allclose(ft.x_ecef, fj.x_ecef, rtol=0, atol=1e-6)
+
+
+def test_unported_configs_raise(scenario):
+    samples, hand, arr, grid, _ = scenario
+    for cfg in (dict(engine="fft"), dict(mesh=object()),
+                dict(refine="newton"), dict(ekf_mode="full"),
+                dict(dump_scores_to="/nonexistent"), dict(interp="sinc")):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            tmodel.DPEReceiver(SampleFile(samples=samples, fs=FS),
+                               copy.deepcopy(hand), grid=grid,
+                               config=tmodel.DPEConfig(**cfg), eph=arr,
+                               device="cpu")
+    rx = _receiver(tmodel, scenario)
+    for call in (lambda: rx.step(), lambda: rx.run(1),
+                 lambda: rx.run_integrated(1), lambda: rx.noise_envelope(),
+                 lambda: rx.run_survey(1)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            call()
+
+
+def test_device_capture_bounds_are_checked(scenario):
+    rx = _receiver(tmodel, scenario)
+    cap = _capture(scenario[0], tmodel)
+    with pytest.raises(ValueError, match="holds 18 blocks"):
+        rx.run_batched(6, lookahead=6, raw_blocks_dev=cap, start_block=15)
