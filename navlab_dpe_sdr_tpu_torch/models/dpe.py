@@ -1,18 +1,22 @@
-"""Direct Position Estimation receiver, batched mode, on torch devices.
+"""Direct Position Estimation receiver on torch devices: the per-block step
+and the batched mode.
 
-Port of navlab_dpe_sdr_tpu/models/dpe.py for the batched main path
-(`run_batched`): host bookkeeping stays float64 numpy, copied verbatim
-from the JAX receiver; only the device calls change. Per dispatch the
-host prepares N blocks of channel predictions and manifold geometry
-(`_prepare_batch`), uploads them as one packed array, runs the fused
-correlate + score step (ops/dpe_real.dpe_batch_blocks) and queues one
+Port of navlab_dpe_sdr_tpu/models/dpe.py (`step`/`run` and `run_batched`):
+host bookkeeping stays float64 numpy, copied verbatim from the JAX
+receiver; only the device calls change. Per block, `step` prepares the
+channel predictions and manifold geometry, uploads them with the raw block
+and runs ops/dpe_real.dpe_device_step_real (the windowed correlator, then
+both full score surfaces through K2), then takes the argmax or the
+score-weighted mean on the host. Per batched dispatch the host prepares N
+blocks (`_prepare_batch`), uploads them as one packed array, runs the fused
+correlate + score step (ops/dpe_real.dpe_batch_blocks, K1) and queues one
 asynchronous fetch of the packed result rows; `_drain_batch` applies the
 measurements at batch boundaries.
 
 The receiver takes the JAX package's numpy objects (Handoff, Grid,
 EphArray), so a JAX receiver's `save_handoff()` starts a port receiver
-that continues the same run. Configurations outside this slice raise
-NotImplementedError naming their ROADMAP Queue 1 item.
+that continues the same run. Configurations outside the ported slices
+raise NotImplementedError naming their ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations
@@ -64,7 +68,7 @@ class DPEConfig:
     doppler_sign: float = 1.0
     use_sat_cache: bool = True       # Hermite-interpolated satellite states
     refine: str | None = None        # "newton" sub-grid polish (not ported)
-    dump_scores_to: str | None = None  # per-block score dump (not ported)
+    dump_scores_to: str | None = None  # per-block score dump (npz)
     mesh: object | None = None         # multi-device scoring (not ported)
     ekf_q_accel: float = 1.0
     ekf_q_pos: float = 25.0
@@ -85,8 +89,6 @@ def _check_config(cfg: DPEConfig) -> None:
          "item 4 (refine and full EKF)"),
         (cfg.ekf_mode == "full", "ekf_mode='full'",
          "item 4 (refine and full EKF)"),
-        (bool(cfg.dump_scores_to), "dump_scores_to",
-         "item 1 (per-block step)"),
         (cfg.interp not in ("quadratic", "linear"),
          f"interp={cfg.interp!r}", "item 5 (integrated and survey modes)"),
     ]
@@ -364,17 +366,138 @@ class DPEReceiver:
         self.fc = (F_CA + self.rawfile.fcaid * bc_fi
                    + (bc_rc - self.rc) / self.cfg.T)
 
-    # -- modes outside this slice --------------------------------------------
+    # -- the per-block step --------------------------------------------------
 
-    def step(self, raw_block=None):
-        raise NotImplementedError(
-            "per-block step() is not ported yet: ROADMAP Queue 1 item 1 "
-            "(per-block step); use run_batched")
+    def _advance_gap(self):
+        """Propagate state across the duty-cycle skip T_big - T (the JAX
+        receiver's `_advance_gap`)."""
+        t_skip = self.rawfile.T_skip
+        if t_skip <= 0:
+            return
+        adv = self.rc + self.fc * t_skip
+        self.cp += np.floor(adv / L_CA)
+        self.rc = np.mod(adv, L_CA)
+        self.ri = np.mod(self.ri + self.fi * t_skip, 1.0)
+        self.rx_time += t_skip
+        self.rx_time_a = self.rx_time - self.ekf.x[3] / C
+
+    def _upload_block(self, raw_block) -> torch.Tensor:
+        """One block as an [S, 2] tensor on the device: int16 (or f32) I/Q
+        from read_block_raw, or a complex array as the JAX step takes."""
+        if np.iscomplexobj(raw_block):
+            raw_block = np.stack([raw_block.real, raw_block.imag],
+                                 axis=-1).astype(np.float32)
+        return dpe_real_ops.to_device(raw_block, self.device)
+
+    def step(self, raw_block: np.ndarray | None = None) -> DPEFix:
+        """One 20 ms block: predict, correlate and score on the device, one
+        measurement update (the JAX `DPEReceiver.step`)."""
+        self._maybe_reselect_eph()
+        rf = self.rawfile
+        if raw_block is None:
+            if rf.S_skip:
+                rf.skip_gap()
+                self._advance_gap()
+            raw_block = rf.read_block_raw()
+        raw = self._upload_block(raw_block)
+        # 1. time update
+        self.ekf.time_update()
+        self.rx_time += self.cfg.T
+        self.rx_time_a = self.rx_time - self.ekf.x[3] / C
+
+        # 2. pre-prediction channel state (the replicas use it) and the
+        #    nav-bit flip boundary
+        rc_snap = self.rc.copy()
+        dfc_snap = self.fc - F_CA
+        fi_corr = self.fi.astype(np.float32)
+        ri_corr = self.ri.astype(np.float32)
+        idx_next = self._idx_next_bit()
+
+        # 3. channel prediction to block end (host float64)
+        self._predict_channels()
+        self.mc += 1
+
+        # 4. manifold geometry (host float64 centers)
+        sats_eci, _ = self._sats_now()
+        (los_enu, r0, pos_idx_c, pos_coef, vel_idx_c, vel_coef,
+         r_e2n) = self._manifold_params(sats_eci)
+        pos_start = np.clip(np.round(pos_idx_c).astype(np.int64)
+                            - self.code_win // 2, 0,
+                            self.S - self.code_win).astype(np.int32)
+        vel_start = np.clip(np.round(vel_idx_c).astype(np.int64)
+                            - self.carr_win // 2, 0,
+                            self.carr_fftpts - self.carr_win).astype(np.int32)
+        rc_mid = np.mod(rc_snap + dfc_snap * (self.cfg.T / 2.0), L_CA)
+
+        # 5. one packed upload, the fused device step (K2 for the scores)
+        fpk = np.stack([
+            rc_mid, fi_corr, ri_corr,
+            los_enu[:, 0], los_enu[:, 1], los_enu[:, 2], r0,
+            pos_idx_c - pos_start, pos_coef,
+            vel_idx_c - vel_start, vel_coef]).astype(np.float32)
+        ipk = np.stack([idx_next, pos_start, vel_start]).astype(np.int32)
+        fp, ip = dpe_real_ops.unpack_params(dpe_real_ops.to_device(
+            dpe_real_ops.pack_params(fpk[None], ipk[None], 0), self.device))
+        fp, ip = fp[0], ip[0]
+        params = dpe_ops.ManifoldParams(
+            los_enu=fp[3:6].T, r0=fp[6], pos_center=fp[7], pos_coef=fp[8],
+            vel_center=fp[9], vel_coef=fp[10])
+        d = self._dev
+        rawf = raw.float()
+        (pos_scores, pos_arg, vel_scores, vel_arg, flip_used, _,
+         _) = dpe_real_ops.dpe_device_step_real(
+            rawf[:, 0], rawf[:, 1], d.chips, fp[0], ip[0], fp[1], fp[2],
+            d.time_idc, ip[1], ip[2], params, d.d_enu, d.dt_m, d.dv_enu,
+            d.dtdot, carr_fftpts=self.carr_fftpts, period=self.period,
+            n_periods=self.S // self.period, l_power=self.cfg.l_power,
+            interp=self.cfg.interp, code_win=self.code_win,
+            carr_win=self.carr_win)
+
+        if self.cfg.use_argmax:
+            pa, va = int(pos_arg), int(vel_arg)
+            d_enu = self.grid.d_enu[pa]
+            dt = self.grid.dt_m[pa]
+            dv_enu = self.grid.dv_enu[va]
+            dtdot = self.grid.dtdot[va]
+            pos_peak = float(pos_scores[pa])
+            vel_peak = float(vel_scores[va])
+        else:   # score-weighted mean, host float64 (JAX models/dpe.py:574)
+            ps = pos_scores.cpu().numpy().astype(np.float64)
+            vs = vel_scores.cpu().numpy().astype(np.float64)
+            d_enu = ps @ self.grid.d_enu / ps.sum()
+            dt = ps @ self.grid.dt_m / ps.sum()
+            dv_enu = vs @ self.grid.dv_enu / vs.sum()
+            dtdot = vs @ self.grid.dtdot / vs.sum()
+            pos_peak, vel_peak = float(ps.max()), float(vs.max())
+
+        z = self.ekf.x.copy()
+        z[0:3] += r_e2n.T @ d_enu
+        z[3] += dt
+        z[4:7] += r_e2n.T @ dv_enu
+        z[7] += dtdot
+        self.ekf.measurement_update(z)
+        self.rx_time_a = self.rx_time - self.ekf.x[3] / C
+
+        # 6. back-calculate channel frequencies from the updated state
+        self._update_channels_from_state()
+
+        if self.cfg.dump_scores_to:
+            np.savez(f"{self.cfg.dump_scores_to}/scores_{self.mc:06d}.npz",
+                     pos=pos_scores.cpu().numpy(),
+                     vel=vel_scores.cpu().numpy())
+        self.flip_log.append(flip_used.cpu().numpy())
+        fix = DPEFix(mc=self.mc, rx_time=self.rx_time,
+                     rx_time_a=self.rx_time_a, x_ecef=self.ekf.x.copy(),
+                     pos_score=pos_peak, vel_score=vel_peak)
+        self.fixes.append(fix)
+        return fix
 
     def run(self, n_blocks: int):
-        raise NotImplementedError(
-            "per-block run() is not ported yet: ROADMAP Queue 1 item 1 "
-            "(per-block step); use run_batched")
+        for _ in range(n_blocks):
+            self.step()
+        return self.fixes
+
+    # -- modes outside the ported slices ------------------------------------
 
     def run_integrated(self, *args, **kwargs):
         raise NotImplementedError(

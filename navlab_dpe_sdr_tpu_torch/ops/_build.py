@@ -29,6 +29,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
+# Kernel launches since the last reset, keyed by kernel name
+# ("score_argmax", "score_surface", "correlate_window", "track_chunk").
+# Each wrapper adds one right after its kernel launches, and nowhere else.
+_launches: dict[str, int] = {}
+
+
+def count_launch(kernel: str) -> None:
+    _launches[kernel] = _launches.get(kernel, 0) + 1
+
+
+def launch_counts() -> dict[str, int]:
+    """{kernel name: launches since the last reset} (0 for none)."""
+    return {k: _launches.get(k, 0) for k in (
+        "score_argmax", "score_surface", "correlate_window", "track_chunk")}
+
+
+def reset_launch_counts() -> None:
+    _launches.clear()
+
 
 def nvcc_path() -> str:
     """The CUDA compiler: $CUDA_HOME/bin/nvcc, nvcc on PATH, or the

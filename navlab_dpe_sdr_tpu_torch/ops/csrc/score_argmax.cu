@@ -1,10 +1,15 @@
-// Manifold scoring with a fused streaming argmax, for Hopper (sm_90a).
+// Manifold scoring with a fused streaming argmax (K1), and the full score
+// surface of one block (K2), for Hopper (sm_90a).
 //
-// Replaces the TPU kernel navlab_dpe_sdr_tpu/ops/pallas_score.py
-// _chunk_kernel / score_chunk_pallas (K1), and the XLA scorer the JAX
-// product path runs in its place (ops/dpe_real.py _score_chunk under
-// _local_argmax_scan). For block n and grid point g (offsets o3 [G, 3],
-// o1 [G]):
+// K1 replaces the TPU kernel navlab_dpe_sdr_tpu/ops/pallas_score.py
+// _chunk_kernel / score_chunk_pallas, and the XLA scorer the JAX product
+// path runs in its place (ops/dpe_real.py _score_chunk under
+// _local_argmax_scan). K2 (score_surface_launch) replaces _score_kernel /
+// score_manifold_pallas of the same file: the per-block step's [G] scores
+// (ops/dpe_real.py score_manifolds_mag), which the score-weighted mean and
+// the score dumps need whole. Both evaluate each point with the same
+// __device__ function (point_score). For block n and grid point g (offsets
+// o3 [G, 3], o1 [G]):
 //
 //   u_c   = los[n, c] . o3[g]
 //   idx_c = center[n, c] + coef[n, c] * (-u_c + (|o3|^2 - u_c^2) / (2 r0[n, c])
@@ -24,7 +29,9 @@
 // instruction throughput, not by HBM. The [N, G] score surface never
 // reaches device memory: each thread block reduces its tile to (max, first
 // index, weighted partial sums), and a second small kernel reduces the
-// tiles of each block n.
+// tiles of each block n. K2 does the same arithmetic and writes the
+// surface (1.56 MB per manifold and block at N = 1), one 4-byte store per
+// point: still bound by instructions, not by the store stream.
 //
 // Design (first, simple form): launch grid (tiles of 256 points, N); one
 // thread per grid point looping over the C channels; block n's windows and
@@ -109,6 +116,64 @@ __device__ Acc block_reduce(Acc a, bool weighted) {
   return a;
 }
 
+// Block n's windows [C * W] and per-channel parameters [C * kPar] into
+// shared memory.
+__device__ __forceinline__ void stage_block(const float* __restrict__ win,
+                                            const float* __restrict__ los,
+                                            const float* __restrict__ centers,
+                                            const float* __restrict__ coefs,
+                                            const float* __restrict__ r0, int n,
+                                            int n_chan, int width, float* s_win,
+                                            float* s_par) {
+  const int cw = n_chan * width;
+  for (int i = threadIdx.x; i < cw; i += blockDim.x) s_win[i] = win[(size_t)n * cw + i];
+  for (int c = threadIdx.x; c < n_chan; c += blockDim.x) {
+    const size_t nc = (size_t)n * n_chan + c;
+    s_par[c * kPar + 0] = los[nc * 3 + 0];
+    s_par[c * kPar + 1] = los[nc * 3 + 1];
+    s_par[c * kPar + 2] = los[nc * 3 + 2];
+    s_par[c * kPar + 3] = r0 != nullptr ? 2.0f * r0[nc] : 1.0f;
+    s_par[c * kPar + 4] = centers[nc];
+    s_par[c * kPar + 5] = coefs[nc];
+  }
+}
+
+// The score of one grid point (offsets x, y, z, t) summed over channels:
+// the f32 arithmetic of ops/score.py score_points, operation for operation.
+template <bool kQuadRange, bool kLinear>
+__device__ __forceinline__ float point_score(const float* s_win, const float* s_par,
+                                             int n_chan, int width, int l_power,
+                                             float x, float y, float z, float t) {
+  const float d2 = x * x + y * y + z * z;
+  const float wmax = (float)(width - 1);
+  float acc = 0.0f;
+  for (int c = 0; c < n_chan; ++c) {
+    const float* p = s_par + c * kPar;
+    const float u = p[0] * x + p[1] * y + p[2] * z;
+    const float rng = kQuadRange ? -u + (d2 - u * u) / p[3] : -u;
+    const float idx = p[4] + p[5] * (rng + t);
+    const float* wr = s_win + c * width;
+    float v;
+    if (kLinear) {
+      const float k0 = floorf(idx);
+      const float k1 = k0 + 1.0f;
+      v = 0.0f;
+      if (k0 >= 0.0f && k0 <= wmax) v += fmaxf(0.0f, 1.0f - fabsf(idx - k0)) * wr[(int)k0];
+      if (k1 >= 0.0f && k1 <= wmax) v += fmaxf(0.0f, 1.0f - fabsf(idx - k1)) * wr[(int)k1];
+    } else {
+      const float k0 = fminf(fmaxf(rintf(idx), 1.0f), (float)(width - 2));
+      const float d = idx - k0;
+      const float dd = d * d;
+      const int k = (int)k0;
+      v = 0.5f * (dd - d) * wr[k - 1] + (1.0f - dd) * wr[k] + 0.5f * (dd + d) * wr[k + 1];
+    }
+    float vp = v;
+    for (int q = 1; q < l_power; ++q) vp *= v;
+    acc += vp;
+  }
+  return acc;
+}
+
 template <bool kQuadRange, bool kLinear>
 __global__ void __launch_bounds__(kThreads)
 score_tiles(const float* __restrict__ win, const float* __restrict__ los,
@@ -121,17 +186,8 @@ score_tiles(const float* __restrict__ win, const float* __restrict__ los,
   float* s_win = smem;                   // [C * W]
   float* s_par = smem + n_chan * width;  // [C * kPar]
   const int n = blockIdx.y;
-  const int cw = n_chan * width;
-  for (int i = threadIdx.x; i < cw; i += blockDim.x) s_win[i] = win[(size_t)n * cw + i];
-  for (int c = threadIdx.x; c < n_chan; c += blockDim.x) {
-    const size_t nc = (size_t)n * n_chan + c;
-    s_par[c * kPar + 0] = los[nc * 3 + 0];
-    s_par[c * kPar + 1] = los[nc * 3 + 1];
-    s_par[c * kPar + 2] = los[nc * 3 + 2];
-    s_par[c * kPar + 3] = kQuadRange ? 2.0f * r0[nc] : 1.0f;
-    s_par[c * kPar + 4] = centers[nc];
-    s_par[c * kPar + 5] = coefs[nc];
-  }
+  stage_block(win, los, centers, coefs, kQuadRange ? r0 : nullptr, n, n_chan, width,
+              s_win, s_par);
   __syncthreads();
 
   Acc a = acc_empty();
@@ -141,33 +197,8 @@ score_tiles(const float* __restrict__ win, const float* __restrict__ los,
     const float y = off3[3 * (size_t)g + 1];
     const float z = off3[3 * (size_t)g + 2];
     const float t = off1[g];
-    const float d2 = x * x + y * y + z * z;
-    const float wmax = (float)(width - 1);
-    float acc = 0.0f;
-    for (int c = 0; c < n_chan; ++c) {
-      const float* p = s_par + c * kPar;
-      const float u = p[0] * x + p[1] * y + p[2] * z;
-      const float rng = kQuadRange ? -u + (d2 - u * u) / p[3] : -u;
-      const float idx = p[4] + p[5] * (rng + t);
-      const float* wr = s_win + c * width;
-      float v;
-      if (kLinear) {
-        const float k0 = floorf(idx);
-        const float k1 = k0 + 1.0f;
-        v = 0.0f;
-        if (k0 >= 0.0f && k0 <= wmax) v += fmaxf(0.0f, 1.0f - fabsf(idx - k0)) * wr[(int)k0];
-        if (k1 >= 0.0f && k1 <= wmax) v += fmaxf(0.0f, 1.0f - fabsf(idx - k1)) * wr[(int)k1];
-      } else {
-        const float k0 = fminf(fmaxf(rintf(idx), 1.0f), (float)(width - 2));
-        const float d = idx - k0;
-        const float dd = d * d;
-        const int k = (int)k0;
-        v = 0.5f * (dd - d) * wr[k - 1] + (1.0f - dd) * wr[k] + 0.5f * (dd + d) * wr[k + 1];
-      }
-      float vp = v;
-      for (int q = 1; q < l_power; ++q) vp *= v;
-      acc += vp;
-    }
+    const float acc = point_score<kQuadRange, kLinear>(s_win, s_par, n_chan, width,
+                                                      l_power, x, y, z, t);
     a.best = acc;
     a.arg = g;
     if (weighted) {
@@ -213,6 +244,29 @@ reduce_tiles(const float* __restrict__ part_best, const int* __restrict__ part_a
       wtot[n] = (float)a.w[4];
     }
   }
+}
+
+// K2: the whole score surface out[n, g] of block n (no reduction), for the
+// per-block step, its score-weighted mean and its score dumps.
+template <bool kQuadRange, bool kLinear>
+__global__ void __launch_bounds__(kThreads)
+score_surface_kernel(const float* __restrict__ win, const float* __restrict__ los,
+                     const float* __restrict__ centers, const float* __restrict__ coefs,
+                     const float* __restrict__ r0, const float* __restrict__ off3,
+                     const float* __restrict__ off1, int n_chan, int width, int n_grid,
+                     int l_power, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  float* s_win = smem;
+  float* s_par = smem + n_chan * width;
+  const int n = blockIdx.y;
+  stage_block(win, los, centers, coefs, kQuadRange ? r0 : nullptr, n, n_chan, width,
+              s_win, s_par);
+  __syncthreads();
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < n_grid)
+    out[(size_t)n * n_grid + g] = point_score<kQuadRange, kLinear>(
+        s_win, s_par, n_chan, width, l_power, off3[3 * (size_t)g + 0],
+        off3[3 * (size_t)g + 1], off3[3 * (size_t)g + 2], off1[g]);
 }
 
 template <bool kQuadRange, bool kLinear>
@@ -270,6 +324,32 @@ int score_argmax_launch(const float* win, const float* los, const float* centers
   if (err != cudaSuccess) return (int)err;
   reduce_tiles<<<n_blocks, kThreads, 0, s>>>(part_best, part_arg, part_w, tiles, weighted,
                                              best, arg, wsum4, wtot);
+  return (int)cudaGetLastError();
+}
+
+// K2: scores out [N, G] of every grid point for every block; the same
+// operands and limits as score_argmax_launch. Returns cudaGetLastError().
+int score_surface_launch(const float* win, const float* los, const float* centers,
+                         const float* coefs, const float* r0, const float* off3,
+                         const float* off1, int n_blocks, int n_chan, int width,
+                         int n_grid, int linear, int l_power, float* out,
+                         void* stream) {
+  if (n_blocks <= 0 || n_blocks > 65535 || n_chan <= 0 || n_grid <= 0 ||
+      l_power < 1 || width < (linear ? 1 : 3))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)n_chan * (width + kPar) * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_grid + kThreads - 1) / kThreads, n_blocks);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool quad = r0 != nullptr;
+#define NAVLAB_SURFACE(Q, L)                                                    \
+  score_surface_kernel<Q, L><<<grid, kThreads, smem, s>>>(                      \
+      win, los, centers, coefs, r0, off3, off1, n_chan, width, n_grid, l_power, out)
+  if (quad && linear) NAVLAB_SURFACE(true, true);
+  else if (quad) NAVLAB_SURFACE(true, false);
+  else if (linear) NAVLAB_SURFACE(false, true);
+  else NAVLAB_SURFACE(false, false);
+#undef NAVLAB_SURFACE
   return (int)cudaGetLastError();
 }
 

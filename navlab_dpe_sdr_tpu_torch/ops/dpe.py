@@ -1,14 +1,18 @@
-"""DPE score-window sizing (port of navlab_dpe_sdr_tpu/ops/dpe.py:44-88).
+"""DPE score-window sizing and the per-block manifold geometry (port of
+navlab_dpe_sdr_tpu/ops/dpe.py:44-88 and :157).
 
-Plain numpy, copied verbatim: the window widths are host-side decisions
-made once per receiver from the grid geometry. The FFT engine of the JAX
-module (batch_correlate, dpe_device_step) is not ported yet (ROADMAP
-Queue 1).
+`auto_windows` is plain numpy, copied verbatim: the window widths are
+host-side decisions made once per receiver from the grid geometry. The FFT
+engine of the JAX module (batch_correlate, dpe_device_step) is not ported
+yet (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
+import torch
 
 from navlab_dpe_sdr_tpu.constants import C, F_L1
 
@@ -56,3 +60,18 @@ def auto_windows(d_enu, dt_m, dv_enu, dtdot, fs: float,
         return max(8, (w + 3) // 4 * 4)     # multiple of 4, floor 8
 
     return _w(span_code), _w(span_carr)
+
+
+class ManifoldParams(NamedTuple):
+    """Per-channel scoring geometry of one block ([C] f32 tensors;
+    los_enu [C, 3]), computed on the host in float64. For grid point g with
+    ENU offset d and clock offset dT (meters), u = los_enu . d:
+      code index = pos_center + pos_coef * (-u + (|d|^2 - u^2)/(2 r0) + dT)
+      carr index = vel_center + vel_coef * (-los_enu . dv + dTdot)
+    """
+    los_enu: torch.Tensor
+    r0: torch.Tensor
+    pos_center: torch.Tensor
+    pos_coef: torch.Tensor
+    vel_center: torch.Tensor
+    vel_coef: torch.Tensor

@@ -30,8 +30,8 @@ import torch.nn.functional as F
 
 from navlab_dpe_sdr_tpu.constants import L_CA
 
-from .dpe import CARR_WIN, CODE_WIN
-from .score import score_argmax
+from .dpe import CARR_WIN, CODE_WIN, ManifoldParams
+from .score import score_argmax, score_surface
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -274,6 +274,48 @@ def windowed_correlate(raw_re, raw_im, chips, rc_mid, idx_next, fi, ri,
     return RealBlockOut(code_mag=torch.sqrt(w_re * w_re + w_im * w_im),
                         carr_mag=torch.sqrt(x_re * x_re + x_im * x_im),
                         flip_used=use_flip)
+
+
+def score_manifolds_mag(code_mag, carr_mag, params: ManifoldParams, d_enu,
+                        dt_m, dv_enu, dtdot, l_power: int = 1,
+                        interp: str = "quadratic"):
+    """(pos_scores [G], pos_arg, vel_scores [G], vel_arg) of one block's
+    magnitude windows code_mag/carr_mag [C, W] (the JAX
+    `score_manifolds_mag`): both surfaces through `score_surface` (K2) and
+    first-occurrence argmaxes."""
+    los = params.los_enu[None]
+    pos = score_surface(code_mag[None], los, params.pos_center[None],
+                        params.pos_coef[None], params.r0[None], d_enu, dt_m,
+                        interp=interp, l_power=l_power)[0]
+    vel = score_surface(carr_mag[None], los, params.vel_center[None],
+                        params.vel_coef[None], None, dv_enu, dtdot,
+                        interp=interp, l_power=l_power)[0]
+    return pos, torch.argmax(pos), vel, torch.argmax(vel)
+
+
+def dpe_device_step_real(raw_re, raw_im, chips, rc_mid, idx_next, fi, ri,
+                         time_idc, pos_start, vel_start,
+                         params: ManifoldParams, d_enu, dt_m, dv_enu, dtdot,
+                         carr_fftpts: int, period: int, n_periods: int,
+                         l_power: int = 1, interp: str = "quadratic",
+                         code_win: int = CODE_WIN, carr_win: int = CARR_WIN):
+    """One block's fused DPE step (the JAX `dpe_device_step_real`):
+    `windowed_correlate` at N = 1, then both score surfaces.
+
+    raw_re/raw_im [S] f32; rc_mid/fi/ri [C] f32; idx_next/pos_start/
+    vel_start [C] int. Returns (pos_scores [G], pos_arg, vel_scores [G],
+    vel_arg, flip_used [C], code_mag [C, code_win], carr_mag [C, carr_win]).
+    """
+    out = windowed_correlate(
+        raw_re[None], raw_im[None], chips, rc_mid[None], idx_next[None],
+        fi[None], ri[None], time_idc, pos_start[None], vel_start[None],
+        carr_fftpts, period, n_periods, code_win=code_win, carr_win=carr_win)
+    code_mag, carr_mag = out.code_mag[0], out.carr_mag[0]
+    pos, pos_arg, vel, vel_arg = score_manifolds_mag(
+        code_mag, carr_mag, params, d_enu, dt_m, dv_enu, dtdot,
+        l_power=l_power, interp=interp)
+    return (pos, pos_arg, vel, vel_arg, out.flip_used[0], code_mag,
+            carr_mag)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Manifold scoring with a streaming argmax (port of K1).
+"""Manifold scoring: a streaming argmax (port of K1) and the full score
+surface of a block (port of K2).
 
 `score_argmax` is the contract of the JAX package's `_score_axis_argmax`
 without a mesh (navlab_dpe_sdr_tpu/ops/dpe_real.py:1171): for each block n,
@@ -11,6 +12,13 @@ On a CUDA tensor it launches the hand-written Hopper kernel
 `csrc/score_argmax.cu` (the port of ops/pallas_score.py `_chunk_kernel`);
 on a CPU tensor it runs `score_argmax_plain`, the same arithmetic in plain
 PyTorch. There is no fallback between the two.
+
+`score_surface` returns the whole [N, G] surface instead (the per-block
+step's `score_manifolds_mag`, navlab_dpe_sdr_tpu/ops/dpe_real.py:751, whose
+TPU kernel is pallas_score.py `_score_kernel`): the same file's second
+kernel on a CUDA tensor, `score_surface_plain` on a CPU tensor. Both kernels
+evaluate a point with one device function, so their scores are those of
+`score_points`, bit for bit.
 """
 
 from __future__ import annotations
@@ -23,18 +31,6 @@ from . import _build
 
 INTERP_MODES = ("quadratic", "linear")
 PLAIN_CHUNK = 16384     # grid points per step of the plain streaming scan
-
-_launches = 0
-
-
-def launch_count() -> int:
-    """Kernel launches made by `score_argmax` since the last reset."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
 
 
 def score_points(win_mag, los_enu, centers, coefs, r0, o3, o1,
@@ -141,6 +137,51 @@ def score_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
                               off1, interp, int(l_power), weighted)
 
 
+def score_surface_plain(win_mag, los_enu, centers, coefs, r0, off3, off1,
+                        interp: str = "quadratic", l_power: int = 1,
+                        chunk: int = PLAIN_CHUNK):
+    """Plain PyTorch `score_surface`: `score_points` over grid chunks."""
+    return torch.cat([score_points(win_mag, los_enu, centers, coefs, r0,
+                                   off3[g0:g0 + chunk], off1[g0:g0 + chunk],
+                                   interp, l_power)
+                      for g0 in range(0, off3.shape[0], chunk)], dim=1)
+
+
+def score_surface(win_mag, los_enu, centers, coefs, r0, off3, off1,
+                  interp: str = "quadratic", l_power: int = 1):
+    """Scores [N, G] f32 of every grid point off3 [G, 3], off1 [G] for
+    every block (K2's contract; the per-block step calls it at N = 1).
+
+    CPU tensors -> `score_surface_plain`; CUDA tensors -> the kernel, or an
+    exception."""
+    if interp not in INTERP_MODES:
+        raise NotImplementedError(
+            f"interp={interp!r} is not ported (ROADMAP Queue 1 item 5)")
+    if int(l_power) < 1:
+        raise ValueError(f"l_power must be >= 1, got {l_power}")
+    dev = win_mag.device
+    if dev.type == "cpu":
+        return score_surface_plain(win_mag, los_enu, centers, coefs, r0,
+                                   off3, off1, interp, l_power)
+    if dev.type != "cuda":
+        raise ValueError(f"score_surface runs on cpu or cuda, not {dev}")
+    ops, (n, c, w, g) = _operands(win_mag, los_enu, centers, coefs, r0, off3,
+                                  off1, "score_surface")
+    out = torch.empty((n, g), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.score_surface_launch(
+            *(None if t is None else t.data_ptr() for t in ops), n, c, w, g,
+            int(interp == "linear"), int(l_power), out.data_ptr(), stream)
+    if rc != 0:
+        msg = lib.score_argmax_error_string(rc).decode()
+        raise RuntimeError(f"score_surface kernel launch failed: {msg} "
+                           f"(cudaError {rc})")
+    _build.count_launch("score_surface")
+    return out
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("score_argmax")
     if lib.score_argmax_launch.argtypes is None:
@@ -148,6 +189,8 @@ def _lib() -> ctypes.CDLL:
         lib.score_argmax_launch.argtypes = ([p] * 7 + [i] * 7 + [p] * 7
                                             + [p])
         lib.score_argmax_launch.restype = ctypes.c_int
+        lib.score_surface_launch.argtypes = [p] * 7 + [i] * 6 + [p, p]
+        lib.score_surface_launch.restype = ctypes.c_int
         lib.score_argmax_tile.argtypes = []
         lib.score_argmax_tile.restype = ctypes.c_int
         lib.score_argmax_error_string.argtypes = [i]
@@ -164,17 +207,15 @@ def _operand(t, dev, shape, name):
     return t.contiguous()
 
 
-def _score_argmax_cuda(win_mag, los_enu, centers, coefs, r0, off3, off1,
-                       interp, l_power, weighted):
-    global _launches
+def _operands(win_mag, los_enu, centers, coefs, r0, off3, off1, name):
+    """Checked, contiguous kernel operands and (N, C, W, G)."""
     dev = win_mag.device
     n, c, w = win_mag.shape
     g = off3.shape[0]
     if not 0 < n <= 65535 or not 0 < g < 2 ** 31 - 1024:
-        raise ValueError(f"score_argmax: N={n}, G={g} out of the kernel's "
-                         f"range")
+        raise ValueError(f"{name}: N={n}, G={g} out of the kernel's range")
     if c * (w + 6) * 4 > 48 * 1024:
-        raise ValueError(f"score_argmax: C={c} x W={w} windows exceed the "
+        raise ValueError(f"{name}: C={c} x W={w} windows exceed the "
                          f"kernel's 48 KB of shared memory")
     ops = [_operand(win_mag, dev, (n, c, w), "win_mag"),
            _operand(los_enu, dev, (n, c, 3), "los_enu"),
@@ -183,6 +224,14 @@ def _score_argmax_cuda(win_mag, los_enu, centers, coefs, r0, off3, off1,
            None if r0 is None else _operand(r0, dev, (n, c), "r0"),
            _operand(off3, dev, (g, 3), "off3"),
            _operand(off1, dev, (g,), "off1")]
+    return ops, (n, c, w, g)
+
+
+def _score_argmax_cuda(win_mag, los_enu, centers, coefs, r0, off3, off1,
+                       interp, l_power, weighted):
+    dev = win_mag.device
+    ops, (n, c, w, g) = _operands(win_mag, los_enu, centers, coefs, r0, off3,
+                                  off1, "score_argmax")
     lib = _lib()
     tiles = -(-g // lib.score_argmax_tile())
     f32 = dict(dtype=torch.float32, device=dev)
@@ -211,7 +260,7 @@ def _score_argmax_cuda(win_mag, los_enu, centers, coefs, r0, off3, off1,
         msg = lib.score_argmax_error_string(rc).decode()
         raise RuntimeError(f"score_argmax kernel launch failed: {msg} "
                            f"(cudaError {rc})")
-    _launches += 1
+    _build.count_launch("score_argmax")
     out = (best, arg)
     if weighted:
         out = out + (wsum4, wtot)

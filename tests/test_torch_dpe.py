@@ -1,9 +1,13 @@
-"""The port's batched DPE slice vs the JAX receiver on the synthetic
-scenario: the fused dispatch (`dpe_batch_blocks`), the receiver's
-`run_batched` end to end, and a JAX -> port resume through the handoff.
+"""The port's DPE receiver vs the JAX receiver on the synthetic scenario:
+the fused batched dispatch (`dpe_batch_blocks`), `run_batched` end to end, a
+JAX -> port resume through the handoff, and the per-block `step`/`run`
+(argmax and score-weighted mean, score dumps) with its scorer
+`score_surface` (K2's contract).
 
 Fixes are lattice offsets (argmax mode) filtered on the host in float64, so
-equal argmaxes give fixes equal to 1e-6 m."""
+equal argmaxes give fixes equal to 1e-6 m; the weighted mean is a float64
+host sum over f32 scores that agree to ~1e-7, so its fixes agree to 1e-6 m
+as well."""
 
 import copy
 
@@ -57,7 +61,7 @@ def _receiver(pkg, scenario, handoff=None, use_argmax=True, **kw):
     cfg = pkg.DPEConfig(ekf_mode="alpha", ekf_alpha=0.3,
                         use_argmax=use_argmax)
     if pkg is tmodel:
-        kw["device"] = "cpu"
+        kw.setdefault("device", "cpu")
     if handoff is None:
         handoff, kw["eph"] = copy.deepcopy(hand), copy.deepcopy(arr)
     return pkg.DPEReceiver(SampleFile(samples=samples.copy(), fs=FS),
@@ -203,19 +207,30 @@ def test_run_batched_ephemeris_cutover_matches_jax(scenario):
 
 
 def test_unported_configs_raise(scenario):
+    from navlab_dpe_sdr_tpu_torch.models import scalar as tscalar
+    from navlab_dpe_sdr_tpu_torch.ops import tracking as ttrk
+
     samples, hand, arr, grid, _ = scenario
     for cfg in (dict(engine="fft"), dict(mesh=object()),
                 dict(refine="newton"), dict(ekf_mode="full"),
-                dict(dump_scores_to="/nonexistent"), dict(interp="sinc")):
+                dict(interp="sinc")):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             tmodel.DPEReceiver(SampleFile(samples=samples, fs=FS),
                                copy.deepcopy(hand), grid=grid,
                                config=tmodel.DPEConfig(**cfg), eph=arr,
                                device="cpu")
     rx = _receiver(tmodel, scenario)
-    for call in (lambda: rx.step(), lambda: rx.run(1),
-                 lambda: rx.run_integrated(1), lambda: rx.noise_envelope(),
-                 lambda: rx.run_survey(1)):
+    srx = tscalar.ScalarReceiver(SampleFile(samples=samples, fs=FS),
+                                 hand.prn_list, device="cpu")
+    srx.state = ttrk.init_state(rc=hand.rc, ri=hand.ri, fc=hand.fc,
+                                fi=hand.fi, device="cpu")
+    for call in (lambda: rx.run_integrated(1), lambda: rx.noise_envelope(),
+                 lambda: rx.run_survey(1),
+                 lambda: srx.acquire(engine="real", verbose=False),
+                 lambda: srx.acquire(deep_ms=400, verbose=False),
+                 lambda: srx.track(20, coh_ms=4),
+                 lambda: srx.track(20, batch_k=4),
+                 lambda: ttrk.track_open_loop()):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             call()
 
@@ -225,3 +240,129 @@ def test_device_capture_bounds_are_checked(scenario):
     cap = _capture(scenario[0], tmodel)
     with pytest.raises(ValueError, match="holds 18 blocks"):
         rx.run_batched(6, lookahead=6, raw_blocks_dev=cap, start_block=15)
+
+
+@pytest.mark.parametrize("use_argmax", [True, False])
+def test_run_per_block_matches_jax(scenario, use_argmax, tmp_path):
+    """Six per-block steps (`run`), with score dumps: fixes, flips and the
+    dumped [G] surfaces equal to the JAX receiver's."""
+    samples, *_, truth = scenario
+    runs = []
+    for pkg in (jmodel, tmodel):
+        out = tmp_path / pkg.__name__.split(".")[0]
+        out.mkdir()
+        rx = _receiver(pkg, scenario, use_argmax=use_argmax)
+        rx.cfg.dump_scores_to = str(out)
+        fixes = rx.run(6)
+        assert len(fixes) == 6 and [f.mc for f in fixes] == list(range(1, 7))
+        runs.append((rx, out))
+    (jrx, jout), (trx, tout) = runs
+    for fj, ft in zip(jrx.fixes, trx.fixes):
+        np.testing.assert_allclose(ft.x_ecef, fj.x_ecef, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(ft.pos_score, fj.pos_score, rtol=1e-5)
+        np.testing.assert_allclose(ft.vel_score, fj.vel_score, rtol=1e-5)
+    for a, b in zip(jrx.flip_log, trx.flip_log):
+        np.testing.assert_array_equal(b, np.asarray(a))
+    for mc in range(1, 7):
+        dj = np.load(jout / f"scores_{mc:06d}.npz")
+        dt = np.load(tout / f"scores_{mc:06d}.npz")
+        for k in ("pos", "vel"):
+            assert dt[k].shape == dj[k].shape == (7 ** 4,)
+            np.testing.assert_allclose(dt[k], dj[k], rtol=1e-5)
+            assert int(np.argmax(dt[k])) == int(np.argmax(dj[k]))
+    err = np.linalg.norm(trx.fixes[-1].x_ecef[:3] - truth[:3])
+    assert err < 60.0, err
+
+
+def test_per_block_resume_from_jax_handoff(scenario):
+    """JAX per-block steps, save_handoff, the port continues: the same fixes
+    as the uninterrupted JAX run."""
+    full = _receiver(jmodel, scenario)
+    full.run(6)
+    first = _receiver(jmodel, scenario)
+    first.run(3)
+    resumed = _receiver(tmodel, scenario, handoff=first.save_handoff())
+    resumed.run(3)
+    for fa, fb in zip(full.fixes[3:], resumed.fixes):
+        np.testing.assert_allclose(fb.x_ecef, fa.x_ecef, rtol=0, atol=1e-6)
+
+
+def _surface_inputs(seed=3, c=8):
+    """tests/test_pallas_score.py's windows: 64 data taps with a central
+    peak; indices stay inside [1, 62] over the spread grid, so the
+    128-lane padding of the Pallas kernel never comes into play."""
+    from navlab_dpe_sdr_tpu.models.grid import spread_grid
+
+    rng = np.random.default_rng(seed)
+    g = spread_grid()
+    win = np.abs(rng.standard_normal((c, 64))).astype(np.float32) + 0.1
+    for i in range(c):
+        win[i, 30:35] += [3, 8, 12, 8, 3]
+    los = rng.standard_normal((c, 3))
+    los /= np.linalg.norm(los, axis=1, keepdims=True)
+    return (g, win, los, np.full(c, 2.2e7),
+            np.full(c, 32.0) + rng.standard_normal(c) * 0.3,
+            np.full(c, 0.00834))
+
+
+def _t32(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+
+@pytest.mark.parametrize("manifold", ["pos", "vel"])
+def test_score_surface_matches_pallas_interpret(manifold):
+    """K2's contract against `score_manifold_pallas(interpret=True)`: the
+    same scores to f32 rounding of another summation order, argmax equal."""
+    from navlab_dpe_sdr_tpu.ops import pallas_score as jps
+
+    from navlab_dpe_sdr_tpu_torch.ops import score as tscore
+
+    g, win, los, r0, center, coef = _surface_inputs()
+    if manifold == "pos":
+        o3, o1 = g.d_enu, g.dt_m
+        cand, winp, par = jps.pack_pos_inputs(o3, o1, win, los, r0, center,
+                                              coef)
+    else:
+        o3, o1 = g.dv_enu[:20000], g.dtdot[:20000]
+        cand, winp, par = jps.pack_vel_inputs(o3, o1, win, los, center, coef)
+    ref = np.asarray(jps.score_manifold_pallas(
+        jnp.asarray(cand), jnp.asarray(winp), jnp.asarray(par),
+        quad_range=manifold == "pos", interpret=True))
+    out = tscore.score_surface(
+        _t32(win[None]), _t32(los[None]), _t32(center[None]),
+        _t32(coef[None]), _t32(r0[None]) if manifold == "pos" else None,
+        _t32(o3), _t32(o1))[0].numpy()
+    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=1e-4)
+    assert int(np.argmax(out)) == int(np.argmax(ref))
+
+
+@pytest.mark.parametrize("interp,l_power", [("quadratic", 1),
+                                            ("quadratic", 2),
+                                            ("linear", 1)])
+def test_score_manifolds_mag_matches_jax(interp, l_power):
+    """Both manifolds of one block (`score_manifolds_mag`): surfaces within
+    rtol 1e-5, argmaxes equal."""
+    from navlab_dpe_sdr_tpu.ops import dpe as jdpe_ops
+
+    from navlab_dpe_sdr_tpu_torch.ops import dpe as tdpe_ops
+
+    g, win, los, r0, center, coef = _surface_inputs(seed=5)
+    cwin, vwin = win[:, 24:40], win[:, 8:56]          # 16 and 48 taps
+    pc, vc = center - 24.0, center - 8.0
+    vcoef = np.full(8, -0.98)
+    jp = jdpe_ops.ManifoldParams(*(jnp.asarray(np.asarray(a, np.float32))
+                                   for a in (los, r0, pc, coef, vc, vcoef)))
+    tp = tdpe_ops.ManifoldParams(*(_t32(a) for a in
+                                   (los, r0, pc, coef, vc, vcoef)))
+    grid = [g.d_enu, g.dt_m, g.dv_enu[:40000], g.dtdot[:40000]]
+    ref = jreal.score_manifolds_mag(jnp.asarray(cwin), jnp.asarray(vwin), jp,
+                                    *(jnp.asarray(np.float32(a))
+                                      for a in grid),
+                                    l_power=l_power, interp=interp)
+    out = treal.score_manifolds_mag(_t32(cwin), _t32(vwin), tp,
+                                    *(_t32(a) for a in grid),
+                                    l_power=l_power, interp=interp)
+    for i in (0, 2):
+        np.testing.assert_allclose(out[i].numpy(), np.asarray(ref[i]),
+                                   rtol=1e-5)
+        assert int(out[i + 1]) == int(ref[i + 1])

@@ -22,7 +22,8 @@ PORT_MODULES = sorted(
 
 def test_port_modules_listed():
     for name in ("device", "ops._build", "ops.dpe", "ops.dpe_real",
-                 "ops.score", "models.dpe"):
+                 "ops.score", "models.dpe", "ops.acquisition", "ops.track",
+                 "ops.tracking", "models.scalar"):
         assert f"navlab_dpe_sdr_tpu_torch.{name}" in PORT_MODULES
 
 
@@ -67,9 +68,26 @@ def test_score_argmax_refuses_other_devices():
     t = torch.zeros((1, 2, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         score.score_argmax(t, t, t, t, None, t, t)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        score.score_surface(t, t, t, t, None, t, t)
+
+
+def test_scalar_receiver_defaults_to_cuda_and_never_to_cpu():
+    from navlab_dpe_sdr_tpu.io.rawfile import DTYPE_IQ16, SampleFile
+    from navlab_dpe_sdr_tpu_torch.models.scalar import ScalarReceiver
+    from navlab_dpe_sdr_tpu_torch.ops.tracking import init_state
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-CUDA path is moot")
+    rf = SampleFile(samples=np.zeros(50000, DTYPE_IQ16), fs=2.5e6)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ScalarReceiver(rf, [1, 2])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(rc=[0.0], ri=[0.0], fc=[1.023e6], fi=[0.0])
 
 
 def test_build_names_sources_in_the_repo():
-    assert (_build.CSRC / "score_argmax.cu").is_file()
+    for name in ("score_argmax", "track_chunk"):
+        assert (_build.CSRC / f"{name}.cu").is_file()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.parent == _build.CSRC.parent.parent

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from navlab_dpe_sdr_tpu_torch.ops import score
+from navlab_dpe_sdr_tpu_torch.ops import _build, score
 
 torch.set_num_threads(2)
 
@@ -146,9 +146,9 @@ def test_kernel_matches_plain_on_card(with_r0, interp, weighted,
                                       cuda_device):
     args = _inputs(rng_seed=5, n=4, c=8, w=24 if not with_r0 else 8,
                    g=50_000, with_r0=with_r0)
-    before = score.launch_count()
+    before = _build.launch_counts()["score_argmax"]
     out = _port(args, interp, 2, weighted, device=cuda_device)
-    assert score.launch_count() == before + 1
+    assert _build.launch_counts()["score_argmax"] == before + 1
     t = [None if a is None else torch.from_numpy(a).to(cuda_device)
          for a in args]
     plain = [r.cpu().numpy() for r in score.score_argmax_plain(
