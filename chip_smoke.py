@@ -19,11 +19,13 @@ Phases, one line or more each (any failure raises and exits non-zero):
    in coherent groups of 5; K1 launch counts, fix errors against truth,
    wall time and real-time factor;
 6. K3 (correlate_window) against its plain version: seeded state and raw,
-   C=8, S=2500;
+   C=8, S=2500 (one bulk copy per window), and S=2501 (a window that is no
+   multiple of 16 bytes: the kernel's 4-byte copies);
 7. K4 (track_chunk) against its plain version on one 2000 ms chunk of the
    capture from the acquisition result: cp/ncp/lock equal, signs equal
    after step 5, rc within 1e-3 chips, fi within 0.1 Hz, prompt sums within
-   1e-3 of each channel's peak; ms per chunk and real-time factor;
+   1e-3 of each channel's peak; ms per chunk and real-time factor; and one
+   extra launch with the kernel's clock buffer: where a step's time goes;
 8. K2 (score_surface) against its plain version: N=1, G=390 625, both
    manifolds x quadratic/linear x l_power 1/2, argmax equal, rtol 1e-6;
 9. the cold-start path on the card, twice (the second timed: cold receiver
@@ -31,9 +33,12 @@ Phases, one line or more each (any failure raises and exits non-zero):
    a time to 8/8 ephemerides (checked against the scenario's) -> scalar
    PVT -> save_handoff -> DPEReceiver.run(1), then 50 more per-block steps;
    K2/K3/K4 launch counts, errors, TTFF wall, tracking real-time factor.
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (launches on the
+timed paths, error against the plain version, ms, plain ms, the roofline
+bound of the same work and what sets it, library_ms: null where no single
+PyTorch call computes the function); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
-no result. Imports nothing of JAX.
+no result. Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -48,12 +53,12 @@ import time
 import numpy as np
 import torch
 
-from navlab_dpe_sdr_tpu.constants import F_CA, F_L1
-from navlab_dpe_sdr_tpu.io.rawfile import DTYPE_IQ16, SampleFile
-from navlab_dpe_sdr_tpu.io.scenario import make_scenario
-from navlab_dpe_sdr_tpu.io.synth import release_workspace
-from navlab_dpe_sdr_tpu.libgnss.cacode import ca_table
-from navlab_dpe_sdr_tpu.models.grid import spread_grid
+from navlab_dpe_sdr_tpu_torch.constants import F_CA, F_L1
+from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16, SampleFile
+from navlab_dpe_sdr_tpu_torch.io.scenario import make_scenario
+from navlab_dpe_sdr_tpu_torch.io.synth import release_workspace
+from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_table
+from navlab_dpe_sdr_tpu_torch.models.grid import spread_grid
 from navlab_dpe_sdr_tpu_torch.models.dpe import (DPEConfig, DPEReceiver,
                                                  device_state)
 from navlab_dpe_sdr_tpu_torch.models.scalar import ScalarReceiver
@@ -71,6 +76,17 @@ CAPTURE_S = 40.0       # the LNAV wait needs >= 36 s of signal
 TRACK_MS = 2000        # one K4 chunk
 SCORE_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/score_argmax.cu"
 TRACK_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/track_chunk.cu"
+# Published peaks of one H100 SXM (dense, at the 700 W limit): f32 outside
+# the tensor cores, and HBM3.
+PEAK_F32 = 67e12        # operations / s
+PEAK_BYTES = 3.35e12    # bytes / s
+# f32 operations counted from the plain versions: one grid point of one
+# channel in score_points (geometry, round/clip, 3-tap Lagrange weights,
+# the weighted taps, the channel sum), and one sample of one channel in
+# correlate_window_plain (phase, cos and sin, wipeoff, three chip indices,
+# segment, 12 multiply-adds).
+OPS_PER_POINT_CHANNEL = 30
+OPS_PER_SAMPLE_CHANNEL = 60
 KERNELS = {
     "K1": dict(name="score_argmax", route="cuda", source=SCORE_SRC,
                replaces="navlab_dpe_sdr_tpu/ops/pallas_score.py:166"),
@@ -93,6 +109,20 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of operations over
+    the f32 peak and bytes (each input read once, each output written once)
+    over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -135,11 +165,12 @@ def scorer_inputs(rng, manifold: str, width: int, grid, dev):
 
 def check_scorer(grid, widths, dev):
     """Phase 3: kernel vs plain on the card, every case; returns
-    (max |best diff|, kernel ms, plain ms) per dispatch (both manifolds,
-    quadratic, l_power 1, argmax: the main path's calls)."""
+    (max |best diff|, kernel ms, plain ms, bound) per dispatch (both
+    manifolds, quadratic, l_power 1, argmax: the main path's calls)."""
     rng = np.random.default_rng(SEED)
     max_err = 0.0
     times = {}
+    ops = nbytes = 0
     for manifold in ("pos", "vel"):
         args = scorer_inputs(rng, manifold, widths[manifold], grid, dev)
         for interp in ("quadratic", "linear"):
@@ -163,10 +194,15 @@ def check_scorer(grid, widths, dev):
                         times[(manifold, weighted)] = (k_ms, p_ms)
                         line += (f"; kernel {k_ms:.4f} ms, plain "
                                  f"{p_ms:.4f} ms")
+                        if not weighted:
+                            n, c = args[0].shape[:2]
+                            ops += (n * c * args[5].shape[0]
+                                    * OPS_PER_POINT_CHANNEL)
+                            nbytes += tensor_bytes(*args, *got[:2])
                     log(line)
     k_ms = times[("pos", False)][0] + times[("vel", False)][0]
     p_ms = times[("pos", False)][1] + times[("vel", False)][1]
-    return max_err, k_ms, p_ms
+    return max_err, k_ms, p_ms, bound(ops, nbytes)
 
 
 def compare_scores(args, got, want, kw) -> float:
@@ -271,100 +307,142 @@ def build_all():
 
 
 def check_correlator(dev, card):
-    """Phase 6: K3 against its plain version; (max |diff|, ms, plain ms)."""
+    """Phase 6: K3 against its plain version at the path's window (S=2500,
+    staged by one bulk copy) and at S=2501 (10 004 bytes: the 4-byte
+    copies); (max |diff|, ms, plain ms, bound) of the first."""
     rng = np.random.default_rng(SEED)
-    c, s = 8, 2500
+    c = 8
     tab = torch.from_numpy(ca_table(range(1, c + 1)).astype(np.float32)
                            ).to(dev)
     st = tracking.init_state(
         rc=rng.random(c) * 1023.0, ri=rng.random(c),
         fc=F_CA + rng.standard_normal(c), fi=rng.standard_normal(c) * 1000.0,
         device=dev)
-    raw = torch.from_numpy(np.clip(np.round(rng.standard_normal((s, 2))
-                                            * 64.0), -32768, 32767)
-                           .astype(np.int16)).to(dev)
-    rawf = raw.float()
-    times = track.window_times(s, FS, dev)
     args = (st.rc, st.dfc, st.ri, st.fi, tab)
+    result = None
+    for s in (2500, 2501):
+        fs = s * 1000.0
+        raw = torch.from_numpy(np.clip(np.round(rng.standard_normal((s, 2))
+                                                * 64.0), -32768, 32767)
+                               .astype(np.int16)).to(dev)
+        rawf = raw.float()
+        times = track.window_times(s, fs, dev)
 
-    def kernel():
-        return track.correlate_window(raw, *args, FS)
+        def kernel():
+            return track.correlate_window(raw, *args, fs)
 
-    def plain():
-        return track.correlate_window_plain(rawf[:, 0], rawf[:, 1], *args,
-                                            times, FS)[0]
+        def plain():
+            return track.correlate_window_plain(rawf[:, 0], rawf[:, 1],
+                                                *args, times, fs)[0]
 
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    rel = err / float(want.abs().max())
-    assert rel < 1e-5, rel
-    k_ms, p_ms = cuda_ms(kernel, 200), cuda_ms(plain, 20)
-    log(f"K3 correlate_window: C={c}, S={s}: max|diff| {err:.3e} (rel "
-        f"{rel:.3e}, limit 1e-5); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-        f"per window [{card}]")
-    return err, k_ms, p_ms
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        assert rel < 1e-5, (s, rel)
+        k_ms, p_ms = cuda_ms(kernel, 200), cuda_ms(plain, 20)
+        log(f"K3 correlate_window: C={c}, S={s} "
+            f"({'bulk copy' if s % 4 == 0 else '4-byte copies'}): "
+            f"{'bit-equal' if torch.equal(got, want) else 'within limit'}, "
+            f"max|diff| {err:.3e} (rel {rel:.3e}, limit 1e-5); kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per window [{card}]")
+        if result is None:
+            result = (err, k_ms, p_ms, bound(
+                c * s * OPS_PER_SAMPLE_CHANNEL,
+                tensor_bytes(raw, times, tab, *args[:4], got)))
+    return result
 
 
-def check_tracker(samples, hand, dev, card):
-    """Phase 7: K4 against its plain version on one 2000 ms chunk from the
-    acquisition result; (max |float log diff|, kernel ms, plain ms)."""
+def tracker_inputs(samples, hand, dev):
+    """Phase 7's inputs: the state after acquisition, one 2000 ms chunk of
+    the capture on the card, and the channels' code table."""
     rx = ScalarReceiver(SampleFile(samples=samples, fs=FS), hand.prn_list,
                         device=dev)
     res = rx.acquire(verbose=False)
     assert all(r.found for r in res), [r.cppm for r in res]
     raw = torch.from_numpy(samples[:TRACK_MS * 2500].view(np.int16)
                            .reshape(TRACK_MS, 2500, 2).copy()).to(dev)
-    fcaid = F_CA / F_L1
-    st0 = rx.state
+    return rx.state, raw, rx.code_table
 
-    def kernel():
-        return tracking.track_chunk_packed(st0, raw, rx.code_table, FS, fcaid)
+
+def check_tracker(st0, raw, code_table, card):
+    """Phase 7: K4 against its plain version on one 2000 ms chunk from the
+    acquisition result; (max |float log diff|, kernel ms, plain ms, bound)."""
+    fcaid = F_CA / F_L1
+    n_chan = code_table.shape[0]
+
+    def kernel(clocks=None):
+        return tracking.track_chunk_packed(st0, raw, code_table, FS, fcaid,
+                                           clocks=clocks)
 
     _, lfk, lik = kernel()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, lfp, lip = tracking.track_chunk_plain(st0, raw, rx.code_table, FS,
-                                             fcaid)
+    _, lfp, lip = tracking.track_chunk_plain(st0, raw, code_table, FS, fcaid)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3
-    k_ms = cuda_ms(kernel, 3)
-    lf_k, lf_p = lfk.cpu().numpy(), lfp.cpu().numpy()
-    li_k, li_p = lik.cpu().numpy(), lip.cpu().numpy()
+    lf_p, li_p = lfp.cpu().numpy(), lip.cpu().numpy()
+    k_ms = cuda_ms(kernel, 5)
+    lf_k, li_k = lfk.cpu().numpy(), lik.cpu().numpy()
     np.testing.assert_array_equal(li_k, li_p)           # cp, ncp, lock
     rows = {k: i for i, k in enumerate(tracking.LOG_F_ROWS)}
     sg = [rows["sign0"], rows["sign1"]]
     np.testing.assert_array_equal(lf_k[5:, sg], lf_p[5:, sg])
     drc = np.abs(lf_k[:, rows["rc"]] - lf_p[:, rows["rc"]])
-    assert np.minimum(drc, 1023.0 - drc).max() < 1e-3
-    assert np.abs(lf_k[:, rows["fi"]] - lf_p[:, rows["fi"]]).max() < 0.1
+    drc = float(np.minimum(drc, 1023.0 - drc).max())
+    dfi = float(np.abs(lf_k[:, rows["fi"]] - lf_p[:, rows["fi"]]).max())
+    dpr = 0.0
     for name in ("iP", "qP"):
         r = rows[name]
         peak = np.abs(lf_p[:, r]).max(axis=0)
-        assert (np.abs(lf_k[:, r] - lf_p[:, r]) / peak).max() < 1e-3, name
+        dpr = max(dpr, float((np.abs(lf_k[:, r] - lf_p[:, r]) / peak).max()))
+    assert drc < 1e-3 and dfi < 0.1 and dpr < 1e-3, (drc, dfi, dpr)
     err = float(np.abs(lf_k - lf_p).max())
-    equal = bool(np.array_equal(lf_k, lf_p) and np.array_equal(li_k, li_p))
-    log(f"K4 track_chunk: {TRACK_MS} ms x {len(hand.prn_list)} channels from "
-        f"acquisition: logs {'bit-equal' if equal else 'within limits'} "
-        f"(max|float diff| {err:.3e}); kernel {k_ms:.3f} ms per chunk "
-        f"({TRACK_MS / k_ms:.1f}x real time), plain {p_ms:.1f} ms "
-        f"({TRACK_MS / p_ms:.2f}x) [{card}]")
-    return err, k_ms, p_ms
+    equal = bool(np.array_equal(lf_k, lf_p))
+    margins = "bit-equal" if equal else (
+        f"within limits: rc {drc:.2e} chips (1e-3), fi {dfi:.2e} Hz (0.1), "
+        f"prompt {dpr:.2e} of peak (1e-3), cp/ncp/lock and signs equal")
+    log(f"K4 track_chunk: {TRACK_MS} ms x {n_chan} channels from "
+        f"acquisition: logs {margins} (max|float diff| {err:.3e}); kernel "
+        f"{k_ms:.3f} ms per chunk ({TRACK_MS / k_ms:.1f}x real time), plain "
+        f"{p_ms:.1f} ms ({TRACK_MS / p_ms:.2f}x) [{card}]")
+
+    # where a step goes: one more launch, with the kernel's clock buffer
+    clocks = torch.zeros((n_chan, track.N_CLOCKS), dtype=torch.int64,
+                         device=raw.device)
+    _, lfc, _ = kernel(clocks)            # warms this instantiation
+    assert torch.equal(lfc, lfk), "the clocked kernel logs differently"
+    clocked_ms = cuda_ms(lambda: kernel(clocks), 3)
+    clk = clocks.cpu().numpy().astype(np.float64).mean(axis=0)
+    us = clk / clk[-1] * clocked_ms * 1e3 / TRACK_MS      # per step
+    log(f"K4 step split (us per step, mean over channels; clocked kernel "
+        f"{clocked_ms:.3f} ms per chunk, {clk[-1] / clocked_ms / 1e3:.0f} "
+        f"MHz): " + ", ".join(f"{n} {u:.3f}" for n, u in
+                              zip(track.CLOCK_NAMES, us)) + f" [{card}]")
+    steps, s = raw.shape[:2]
+    return err, k_ms, p_ms, bound(
+        steps * s * n_chan * OPS_PER_SAMPLE_CHANNEL,
+        tensor_bytes(raw, code_table, lfk, lik) + 2 * n_chan * (16 + 5 + 40)
+        * 4)
 
 
 def check_surface(grid, widths, dev, card):
     """Phase 8: K2 against its plain version, N=1, G=390 625; (max |diff|,
-    kernel ms, plain ms) of one block (both manifolds, quadratic, l_power
-    1: the per-block step's calls)."""
+    kernel ms, plain ms, bound) of one block (both manifolds, quadratic,
+    l_power 1: the per-block step's calls)."""
     rng = np.random.default_rng(SEED + 2)
     max_err, k_ms, p_ms = 0.0, 0.0, 0.0
+    ops = nbytes = 0
     for manifold in ("pos", "vel"):
-        args = [None if a is None else a[:1].contiguous() for a in
-                scorer_inputs(rng, manifold, widths[manifold], grid, dev)]
+        # one block of the batch (windows, geometry) against the whole grid
+        args = scorer_inputs(rng, manifold, widths[manifold], grid, dev)
+        args = [None if a is None else a[:1].contiguous()
+                for a in args[:5]] + args[5:]
         for interp in ("quadratic", "linear"):
             for l_power in (1, 2):
                 kw = dict(interp=interp, l_power=l_power)
                 got = score.score_surface(*args, **kw)
+                assert got.shape == (1, grid.n_pos), got.shape
                 want = score.score_surface_plain(*args, **kw)
                 torch.cuda.synchronize()
                 assert int(got.argmax()) == int(want.argmax())
@@ -377,13 +455,16 @@ def check_surface(grid, widths, dev, card):
                     pm = cuda_ms(lambda: score.score_surface_plain(
                         *args, **kw), 5)
                     k_ms, p_ms = k_ms + km, p_ms + pm
+                    ops += (args[0].shape[1] * args[5].shape[0]
+                            * OPS_PER_POINT_CHANNEL)
+                    nbytes += tensor_bytes(*args, got)
                     log(f"K2 score_surface {manifold} W={widths[manifold]}"
                         f": kernel {km:.4f} ms, plain {pm:.4f} ms [{card}]")
     log(f"K2 score_surface: N=1, G={grid.n_pos}, both manifolds x "
         f"quadratic/linear x l_power 1/2: argmax equal, max|diff| "
         f"{max_err:.3e} (rtol 1e-6); per block {k_ms:.4f} ms vs plain "
         f"{p_ms:.4f} ms [{card}]")
-    return max_err, k_ms, p_ms
+    return max_err, k_ms, p_ms, bound(ops, nbytes)
 
 
 def cold_start(samples, hand, arr, grid, dev):
@@ -486,15 +567,15 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-
     for name, (lib, sec) in build_all().items():
         log(f"build: {name} -> {lib.name} in {sec:.2f} s")
+    log(f"tracking kernel: {track.kernel_design()}")
 
     grid = spread_grid()
     cw, vw = dpe_ops.auto_windows(grid.d_enu, grid.dt_m, grid.dv_enu,
                                   grid.dtdot, FS, CARR_FFTPTS)
     widths = {"pos": cw, "vel": vw}
-    k1_err, k1_ms, k1_plain = check_scorer(grid, widths, dev)
+    k1_err, k1_ms, k1_plain, k1_bound = check_scorer(grid, widths, dev)
     log(f"scorer: kernel == plain in all 16 cases (max|best diff| "
         f"{k1_err:.3e}); per dispatch (pos W={cw} + vel W={vw}, N=50, "
         f"G={grid.n_pos}): kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms "
@@ -552,19 +633,25 @@ def main() -> int:
         f"real time [{card}]")
     del raw_dev, rx
 
-    k3_err, k3_ms, k3_plain = check_correlator(dev, card)
-    k4_err, k4_ms, k4_plain = check_tracker(samples, hand, dev, card)
-    k2_err, k2_ms, k2_plain = check_surface(grid, widths, dev, card)
+    k3 = check_correlator(dev, card)
+    k4 = check_tracker(*tracker_inputs(samples, hand, dev), card)
+    k2 = check_surface(grid, widths, dev, card)
     counts, k4_steps = check_cold_start(samples, hand, arr, grid, dev, card)
 
-    rows = [("K1", k1_launches, k1_err, k1_ms, k1_plain),
-            ("K2", counts["score_surface"], k2_err, k2_ms, k2_plain),
-            ("K3", counts["correlate_window"], k3_err, k3_ms, k3_plain),
-            ("K4", counts["track_chunk"], k4_err, k4_ms, k4_plain)]
-    kernels = [dict(KERNELS[k], launches=n, max_abs_err=e, ms=m, plain_ms=p)
-               for k, n, e, m, p in rows]
+    # no single PyTorch call computes any of the four functions: library_ms
+    # is null throughout
+    rows = [("K1", k1_launches, (k1_err, k1_ms, k1_plain, k1_bound)),
+            ("K2", counts["score_surface"], k2),
+            ("K3", counts["correlate_window"], k3),
+            ("K4", counts["track_chunk"], k4)]
+    kernels = [dict(KERNELS[k], launches=n, max_abs_err=e, ms=m, plain_ms=pm,
+                    **b, library_ms=None) for k, n, (e, m, pm, b) in rows]
+    for k in kernels:
+        log(f"{k['name']}: {k['ms']:.4f} ms against a bound of "
+            f"{k['bound_ms']:.5f} ms ({k['bound_by']}; "
+            f"{100.0 * k['bound_ms'] / k['ms']:.2f} % of it) [{card}]")
     # the cold-start path launches K3 standalone no time: its body runs as
-    # K4's device function, once per tracked 1 ms step of each K4 launch
+    # K4's device code, once per tracked 1 ms step of each K4 launch
     kernels[2]["steps_inside_track_chunk"] = k4_steps
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

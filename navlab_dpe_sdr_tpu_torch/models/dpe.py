@@ -28,19 +28,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from navlab_dpe_sdr_tpu.constants import C, F_CA, F_L1, L_CA, T_CA
-from navlab_dpe_sdr_tpu.io.handoff import Handoff
-from navlab_dpe_sdr_tpu.io.rawfile import SampleFile
-from navlab_dpe_sdr_tpu.libgnss import frames, naveng, satpos
-from navlab_dpe_sdr_tpu.libgnss.cacode import ca_table
-from navlab_dpe_sdr_tpu.libgnss.ephemeris import EphArray
-from navlab_dpe_sdr_tpu.libgnss.satcache import SatStateCache
-from navlab_dpe_sdr_tpu.models.ekf import NavEKF
-from navlab_dpe_sdr_tpu.models.grid import Grid, check_grid_size, spread_grid
-
+from ..constants import C, F_CA, F_L1, L_CA, T_CA
 from ..device import resolve_device
+from ..io.handoff import Handoff
+from ..io.rawfile import SampleFile
+from ..libgnss import frames, naveng, satpos
+from ..libgnss.cacode import ca_table
+from ..libgnss.ephemeris import EphArray
+from ..libgnss.satcache import SatStateCache
 from ..ops import dpe as dpe_ops
 from ..ops import dpe_real as dpe_real_ops
+from .ekf import NavEKF
+from .grid import Grid, check_grid_size, spread_grid
 
 
 @dataclass
@@ -807,8 +806,8 @@ class DPEReceiver:
         JAX receiver's): a new receiver of either package built from it
         resumes at the next block with identical channel, EKF, and time
         state. Call between runs."""
-        from navlab_dpe_sdr_tpu.io.handoff import write_handoff
-        from navlab_dpe_sdr_tpu.libgnss.ephemeris import ALL_FIELDS
+        from ..io.handoff import write_handoff
+        from ..libgnss.ephemeris import ALL_FIELDS
 
         h = Handoff()
         h.rx_time = float(self.rx_time)

@@ -24,15 +24,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from navlab_dpe_sdr_tpu.constants import L_CA, T_CA
-from navlab_dpe_sdr_tpu.io.handoff import Handoff, write_handoff
-from navlab_dpe_sdr_tpu.io.rawfile import SampleFile
-from navlab_dpe_sdr_tpu.libgnss import dataparser, naveng
-from navlab_dpe_sdr_tpu.libgnss.cacode import ca_table
-from navlab_dpe_sdr_tpu.libgnss.ephemeris import (ALL_FIELDS, EphArray,
-                                                  Ephemeris)
-
+from ..constants import L_CA, T_CA
 from ..device import resolve_device
+from ..io.handoff import Handoff, write_handoff
+from ..io.rawfile import SampleFile
+from ..libgnss import dataparser, naveng
+from ..libgnss.cacode import ca_table
+from ..libgnss.ephemeris import ALL_FIELDS, EphArray, Ephemeris
 from ..ops import acquisition as acq_ops
 from ..ops import tracking as trk_ops
 

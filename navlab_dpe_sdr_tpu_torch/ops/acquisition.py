@@ -17,8 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from navlab_dpe_sdr_tpu.constants import F_CA, L_CA
-
+from ..constants import F_CA, L_CA
 from ..device import resolve_device
 
 # Doppler search grids (reference correlator.py:13-14)
@@ -118,7 +117,7 @@ def acquire(samples: np.ndarray, prns, fs: float, fcaid: float,
     """Full acquisition for a PRN list over one complex sample window of
     n x 1 ms (typically 10 ms), on `device` (a missing CUDA device
     raises). Same contract as the JAX `acquire`."""
-    from navlab_dpe_sdr_tpu.libgnss.cacode import ca_table
+    from ..libgnss.cacode import ca_table
 
     dev = resolve_device(device)
     samples = np.asarray(samples)

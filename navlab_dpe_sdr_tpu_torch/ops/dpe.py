@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from navlab_dpe_sdr_tpu.constants import C, F_L1
+from ..constants import C, F_L1
 
 CODE_WIN = 16   # samples of code_corr kept around each channel's center.
 # The position manifold spans ~+/-2 samples (|drange + dt| <~ 250 m at

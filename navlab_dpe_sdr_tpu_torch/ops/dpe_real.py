@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from navlab_dpe_sdr_tpu.constants import L_CA
+from ..constants import L_CA
 
 from .dpe import CARR_WIN, CODE_WIN, ManifoldParams
 from .score import score_argmax, score_surface

@@ -9,9 +9,12 @@ hand-written kernel `csrc/track_chunk.cu`. There is no fallback between
 the two.
 
 `track_chunk_cuda` launches K4, the same file's persistent kernel that runs
-a whole chunk of closed-loop steps (K3 as a device function, then the
-polarity/lock/loop-filter tail) in one launch; ops/tracking.track_chunk
-packs the state for it and holds it to `track_chunk_plain`.
+a whole chunk of closed-loop steps in one launch: a cluster of thread
+blocks per channel, a ring of sample windows staged ahead in shared memory,
+K3's body on the correlating warps, the loop update on three warps by
+function, and the lock/C-N0/log half of the tail on a warp of its own;
+ops/tracking.track_chunk packs the state for it and holds it to
+`track_chunk_plain`.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from navlab_dpe_sdr_tpu.constants import F_CA, L_CA
+from ..constants import F_CA, L_CA
 
 from . import _build
 
@@ -35,7 +38,10 @@ N_STATE_F = 16       # float state fields per channel (tracking.FLOAT_FIELDS)
 N_STATE_I = 5        # int32 state fields per channel (tracking.INT_FIELDS)
 N_LOG_F = 16         # float log rows per step (tracking.LOG_F_ROWS)
 N_LOG_I = 3          # int32 log rows per step: cp, ncp, lock
-KERNEL_THREADS = 256  # threads per channel block (kThreads in the .cu)
+KERNEL_THREADS = 1280  # correlating threads per channel (track_threads())
+N_CLOCKS = 6          # clock64() sums per channel (track_clock_words())
+CLOCK_NAMES = ("wait for samples", "correlate + warp reduce", "step barrier",
+               "on-path tail", "off-path tail (with staging)", "step loop")
 
 
 @functools.lru_cache(maxsize=8)
@@ -129,7 +135,7 @@ def correlate_window(raw, rc, dfc, ri, fi, code_table, fs: float):
     if dev.type != "cuda":
         raise ValueError(f"correlate_window runs on cpu or cuda, not {dev}")
     c = code_table.shape[0]
-    raw = _raw_operand(raw, dev, 2)
+    raw = _raw_operand(raw, 2)
     phases = torch.stack([_f32(x, dev, (c,), n) for x, n in
                           ((rc, "rc"), (dfc, "dfc"), (ri, "ri"),
                            (fi, "fi"))], dim=1).contiguous()
@@ -137,7 +143,7 @@ def correlate_window(raw, rc, dfc, ri, fi, code_table, fs: float):
     time_idc = window_times(s, fs, dev)
     out = torch.empty((c, 3, 3, 2), dtype=torch.float32, device=dev)
     lib = _lib()
-    _check_samples(lib, s)
+    _check_samples(lib, s, raw)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc_ = lib.correlate_window_launch(
@@ -160,19 +166,21 @@ class TrackParams(ctypes.Structure):
 
 
 def track_chunk_cuda(stf, sti, rings, raw, code_table, fs: float,
-                     params: TrackParams):
+                     params: TrackParams, clocks=None):
     """Launch K4 over raw [steps, S, 2] (int16 or f32) on the card.
 
     stf [C, 16] f32, sti [C, 5] int32, rings [C, 2, 20] f32: the packed
     carry (ops/tracking.pack_state). Returns the new carry and the packed
     logs (stf', sti', rings', logf [steps, 16, C] f32, logi [steps, 3, C]
-    int32); the inputs are not modified."""
+    int32); the inputs are not modified. `clocks`, an int64 [C, N_CLOCKS]
+    CUDA tensor, asks the kernel for its clock64() sums per channel
+    (CLOCK_NAMES); the path never passes it."""
     dev = raw.device
     if dev.type != "cuda":
         raise ValueError(f"track_chunk_cuda needs a CUDA tensor, got {dev}")
     steps, s = int(raw.shape[0]), int(raw.shape[1])
     c = code_table.shape[0]
-    raw = _raw_operand(raw, dev, 3)
+    raw = _raw_operand(raw, 3)
     table = _f32(code_table, dev, (c, int(L_CA)), "code_table")
     stf = _f32(stf, dev, (c, N_STATE_F), "state (float)")
     rings = _f32(rings, dev, (c, 2, rings.shape[2]), "state (rings)")
@@ -191,7 +199,13 @@ def track_chunk_cuda(stf, sti, rings, raw, code_table, fs: float,
     logf = torch.empty((steps, N_LOG_F, c), dtype=torch.float32, device=dev)
     logi = torch.empty((steps, N_LOG_I, c), dtype=torch.int32, device=dev)
     lib = _lib()
-    _check_samples(lib, s)
+    _check_samples(lib, s, raw)
+    if clocks is not None and (
+            clocks.device != dev or clocks.dtype != torch.int64
+            or tuple(clocks.shape) != (c, lib.track_clock_words())
+            or not clocks.is_contiguous()):
+        raise ValueError(f"clocks: need contiguous int64 "
+                         f"[{c}, {lib.track_clock_words()}] on {dev}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc_ = lib.track_chunk_launch(
@@ -199,7 +213,8 @@ def track_chunk_cuda(stf, sti, rings, raw, code_table, fs: float,
             table.data_ptr(), stf.data_ptr(), sti.data_ptr(),
             rings.data_ptr(), stf_out.data_ptr(), sti_out.data_ptr(),
             rings_out.data_ptr(), logf.data_ptr(), logi.data_ptr(), c, s,
-            steps, params, stream)
+            steps, params, None if clocks is None else clocks.data_ptr(),
+            stream)
     _raise_on(lib, rc_, "track_chunk")
     _build.count_launch("track_chunk")
     return stf_out, sti_out, rings_out, logf, logi
@@ -212,31 +227,44 @@ def _lib() -> ctypes.CDLL:
         lib.correlate_window_launch.argtypes = [p, i, p, p, p, i, i, f, p, p]
         lib.correlate_window_launch.restype = i
         lib.track_chunk_launch.argtypes = ([p, i] + [p] * 10 + [i, i, i]
-                                           + [TrackParams, p])
+                                           + [TrackParams, p, p])
         lib.track_chunk_launch.restype = i
-        lib.track_max_samples.argtypes = []
-        lib.track_max_samples.restype = i
-        lib.track_params_size.argtypes = []
-        lib.track_params_size.restype = i
-        lib.track_threads.argtypes = []
-        lib.track_threads.restype = i
+        for fn, args in ((lib.track_max_samples, [i]),
+                         (lib.track_ring_depth, [i, i]),
+                         (lib.track_params_size, []), (lib.track_threads, []),
+                         (lib.track_cluster, []),
+                         (lib.track_clock_words, [])):
+            fn.argtypes, fn.restype = args, i
         lib.track_error_string.argtypes = [i]
         lib.track_error_string.restype = ctypes.c_char_p
         if lib.track_params_size() != ctypes.sizeof(TrackParams):
             raise RuntimeError("TrackParams layout differs between the "
                                "kernel and its binding")
+        if lib.track_clock_words() != N_CLOCKS:
+            raise RuntimeError("clock buffer layout differs between the "
+                               "kernel and its binding")
         if lib.track_threads() != KERNEL_THREADS:
-            # the plain sums follow the kernel's block size (_kernel_order_sum)
-            raise RuntimeError(f"kernel block of {lib.track_threads()} "
-                               f"threads, plain sum order assumes "
-                               f"{KERNEL_THREADS}")
+            # the plain sums follow the kernel's thread count
+            # (_kernel_order_sum)
+            raise RuntimeError(f"kernel sums over {lib.track_threads()} "
+                               f"threads per channel, plain sum order "
+                               f"assumes {KERNEL_THREADS}")
     return lib
 
 
-def _check_samples(lib, s: int) -> None:
-    if s > lib.track_max_samples():
-        raise ValueError(f"window of {s} samples exceeds the kernel's "
-                         f"{lib.track_max_samples()} (shared memory)")
+def kernel_design() -> dict:
+    """What the built kernel is: correlating threads and thread blocks per
+    channel, and the sample windows in flight at the 2.5 MHz int16 window."""
+    lib = _lib()
+    return {"threads": lib.track_threads(), "cluster": lib.track_cluster(),
+            "ring_depth_int16_2500": lib.track_ring_depth(2500, 1)}
+
+
+def _check_samples(lib, s: int, raw) -> None:
+    most = lib.track_max_samples(int(raw.dtype == torch.int16))
+    if s > most:
+        raise ValueError(f"window of {s} {raw.dtype} samples exceeds the "
+                         f"kernel's {most} (shared memory)")
 
 
 def _raise_on(lib, code: int, name: str) -> None:
@@ -246,12 +274,17 @@ def _raise_on(lib, code: int, name: str) -> None:
                            f"(cudaError {code})")
 
 
-def _raw_operand(raw, dev, ndim: int):
+def _raw_operand(raw, ndim: int):
+    """Contiguous int16/f32 [..., S, 2] whose I/Q pairs are 4-byte aligned
+    (the kernel copies whole pairs; a view at an odd int16 offset is
+    copied once). Windows that are not 16-byte aligned are no obstacle:
+    the kernel stages them with 4-byte copies."""
     if raw.dtype not in (torch.int16, torch.float32) or raw.dim() != ndim \
             or raw.shape[-1] != 2:
         raise ValueError(f"raw samples: need int16 or float32 [..., S, 2], "
                          f"got {raw.dtype} {tuple(raw.shape)}")
-    return raw.contiguous()
+    raw = raw.contiguous()
+    return raw.clone() if raw.data_ptr() % 4 else raw
 
 
 def _f32(t, dev, shape, name):

@@ -24,8 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from navlab_dpe_sdr_tpu.constants import F_CA, L_CA
-
+from ..constants import F_CA, L_CA
 from ..device import resolve_device
 from . import track as _track
 from .track import F_CA32, L_CA32, TWO_PI, correlate_window_plain
@@ -203,7 +202,8 @@ def unpack_log(logf, logi) -> TrackLog:
 
 
 # ---------------------------------------------------------------------------
-# The closed-loop tail of one step (plain PyTorch; the kernel's track_tail)
+# The closed-loop tail of one step (plain PyTorch; in the kernel:
+# polarity_combine, carrier_step, code_step, advance, monitor_and_log)
 # ---------------------------------------------------------------------------
 
 def _div(x, c: float):
@@ -422,21 +422,24 @@ def kernel_params(s: int, fs: float, fcaid: float,
 
 def track_chunk_packed(state: TrackState, raw_chunk, code_table, fs: float,
                        fcaid: float, loops: LoopConfig = LoopConfig(),
-                       coh_ms: int = 1):
+                       coh_ms: int = 1, clocks=None):
     """(final state, logf [steps, 16, C] f32, logi [steps, 3, C] int32):
     the packed form of `track_chunk`, so a caller fetches the whole log in
     two copies. CPU tensors -> `track_chunk_plain`; CUDA tensors -> K4, or
-    an exception."""
+    an exception. `clocks` (a measurement's int64 [C, 6] CUDA tensor) is
+    handed to `ops/track.track_chunk_cuda`."""
     _check_chunk(raw_chunk, coh_ms)
     dev = raw_chunk.device
     if dev.type == "cpu":
+        if clocks is not None:
+            raise ValueError("clocks are the kernel's: CUDA tensors only")
         return track_chunk_plain(state, raw_chunk, code_table, fs, fcaid,
                                  loops)
     if dev.type != "cuda":
         raise ValueError(f"track_chunk runs on cpu or cuda, not {dev}")
     params = kernel_params(int(raw_chunk.shape[1]), fs, fcaid, loops)
     stf, sti, rings, logf, logi = _track.track_chunk_cuda(
-        *pack_state(state), raw_chunk, code_table, fs, params)
+        *pack_state(state), raw_chunk, code_table, fs, params, clocks)
     return unpack_state(stf, sti, rings), logf, logi
 
 

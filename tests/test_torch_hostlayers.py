@@ -1,0 +1,399 @@
+"""The port's own host layers (constants, io/*, libgnss/*, models/ekf,
+models/grid) against the JAX package's modules of the same names.
+
+They are copies of float64 numpy code, so the tolerance is 0: the same
+seeded inputs go through both and the results must be `np.array_equal`.
+One parametrised case per copied module, then a handoff file written by
+each package and read by the other, and the JAX package's scenario objects
+carried into the port's classes by their plain fields.
+"""
+
+import dataclasses
+import importlib
+
+import numpy as np
+import pytest
+
+REF = "navlab_dpe_sdr_tpu"
+PORT = "navlab_dpe_sdr_tpu_torch"
+FS = 2.5e6
+
+
+def both(name):
+    """(the JAX package's module, the port's copy)."""
+    return (importlib.import_module(f"{REF}.{name}"),
+            importlib.import_module(f"{PORT}.{name}"))
+
+
+def same(a, b):
+    """Bit-equal: arrays, scalars, and tuples/lists/dicts of them."""
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            same(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            same(x, y)
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, (a.dtype, b.dtype)
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+
+
+def scenarios(**kw):
+    """make_scenario of both packages: ((sim, hand, arr), (sim, hand, arr))."""
+    ref, port = both("io.scenario")
+    return ref.make_scenario(**kw), port.make_scenario(**kw)
+
+
+def eph_fields(arr, dtype=None):
+    """{field: per-satellite values}; `dtype` float where a handoff file
+    lies between (it carries IODE, IODC and the week number as floats)."""
+    names = [f.name for f in dataclasses.fields(arr.ephs[0])]
+    return {n: np.array([getattr(e, n) for e in arr.ephs], dtype)
+            for n in names}
+
+
+def hand_fields(h):
+    return {f.name: getattr(h, f.name) for f in dataclasses.fields(h)}
+
+
+def case_constants():
+    ref, port = both("constants")
+    names = sorted(n for n in vars(ref) if n.isupper() or n == "OEDot")
+    assert len(names) >= 10
+    assert names == sorted(n for n in vars(port)
+                           if n.isupper() or n == "OEDot")
+    for n in names:
+        same(getattr(ref, n), getattr(port, n))
+
+
+def case_cacode():
+    ref, port = both("libgnss.cacode")
+    same(ref.ca_table(range(1, 33)), port.ca_table(range(1, 33)))
+    same(ref.ca_bits(17), port.ca_bits(17))
+    assert ref.first_chips_octal(5) == port.first_chips_octal(5)
+    same(ref.sampled_code(9, FS, 2500, code_phase=311.25),
+         port.sampled_code(9, FS, 2500, code_phase=311.25))
+
+
+def case_ephemeris():
+    """The records themselves (nominal constellation -> EphArray) and the
+    subframe bit helpers."""
+    (_, _, a), (_, _, b) = scenarios()
+    same(eph_fields(a), eph_fields(b))
+    for n in ("sqrt_A", "M_0", "t_oe", "tow_timestamp", "cp_timestamp"):
+        same(getattr(a, n), getattr(b, n))
+    ref, port = both("libgnss.ephemeris")
+    assert ref.ALL_FIELDS == port.ALL_FIELDS
+    same(ref.PARITY_MAT, port.PARITY_MAT)
+    bits = np.random.default_rng(3).integers(0, 2, 30) * 2 - 1
+    assert ref.check_word_parity(bits, 1, 0) == port.check_word_parity(
+        bits, 1, 0)
+    same(ref.word_data_bits(bits, 1), port.word_data_bits(bits, 1))
+
+
+def case_satpos():
+    (_, _, a), (_, _, b) = scenarios()
+    ref, port = both("libgnss.satpos")
+    t = 345720.0 + np.random.default_rng(4).random(len(a)) * 30.0
+    same(ref.sat_clock_correction(a, t), port.sat_clock_correction(b, t))
+    same(ref.sat_state(a, t, 1e-5, 1e-11), port.sat_state(b, t, 1e-5, 1e-11))
+    same(ref.sat_state_at_transmit(a, t), port.sat_state_at_transmit(b, t))
+    same(ref.sat_state(a.ephs[2], 345777.5), port.sat_state(b.ephs[2],
+                                                            345777.5))
+    same(ref.correct_week_crossover(t - 400000.0),
+         port.correct_week_crossover(t - 400000.0))
+
+
+def case_frames():
+    ref, port = both("libgnss.frames")
+    rng = np.random.default_rng(5)
+    ecef = ref.lla_to_ecef(40.112, -88.228, 200.0)
+    same(ecef, port.lla_to_ecef(40.112, -88.228, 200.0))
+    pts = ecef[:, None] + rng.standard_normal((3, 6)) * 1e4
+    pv = np.concatenate([pts[:, 0], [12.0], rng.standard_normal(3), [0.1]])
+    pvs = rng.standard_normal((8, 6)) * 1e7
+    tg = 345700.0 + rng.random(6)
+    d = rng.standard_normal((3, 5)) * 50.0
+    for fn, args in (("ecef_to_lla", (pts,)), ("ecef_to_lla", (ecef, False)),
+                     ("ecef_to_eci", (pv, 345700.0, 345700.07)),
+                     ("eci_to_ecef", (pv, 345700.0, 345700.07)),
+                     ("ecef_to_eci_batch", (pvs, tg, 345700.5)),
+                     ("ecef_to_enu_matrix", (ecef,)),
+                     ("ecef_to_enu", (ecef, pts[:, 1])),
+                     ("enu_to_ecef", (ecef, d)),
+                     ("enu_to_elaz", (d,))):
+        same(getattr(ref, fn)(*args), getattr(port, fn)(*args))
+
+
+def case_iono():
+    ref, port = both("libgnss.iono")
+    alpha = [1.1e-8, 7.5e-9, -6.0e-8, -6.0e-8]
+    beta = [9.0e4, 1.6e4, -1.3e5, -6.6e4]
+    rng = np.random.default_rng(6)
+    for el, az in zip(rng.random(5) * 1.4 + 0.1, rng.random(5) * 6.28):
+        args = (alpha, beta, 40.1, -88.2, el, az, 345720.0)
+        same(ref.klobuchar_delay(*args), port.klobuchar_delay(*args))
+        same(ref.klobuchar_delay_m(*args), port.klobuchar_delay_m(*args))
+
+
+def case_tropo():
+    ref, port = both("libgnss.tropo")
+    el = np.random.default_rng(7).random(9) * 1.5 + 0.05
+    same(ref.tropo_delay_m(el), port.tropo_delay_m(el))
+
+
+def case_naveng():
+    """PVT on the seeded scenario's geometry: observables at the handoff
+    epoch, the same through both."""
+    (_, ha, a), (_, hb, b) = scenarios()
+    ref, port = both("libgnss.naveng")
+    same(ref.transmit_times(ha.cp, ha.rc, a),
+         port.transmit_times(hb.cp, hb.rc, b))
+    same(ref.satellite_positions(ha.cp, ha.rc, a, t_c=ha.rx_time),
+         port.satellite_positions(hb.cp, hb.rc, b, t_c=hb.rx_time))
+    kw = dict(rx_time0=ha.rx_time)
+    sol_a = ref.calculate_nav_soln(ha.cp, ha.rc, ha.fi, a, **kw)
+    sol_b = port.calculate_nav_soln(hb.cp, hb.rc, hb.fi, b, **kw)
+    same(sol_a, sol_b)
+    assert np.linalg.norm(sol_b[2][:3] - hb.x_ecef[:3]) < 5.0
+    kw.update(ion_alpha=[1.1e-8, 7.5e-9, -6.0e-8, -6.0e-8],
+              ion_beta=[9.0e4, 1.6e4, -1.3e5, -6.6e4], tropo=True)
+    same(ref.calculate_nav_soln(ha.cp, ha.rc, ha.fi, a, **kw),
+         port.calculate_nav_soln(hb.cp, hb.rc, hb.fi, b, **kw))
+    same(ref.gdop(sol_a[3], sol_a[4]), port.gdop(sol_b[3], sol_b[4]))
+
+
+def case_satcache():
+    (_, ha, a), (_, hb, b) = scenarios()
+    ref, port = both("libgnss.satcache")
+    ca = ref.SatStateCache(a, ha.rx_time, horizon_s=6.0)
+    cb = port.SatStateCache(b, hb.rx_time, horizon_s=6.0)
+    rng = np.random.default_rng(8)
+    for t0 in (0.3, 5.1, 14.7):           # the last one extends the horizon
+        t = ha.rx_time + t0 + rng.random(len(a)) * 0.07
+        same(ca.state_at(t), cb.state_at(t))
+    same(ca.times, cb.times)
+    same(ca.states, cb.states)
+
+
+def case_ekf():
+    ref, port = both("models.ekf")
+    rng = np.random.default_rng(9)
+    x0 = rng.standard_normal(8) * 10.0
+    zs = rng.standard_normal((12, 8)) * 5.0
+    for mode in ("passthrough", "alpha", "full"):
+        ea = ref.NavEKF(x0, T=0.02, mode=mode, alpha=0.3)
+        eb = port.NavEKF(x0, T=0.02, mode=mode, alpha=0.3)
+        for z in zs:
+            same(ea.time_update(), eb.time_update())
+            r = None if mode != "full" else np.diag(np.abs(z) + 1.0)
+            same(ea.measurement_update(z, r), eb.measurement_update(z, r))
+        same(ea.P, eb.P)
+        same(ea.Q, eb.Q)
+        if mode == "full":
+            same(ea.rts_smooth(), eb.rts_smooth())
+
+
+def case_grid():
+    ref, port = both("models.grid")
+    for make, kw in (("spread_grid", {}), ("spread_grid", dict(scale=0.5)),
+                     ("uniform_grid", dict(n=5)),
+                     ("uniform_grid", dict(n=4, pos_spacing=2.0)),
+                     ("arthur_grid", dict(n=9)),
+                     ("exponential_grid", dict(n=9)),
+                     ("make_grid", dict(style="uniform", n=3))):
+        ga, gb = getattr(ref, make)(**kw), getattr(port, make)(**kw)
+        same(hand_fields(ga), hand_fields(gb))
+        assert (ga.n_pos, ga.n_vel) == (gb.n_pos, gb.n_vel)
+        assert port.check_grid_size(gb) is gb
+    assert ref.MAX_GRID_POINTS == port.MAX_GRID_POINTS
+    # over the cap: a grid of stride-0 views, no memory behind it
+    n = port.MAX_GRID_POINTS // 2 + 1
+    z3, z1 = np.broadcast_to(np.zeros(3), (n, 3)), np.broadcast_to(0.0, (n,))
+    for mod in (ref, port):
+        with pytest.raises(ValueError, match="cap is"):
+            mod.check_grid_size(mod.Grid(z3, z1, z3, z1))
+
+
+def case_lnav():
+    (_, _, a), (_, _, b) = scenarios()
+    ref, port = both("libgnss.lnav")
+    for ea, eb in zip(a.ephs[:3], b.ephs[:3]):
+        same(ref.encode_stream(ea, 413994.0, 10),
+             port.encode_stream(eb, 413994.0, 10))
+    same(ref.subframe_source_bits(a.ephs[0], 2, 414000.0),
+         port.subframe_source_bits(b.ephs[0], 2, 414000.0))
+
+
+def case_dataparser():
+    """lnav encode -> dataparser decode, every decoded field equal."""
+    (_, _, a), (_, _, b) = scenarios()
+    lnav_ref, lnav_port = both("libgnss.lnav")
+    ref, port = both("libgnss.dataparser")
+    sa = np.kron(1 - 2 * lnav_ref.encode_stream(a.ephs[1], 413994.0, 15),
+                 np.ones(20))
+    sb = np.kron(1 - 2 * lnav_port.encode_stream(b.ephs[1], 413994.0, 15),
+                 np.ones(20))
+    same(ref.find_subframe_starts(sa[800:]),
+         port.find_subframe_starts(sb[800:]))
+    da, oka = ref.parse_ephemerides(sa[800:], cp_offset=3.0,
+                                    prn=a.ephs[1].prn)
+    db, okb = port.parse_ephemerides(sb[800:], cp_offset=3.0,
+                                     prn=b.ephs[1].prn)
+    assert oka == okb == 50 and da.complete and db.complete
+    same(dataclasses.asdict(da), dataclasses.asdict(db))
+    assert abs(db.sqrt_A - b.ephs[1].sqrt_A) < 1e-5
+
+
+def case_scenario():
+    (_, ha, a), (_, hb, b) = scenarios(n_sats=6, cn0_dbhz=45.0, seed=11)
+    same(hand_fields(ha), hand_fields(hb))
+    same(eph_fields(a), eph_fields(b))
+    ref, port = both("io.scenario")
+    ea, eb = ref.nominal_constellation(), port.nominal_constellation()
+    assert len(ea) == len(eb) > 20
+    for x, y in zip(ea, eb):
+        same(dataclasses.asdict(x), dataclasses.asdict(y))
+
+
+def case_synth():
+    """A 0.1 s capture of the seeded scenario, sample for sample, with and
+    without navigation data and from a later start sample."""
+    ref, port = both("io.synth")
+    for kw in (dict(nav_data=True), dict(nav_data=False, cn0_dbhz=40.0)):
+        (sa, _, _), (sb, _, _) = scenarios(**kw)
+        n = int(0.1 * FS)
+        same(sa.generate(n), sb.generate(n))
+        iq_a, tr_a = sa.generate(5000, start_sample=1_234_567,
+                                 return_truth=True)
+        iq_b, tr_b = sb.generate(5000, start_sample=1_234_567,
+                                 return_truth=True)
+        same(iq_a, iq_b)
+        for ca, cb in zip(tr_a.channels, tr_b.channels):
+            same(dataclasses.asdict(ca), dataclasses.asdict(cb))
+    same(ref.white_noise_iq16(4096, seed=5), port.white_noise_iq16(4096,
+                                                                   seed=5))
+    same(ref.synth_simple(7, FS, 5000, rc=100.5),
+         port.synth_simple(7, FS, 5000, rc=100.5))
+    ref.release_workspace()
+    port.release_workspace()
+
+
+def case_rawfile(tmp_path):
+    ref, port = both("io.rawfile")
+    assert ref.DTYPE_IQ16 == port.DTYPE_IQ16
+    rng = np.random.default_rng(12)
+    iq = (rng.standard_normal(60000) + 1j * rng.standard_normal(60000)) * 90
+    pa, pb = str(tmp_path / "a.dat"), str(tmp_path / "b.dat")
+    ref.write_iq16(pa, iq)
+    port.write_iq16(pb, iq)
+    same(np.fromfile(pa, np.int16), np.fromfile(pb, np.int16))
+    # each reads the other's file
+    fa, fb = ref.SampleFile(pb, fs=FS), port.SampleFile(pa, fs=FS)
+    assert fa.n_samples == fb.n_samples == 60000
+    for f in (fa, fb):
+        f.set_block(0.002, 0.004)
+    for n in ("S", "N", "S_skip", "carr_fftpts", "fcaid"):
+        assert getattr(fa, n) == getattr(fb, n), n
+    for n in ("time_idc", "code_idc", "code_fftidc", "carr_fftidc"):
+        same(getattr(fa, n), getattr(fb, n))
+    same(fa.read_block(), fb.read_block())
+    fa.skip_gap(), fb.skip_gap()
+    same(fa.read_block_raw(), fb.read_block_raw())
+    for f in (fa, fb):
+        f.set_block(0.001)
+        f.seek_bytes(4 * 12345)
+    same(fa.read_chunk_raw(7), fb.read_chunk_raw(7))
+    assert fa.bytes_read == fb.bytes_read == 4 * (12345 + 7 * 2500)
+    mem = port.SampleFile(samples=np.fromfile(pa, port.DTYPE_IQ16), fs=FS)
+    mem.seek(12345, whence=0)
+    mem.set_block(0.001)
+    fb.seek(12345, whence=0)
+    same(mem.read_chunk_raw(3), fb.read_chunk_raw(3))
+
+
+def case_handoff(tmp_path):
+    """write_handoff / read_handoff of one package; the cross-reading is
+    test_handoff_file_crosses_between_the_packages."""
+    (_, ha, _), (_, hb, _) = scenarios()
+    ref, port = both("io.handoff")
+    pa, pb = str(tmp_path / "a.csv"), str(tmp_path / "b.csv")
+    ref.write_handoff(pa, ha)
+    port.write_handoff(pb, hb)
+    assert open(pa).read() == open(pb).read()
+    same(hand_fields(ref.read_handoff(pa)), hand_fields(port.read_handoff(pb)))
+
+
+CASES = {
+    "constants": case_constants, "io.handoff": case_handoff,
+    "io.rawfile": case_rawfile, "io.scenario": case_scenario,
+    "io.synth": case_synth, "libgnss.cacode": case_cacode,
+    "libgnss.dataparser": case_dataparser,
+    "libgnss.ephemeris": case_ephemeris, "libgnss.frames": case_frames,
+    "libgnss.iono": case_iono, "libgnss.lnav": case_lnav,
+    "libgnss.naveng": case_naveng, "libgnss.satcache": case_satcache,
+    "libgnss.satpos": case_satpos, "libgnss.tropo": case_tropo,
+    "models.ekf": case_ekf, "models.grid": case_grid,
+}
+
+
+@pytest.mark.parametrize("module", sorted(CASES))
+def test_host_layer_copy_is_bit_equal(module, tmp_path):
+    case = CASES[module]
+    if "tmp_path" in case.__code__.co_varnames[:case.__code__.co_argcount]:
+        case(tmp_path)
+    else:
+        case()
+
+
+def test_every_copied_module_has_a_case():
+    """The list above is the list of host modules the port holds."""
+    import pkgutil
+
+    import navlab_dpe_sdr_tpu_torch as port
+
+    held = sorted(
+        m.name[len(PORT) + 1:] for m in pkgutil.walk_packages(
+            port.__path__, PORT + ".")
+        if not m.ispkg and m.name.split(".")[1] in ("constants", "io",
+                                                    "libgnss")
+        or m.name in (f"{PORT}.models.ekf", f"{PORT}.models.grid"))
+    assert held == sorted(CASES)
+
+
+@pytest.mark.parametrize("writer,reader", [(REF, PORT), (PORT, REF)])
+def test_handoff_file_crosses_between_the_packages(writer, reader, tmp_path):
+    """A handoff written by either package reads in the other with every
+    field equal, and rebuilds the same ephemerides there."""
+    w = importlib.import_module(f"{writer}.io.handoff")
+    r = importlib.import_module(f"{reader}.io.handoff")
+    _, hand, arr = importlib.import_module(
+        f"{writer}.io.scenario").make_scenario()
+    path = str(tmp_path / "handoff.csv")
+    w.write_handoff(path, hand)
+    got = r.read_handoff(path)
+    assert type(got).__module__ == f"{reader}.io.handoff"
+    same(hand_fields(got), hand_fields(hand))
+    same(eph_fields(got.eph_array(), float), eph_fields(arr, float))
+
+
+def test_port_receiver_takes_either_packages_scenario():
+    """The JAX package's Handoff/EphArray/Grid/SampleFile objects are taken
+    by their fields: a port receiver built from them prepares the same
+    first block as one built from the port's own."""
+    from navlab_dpe_sdr_tpu_torch.models.dpe import DPEReceiver
+
+    preps = []
+    for pkg in (REF, PORT):
+        _, hand, arr = importlib.import_module(
+            f"{pkg}.io.scenario").make_scenario()
+        raw = importlib.import_module(f"{pkg}.io.rawfile")
+        grid = importlib.import_module(f"{pkg}.models.grid").uniform_grid(n=3)
+        rf = raw.SampleFile(samples=np.zeros(100000, raw.DTYPE_IQ16), fs=FS)
+        rx = DPEReceiver(rf, hand, grid=grid, eph=arr, device="cpu")
+        preps.append(rx._prepare_batch(1)[0])
+    for a, b in zip(*preps):
+        same(a, b)

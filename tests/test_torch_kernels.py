@@ -3,8 +3,11 @@ on the card: K3 (correlate_window), K4 (track_chunk), K2 (score_surface),
 and the receivers that run them. Marked `cuda`; they skip without a card.
 
 The kernels do the plain versions' f32 operations in the same order (sums
-included, -fmad=false), so every comparison is equality, bit for bit. This
-file imports nothing of JAX, so it runs on a machine with the card alone:
+included: the plain sums follow the kernel's threads per channel,
+ops/track.KERNEL_THREADS;
+-fmad=false), so every comparison is equality, bit for bit. This file
+imports nothing of JAX or of the JAX package, so it runs on a machine with
+the card alone:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_kernels.py
 """
@@ -15,11 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from navlab_dpe_sdr_tpu.constants import F_CA, F_L1
-from navlab_dpe_sdr_tpu.io.rawfile import DTYPE_IQ16, SampleFile
-from navlab_dpe_sdr_tpu.io.scenario import make_scenario
-from navlab_dpe_sdr_tpu.libgnss.cacode import ca_table
-from navlab_dpe_sdr_tpu.models.grid import spread_grid, uniform_grid
+from navlab_dpe_sdr_tpu_torch.constants import F_CA, F_L1
+from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16, SampleFile
+from navlab_dpe_sdr_tpu_torch.io.scenario import make_scenario
+from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_table
+from navlab_dpe_sdr_tpu_torch.models.grid import spread_grid, uniform_grid
 from navlab_dpe_sdr_tpu_torch.models import dpe as tdpe
 from navlab_dpe_sdr_tpu_torch.models import scalar as tscalar
 from navlab_dpe_sdr_tpu_torch.ops import acquisition as tacq
@@ -56,30 +59,38 @@ def _seeded_state(hand, device):
                                fi=hand.fi, cp=hand.cp, device=device)
 
 
+@pytest.mark.parametrize("s", [S, S + 1, 1000])
 @pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
-def test_correlate_window_kernel_equals_plain(dtype, dev):
+def test_correlate_window_kernel_equals_plain(dtype, s, dev):
+    """S = 2500 is staged by one bulk copy; 2501 int16 samples are 10 004
+    bytes, no multiple of 16, and take the 4-byte copies."""
     rng = np.random.default_rng(9)
+    fs = s * 1000.0
     tab = torch.from_numpy(ca_table(range(1, 9)).astype(np.float32)).to(dev)
     st = tracking.init_state(rc=rng.random(8) * 1023.0, ri=rng.random(8),
                              fc=F_CA + rng.standard_normal(8),
                              fi=rng.standard_normal(8) * 1000.0, device=dev)
-    raw = torch.from_numpy(np.round(rng.standard_normal((S, 2)) * 64.0)
+    raw = torch.from_numpy(np.round(rng.standard_normal((s, 2)) * 64.0)
                            .astype(np.float32)).to(dtype).to(dev)
     before = _build.launch_counts()["correlate_window"]
-    out = track.correlate_window(raw, st.rc, st.dfc, st.ri, st.fi, tab, FS)
+    out = track.correlate_window(raw, st.rc, st.dfc, st.ri, st.fi, tab, fs)
     assert _build.launch_counts()["correlate_window"] == before + 1
     rf = raw.float()
     plain, _ = track.correlate_window_plain(
         rf[:, 0], rf[:, 1], st.rc, st.dfc, st.ri, st.fi, tab,
-        track.window_times(S, FS, dev), FS)
+        track.window_times(s, fs, dev), fs)
     assert torch.equal(out, plain)
 
 
-def test_track_chunk_kernel_equals_plain(capture, dev):
+@pytest.mark.parametrize("skew", [0, 2])
+def test_track_chunk_kernel_equals_plain(capture, skew, dev):
+    """skew = 2: the chunk is a view 8 bytes into its buffer, so no window
+    is 16-byte aligned and the ring is filled by the 4-byte copies."""
     samples, hand, _ = capture
     tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
-    raw = torch.from_numpy(samples[:200 * S].view(np.int16)
-                           .reshape(200, S, 2).copy()).to(dev)
+    flat = torch.from_numpy(samples[:201 * S].view(np.int16).copy()).to(dev)
+    raw = flat[2 * skew:2 * skew + 200 * S * 2].view(200, S, 2)
+    assert raw.data_ptr() % 16 == (8 if skew else 0)
     st0 = _seeded_state(hand, dev)
     before = _build.launch_counts()
     sk, lfk, lik = tracking.track_chunk_packed(st0, raw, tab, FS, FCAID)
@@ -91,6 +102,23 @@ def test_track_chunk_kernel_equals_plain(capture, dev):
     assert torch.equal(lik, lip) and torch.equal(lfk, lfp)
     for k in tracking.TrackState._fields:
         assert torch.equal(getattr(sk, k), getattr(sp, k)), k
+
+
+def test_track_chunk_clocks_do_not_change_the_logs(capture, dev):
+    """The measuring instantiation (clock64() sums) logs what the path's
+    does, and fills every word of its buffer."""
+    samples, hand, _ = capture
+    tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
+    raw = torch.from_numpy(samples[:50 * S].view(np.int16)
+                           .reshape(50, S, 2).copy()).to(dev)
+    st0 = _seeded_state(hand, dev)
+    clocks = torch.zeros((len(hand.prn_list), track.N_CLOCKS),
+                         dtype=torch.int64, device=dev)
+    _, lf, li = tracking.track_chunk_packed(st0, raw, tab, FS, FCAID)
+    _, lfc, lic = tracking.track_chunk_packed(st0, raw, tab, FS, FCAID,
+                                              clocks=clocks)
+    assert torch.equal(lf, lfc) and torch.equal(li, lic)
+    assert bool((clocks > 0).all())
 
 
 @pytest.mark.parametrize("interp,l_power", [("quadratic", 1),

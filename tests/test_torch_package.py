@@ -1,7 +1,10 @@
-"""The PyTorch port's package contract: no jax anywhere in it, explicit
-devices, and kernels that launch or raise (never fall back)."""
+"""The PyTorch port's package contract: no jax and nothing of the JAX
+package anywhere in it, explicit devices, and kernels that launch or raise
+(never fall back)."""
 
+import pathlib
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -18,25 +21,48 @@ torch.set_num_threads(2)
 PORT_MODULES = sorted(
     m.name for m in pkgutil.walk_packages(port.__path__,
                                           port.__name__ + "."))
+REPO = pathlib.Path(port.__file__).resolve().parent.parent
+HOST_LAYERS = ("constants", "io.handoff", "io.rawfile", "io.scenario",
+               "io.synth", "libgnss.cacode", "libgnss.dataparser",
+               "libgnss.ephemeris", "libgnss.frames", "libgnss.iono",
+               "libgnss.lnav", "libgnss.naveng", "libgnss.satcache",
+               "libgnss.satpos", "libgnss.tropo", "models.ekf", "models.grid")
 
 
 def test_port_modules_listed():
     for name in ("device", "ops._build", "ops.dpe", "ops.dpe_real",
                  "ops.score", "models.dpe", "ops.acquisition", "ops.track",
-                 "ops.tracking", "models.scalar"):
+                 "ops.tracking", "models.scalar") + HOST_LAYERS:
         assert f"navlab_dpe_sdr_tpu_torch.{name}" in PORT_MODULES
 
 
 def test_importing_the_port_leaves_jax_out():
+    """Every module of the port, and chip_smoke (its main() runs only under
+    __main__), in a fresh interpreter: neither jax nor the JAX package may
+    come along."""
     code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES!r}:\n"
+            f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(k for k in sys.modules if k == 'jax' or "
-            "k.startswith('jax.') or k.startswith('jaxlib'))\n"
+            "bad = sorted(k for k in sys.modules if k.startswith('jax') or "
+            "k == 'navlab_dpe_sdr_tpu' or "
+            "k.startswith('navlab_dpe_sdr_tpu.'))\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stderr
+
+
+def test_port_sources_name_no_module_of_the_jax_package():
+    """No import statement of the port or of chip_smoke.py names
+    navlab_dpe_sdr_tpu (only navlab_dpe_sdr_tpu_torch), or jax."""
+    pat = re.compile(r"^\s*(from|import)\s+(navlab_dpe_sdr_tpu|jax|jaxlib)"
+                     r"(\.|\s|$)", re.M)
+    files = sorted(pathlib.Path(port.__path__[0]).rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 25
+    bad = [str(f.relative_to(REPO)) for f in files
+           if pat.search(f.read_text())]
+    assert not bad, bad
 
 
 def test_resolve_device():
@@ -51,9 +77,9 @@ def test_resolve_device():
 
 
 def test_receiver_defaults_to_cuda_and_never_to_cpu():
-    from navlab_dpe_sdr_tpu.io.rawfile import DTYPE_IQ16, SampleFile
-    from navlab_dpe_sdr_tpu.io.scenario import make_scenario
-    from navlab_dpe_sdr_tpu.models.grid import uniform_grid
+    from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16, SampleFile
+    from navlab_dpe_sdr_tpu_torch.io.scenario import make_scenario
+    from navlab_dpe_sdr_tpu_torch.models.grid import uniform_grid
     from navlab_dpe_sdr_tpu_torch.models.dpe import DPEReceiver
 
     if torch.cuda.is_available():
@@ -73,7 +99,7 @@ def test_score_argmax_refuses_other_devices():
 
 
 def test_scalar_receiver_defaults_to_cuda_and_never_to_cpu():
-    from navlab_dpe_sdr_tpu.io.rawfile import DTYPE_IQ16, SampleFile
+    from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16, SampleFile
     from navlab_dpe_sdr_tpu_torch.models.scalar import ScalarReceiver
     from navlab_dpe_sdr_tpu_torch.ops.tracking import init_state
 
