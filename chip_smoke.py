@@ -11,13 +11,17 @@ Phases, one line or more each (any failure raises and exits non-zero):
 3. K1 (score_argmax) against its plain PyTorch version on the card at the
    batched path's shapes (N=50 blocks, C=8 channels, the spread grid's
    390 625 points per manifold, code/carrier windows of the receiver),
-   every case of manifold x l_power x interp x weighted, with both times;
+   every case of manifold x l_power x interp x weighted, with both times
+   (CUDA events around the wrapper, and the kernel's own time from
+   torch.profiler), and the grouped path's N=10;
 4. one fused dispatch on the card against the same dispatch on the CPU;
 5. the batched main path: DPEReceiver.run_batched on the first 10 s of a
    40 s synthetic capture held on the card as int16 [B, S, 2]: 100 warm-up
    blocks, 200 blocks per block (lookahead 50, pipeline depth 4), 200 blocks
    in coherent groups of 5; K1 launch counts, fix errors against truth,
-   wall time and real-time factor;
+   wall time and real-time factor; then, outside the timed segments, one
+   more dispatch of each kind under torch.profiler: kernel launches,
+   device-busy ms and its share of the wall, K1's device ms;
 6. K3 (correlate_window) against its plain version: seeded state and raw,
    C=8, S=2500 (one bulk copy per window), and S=2501 (a window that is no
    multiple of 16 bytes: the kernel's 4-byte copies);
@@ -26,17 +30,21 @@ Phases, one line or more each (any failure raises and exits non-zero):
    after step 5, rc within 1e-3 chips, fi within 0.1 Hz, prompt sums within
    1e-3 of each channel's peak; ms per chunk and real-time factor; and one
    extra launch with the kernel's clock buffer: where a step's time goes;
-8. K2 (score_surface) against its plain version: N=1, G=390 625, both
-   manifolds x quadratic/linear x l_power 1/2, argmax equal, rtol 1e-6;
+8. K2 (score_surface_argmax) against its plain version: N=1, G=390 625,
+   both manifolds x quadratic/linear x l_power 1/2, the surface within
+   rtol 1e-6, the kernel's (max, first index) equal to the plain surface's;
 9. the cold-start path on the card, twice (the second timed: cold receiver
    state, warm kernels): ScalarReceiver acquire -> track 30 s, then 2 s at
    a time to 8/8 ephemerides (checked against the scenario's) -> scalar
    PVT -> save_handoff -> DPEReceiver.run(1), then 50 more per-block steps;
-   K2/K3/K4 launch counts, errors, TTFF wall, tracking real-time factor.
+   K2/K3/K4 launch counts, errors, TTFF wall, tracking real-time factor;
+   then one more per-block step under torch.profiler (launches, device-busy
+   ms, K2's device ms).
 The line before the last is the kernels' JSON record (launches on the
 timed paths, error against the plain version, ms, plain ms, the roofline
 bound of the same work and what sets it, library_ms: null where no single
-PyTorch call computes the function); the last line is
+PyTorch call computes the function, device_ms: the kernel's own time from
+torch.profiler, null if the profiler showed none); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. Imports nothing of JAX and nothing of the JAX package.
 """
@@ -52,6 +60,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from navlab_dpe_sdr_tpu_torch.constants import F_CA, F_L1
 from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16, SampleFile
@@ -81,11 +90,12 @@ TRACK_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/track_chunk.cu"
 PEAK_F32 = 67e12        # operations / s
 PEAK_BYTES = 3.35e12    # bytes / s
 # f32 operations counted from the plain versions: one grid point of one
-# channel in score_points (geometry, round/clip, 3-tap Lagrange weights,
-# the weighted taps, the channel sum), and one sample of one channel in
-# correlate_window_plain (phase, cos and sin, wipeoff, three chip indices,
-# segment, 12 multiply-adds).
-OPS_PER_POINT_CHANNEL = 30
+# channel in score_points (line-of-sight projection 5, range 1 or, with the
+# curvature term, 5, index 3, round/clip/offset 4, the per-tap coefficient
+# form a + d (b + d c) 4, the channel sum 1; a multiply-add counts as two),
+# and one sample of one channel in correlate_window_plain (phase, cos and
+# sin, wipeoff, three chip indices, segment, 12 multiply-adds).
+OPS_PER_POINT_CHANNEL = {"pos": 22, "vel": 18}
 OPS_PER_SAMPLE_CHANNEL = 60
 KERNELS = {
     "K1": dict(name="score_argmax", route="cuda", source=SCORE_SRC,
@@ -139,6 +149,74 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_profile(fn):
+    """Run fn() once under torch.profiler and synchronize. Returns (kernel
+    launches, device-busy ms: kernels and copies summed, wall ms under the
+    profiler, {kernel name: (ms, launches)}); launches 0 when the profiler
+    showed no device activity."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches, busy, by_name = 0, 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        busy += ms
+        seen = by_name.get(e.key, (0.0, 0))
+        by_name[e.key] = (seen[0] + ms, seen[1] + e.count)
+        if "memcpy" not in e.key.lower() and "memset" not in e.key.lower():
+            launches += e.count
+    return launches, busy, wall, by_name
+
+
+def kernel_device_ms(fn, reps: int, name: str):
+    """The device's own ms per launch of the kernels whose name holds
+    `name`, from torch.profiler over `reps` calls of fn (per launch the
+    profiler recorded: it can drop one); None when it showed none."""
+    fn()
+
+    def loop():
+        for _ in range(reps):
+            fn()
+
+    found = [v for k, v in device_profile(loop)[3].items() if name in k]
+    count = sum(n for _, n in found)
+    return sum(ms for ms, _ in found) / count if count else None
+
+
+def device_record(what: str, fn, kernel: str, card: str) -> None:
+    """Log the device side of one fn() outside the timed segments: kernel
+    launches, device-busy ms and its share of the wall, and the device ms
+    of the kernels named `kernel`."""
+    launches, busy, wall, by_name = device_profile(fn)
+    if launches == 0:
+        log(f"device side of {what}: not measured (the profiler showed no "
+            f"device activity)")
+        return
+    own = sum(ms for k, (ms, _) in by_name.items() if kernel in k)
+    n_own = sum(n for k, (_, n) in by_name.items() if kernel in k)
+    log(f"device side of {what} (one run under torch.profiler, outside the "
+        f"timed segments): {launches} kernel launches, device busy "
+        f"{busy:.3f} ms of {wall:.3f} ms of profiled wall (share "
+        f"{busy / wall:.3f}), of which {kernel} {own:.4f} ms in {n_own} "
+        f"launch(es) [{card}]")
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def add_ms(a, b):
+    """a + b, or None when either was not measured."""
+    return None if a is None or b is None else a + b
+
+
 def scorer_inputs(rng, manifold: str, width: int, grid, dev):
     """Main-path-shaped scorer operands made with numpy from the seed."""
     n, c = N_BLOCKS, 8
@@ -164,13 +242,16 @@ def scorer_inputs(rng, manifold: str, width: int, grid, dev):
 
 
 def check_scorer(grid, widths, dev):
-    """Phase 3: kernel vs plain on the card, every case; returns
-    (max |best diff|, kernel ms, plain ms, bound) per dispatch (both
-    manifolds, quadratic, l_power 1, argmax: the main path's calls)."""
+    """Phase 3: kernel vs plain on the card, every case. Returns a dict:
+    err (max |best diff|), and per dispatch (both manifolds, quadratic,
+    l_power 1, argmax: the main path's calls) ms and plain_ms from CUDA
+    events around the wrappers, device_ms from the profiler, the bound, and
+    ms10/device_ms10 at the grouped path's N=10."""
     rng = np.random.default_rng(SEED)
     max_err = 0.0
     times = {}
     ops = nbytes = 0
+    dev_ms, ms10, dev_ms10 = 0.0, 0.0, 0.0
     for manifold in ("pos", "vel"):
         args = scorer_inputs(rng, manifold, widths[manifold], grid, dev)
         for interp in ("quadratic", "linear"):
@@ -197,12 +278,33 @@ def check_scorer(grid, widths, dev):
                         if not weighted:
                             n, c = args[0].shape[:2]
                             ops += (n * c * args[5].shape[0]
-                                    * OPS_PER_POINT_CHANNEL)
+                                    * OPS_PER_POINT_CHANNEL[manifold])
                             nbytes += tensor_bytes(*args, *got[:2])
                     log(line)
-    k_ms = times[("pos", False)][0] + times[("vel", False)][0]
-    p_ms = times[("pos", False)][1] + times[("vel", False)][1]
-    return max_err, k_ms, p_ms, bound(ops, nbytes)
+        # the main path's call again for the kernel's own time, and the
+        # grouped path's N = 10 (50 blocks in coherent groups of 5)
+        d50 = kernel_device_ms(lambda: score.score_argmax(*args), 10,
+                               "score_kernel")
+        args10 = [None if a is None else a[:10].contiguous()
+                  for a in args[:5]] + args[5:]
+        got = score.score_argmax(*args10)
+        want = score.score_argmax_plain(*args10)
+        max_err = max(max_err, compare_scores(
+            args10, got, want, dict(interp="quadratic", l_power=1,
+                                    weighted=False)))
+        m10 = cuda_ms(lambda: score.score_argmax(*args10), 20)
+        d10 = kernel_device_ms(lambda: score.score_argmax(*args10), 10,
+                               "score_kernel")
+        log(f"scorer {manifold} W={widths[manifold]} quadratic l_power=1 "
+            f"argmax: kernel's own time N=50 {fmt_ms(d50)}; N=10: kernel == "
+            f"plain, wrapper {m10:.4f} ms, kernel's own {fmt_ms(d10)}")
+        ms10 += m10
+        dev_ms, dev_ms10 = add_ms(dev_ms, d50), add_ms(dev_ms10, d10)
+    return dict(err=max_err,
+                ms=times[("pos", False)][0] + times[("vel", False)][0],
+                plain_ms=times[("pos", False)][1] + times[("vel", False)][1],
+                device_ms=dev_ms, ms10=ms10, device_ms10=dev_ms10,
+                bound=bound(ops, nbytes))
 
 
 def compare_scores(args, got, want, kw) -> float:
@@ -309,7 +411,7 @@ def build_all():
 def check_correlator(dev, card):
     """Phase 6: K3 against its plain version at the path's window (S=2500,
     staged by one bulk copy) and at S=2501 (10 004 bytes: the 4-byte
-    copies); (max |diff|, ms, plain ms, bound) of the first."""
+    copies); dict(err, ms, plain_ms, device_ms, bound) of the first."""
     rng = np.random.default_rng(SEED)
     c = 8
     tab = torch.from_numpy(ca_table(range(1, c + 1)).astype(np.float32)
@@ -347,9 +449,12 @@ def check_correlator(dev, card):
             f"max|diff| {err:.3e} (rel {rel:.3e}, limit 1e-5); kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms per window [{card}]")
         if result is None:
-            result = (err, k_ms, p_ms, bound(
-                c * s * OPS_PER_SAMPLE_CHANNEL,
-                tensor_bytes(raw, times, tab, *args[:4], got)))
+            result = dict(
+                err=err, ms=k_ms, plain_ms=p_ms,
+                device_ms=kernel_device_ms(kernel, 50,
+                                           "correlate_window_kernel"),
+                bound=bound(c * s * OPS_PER_SAMPLE_CHANNEL,
+                            tensor_bytes(raw, times, tab, *args[:4], got)))
     return result
 
 
@@ -367,7 +472,8 @@ def tracker_inputs(samples, hand, dev):
 
 def check_tracker(st0, raw, code_table, card):
     """Phase 7: K4 against its plain version on one 2000 ms chunk from the
-    acquisition result; (max |float log diff|, kernel ms, plain ms, bound)."""
+    acquisition result; dict(err: max |float log diff|, ms, plain_ms,
+    device_ms, bound)."""
     fcaid = F_CA / F_L1
     n_chan = code_table.shape[0]
 
@@ -420,18 +526,20 @@ def check_tracker(st0, raw, code_table, card):
         f"MHz): " + ", ".join(f"{n} {u:.3f}" for n, u in
                               zip(track.CLOCK_NAMES, us)) + f" [{card}]")
     steps, s = raw.shape[:2]
-    return err, k_ms, p_ms, bound(
-        steps * s * n_chan * OPS_PER_SAMPLE_CHANNEL,
-        tensor_bytes(raw, code_table, lfk, lik) + 2 * n_chan * (16 + 5 + 40)
-        * 4)
+    return dict(
+        err=err, ms=k_ms, plain_ms=p_ms,
+        device_ms=kernel_device_ms(kernel, 3, "track_chunk_kernel"),
+        bound=bound(steps * s * n_chan * OPS_PER_SAMPLE_CHANNEL,
+                    tensor_bytes(raw, code_table, lfk, lik)
+                    + 2 * n_chan * (16 + 5 + 40) * 4))
 
 
 def check_surface(grid, widths, dev, card):
-    """Phase 8: K2 against its plain version, N=1, G=390 625; (max |diff|,
-    kernel ms, plain ms, bound) of one block (both manifolds, quadratic,
-    l_power 1: the per-block step's calls)."""
+    """Phase 8: K2 against its plain version, N=1, G=390 625. Returns a
+    dict: err (max |diff|), and per block (both manifolds, quadratic,
+    l_power 1: the per-block step's calls) ms, plain_ms, device_ms, bound."""
     rng = np.random.default_rng(SEED + 2)
-    max_err, k_ms, p_ms = 0.0, 0.0, 0.0
+    max_err, k_ms, p_ms, d_ms = 0.0, 0.0, 0.0, 0.0
     ops = nbytes = 0
     for manifold in ("pos", "vel"):
         # one block of the batch (windows, geometry) against the whole grid
@@ -441,30 +549,38 @@ def check_surface(grid, widths, dev, card):
         for interp in ("quadratic", "linear"):
             for l_power in (1, 2):
                 kw = dict(interp=interp, l_power=l_power)
-                got = score.score_surface(*args, **kw)
+                got, best, arg = score.score_surface_argmax(*args, **kw)
                 assert got.shape == (1, grid.n_pos), got.shape
                 want = score.score_surface_plain(*args, **kw)
                 torch.cuda.synchronize()
-                assert int(got.argmax()) == int(want.argmax())
+                # the kernel's (max, first index) are the plain surface's
+                assert int(arg[0]) == int(want.argmax())
+                assert float(best[0]) == float(want.max())
                 torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
                 err = float((got - want).abs().max())
                 max_err = max(max_err, err)
                 if interp == "quadratic" and l_power == 1:
-                    km = cuda_ms(lambda: score.score_surface(*args, **kw),
-                                 50)
+                    km = cuda_ms(lambda: score.score_surface_argmax(
+                        *args, **kw), 50)
                     pm = cuda_ms(lambda: score.score_surface_plain(
                         *args, **kw), 5)
+                    dm = kernel_device_ms(lambda: score.score_surface_argmax(
+                        *args, **kw), 20, "score_kernel")
                     k_ms, p_ms = k_ms + km, p_ms + pm
+                    d_ms = add_ms(d_ms, dm)
                     ops += (args[0].shape[1] * args[5].shape[0]
-                            * OPS_PER_POINT_CHANNEL)
-                    nbytes += tensor_bytes(*args, got)
+                            * OPS_PER_POINT_CHANNEL[manifold])
+                    nbytes += tensor_bytes(*args, got, best, arg)
                     log(f"K2 score_surface {manifold} W={widths[manifold]}"
-                        f": kernel {km:.4f} ms, plain {pm:.4f} ms [{card}]")
+                        f": wrapper {km:.4f} ms, kernel's own {fmt_ms(dm)}, "
+                        f"plain {pm:.4f} ms [{card}]")
     log(f"K2 score_surface: N=1, G={grid.n_pos}, both manifolds x "
-        f"quadratic/linear x l_power 1/2: argmax equal, max|diff| "
-        f"{max_err:.3e} (rtol 1e-6); per block {k_ms:.4f} ms vs plain "
-        f"{p_ms:.4f} ms [{card}]")
-    return max_err, k_ms, p_ms, bound(ops, nbytes)
+        f"quadratic/linear x l_power 1/2: surface max|diff| {max_err:.3e} "
+        f"(rtol 1e-6), max and first index equal; per block wrapper "
+        f"{k_ms:.4f} ms, kernel's own {fmt_ms(d_ms)}, plain {p_ms:.4f} ms "
+        f"[{card}]")
+    return dict(err=max_err, ms=k_ms, plain_ms=p_ms, device_ms=d_ms,
+                bound=bound(ops, nbytes))
 
 
 def cold_start(samples, hand, arr, grid, dev):
@@ -553,6 +669,7 @@ def check_cold_start(samples, hand, arr, grid, dev, card):
     log(f"per-block DPE after the handoff: 50 steps, error median "
         f"{med:.2f} m p95 {float(np.percentile(err, 95)):.2f} m, wall "
         f"{wall:.3f} s ({50 * T / wall:.2f}x real time) [{card}]")
+    device_record("one per-block step", drx.step, "score_kernel", card)
     return counts, rx.mcount
 
 
@@ -575,17 +692,19 @@ def main() -> int:
     cw, vw = dpe_ops.auto_windows(grid.d_enu, grid.dt_m, grid.dv_enu,
                                   grid.dtdot, FS, CARR_FFTPTS)
     widths = {"pos": cw, "vel": vw}
-    k1_err, k1_ms, k1_plain, k1_bound = check_scorer(grid, widths, dev)
-    log(f"scorer: kernel == plain in all 16 cases (max|best diff| "
-        f"{k1_err:.3e}); per dispatch (pos W={cw} + vel W={vw}, N=50, "
-        f"G={grid.n_pos}): kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms "
-        f"[{card}]")
+    k1 = check_scorer(grid, widths, dev)
+    log(f"scorer: kernel == plain in all 16 cases and at N=10 (max|best "
+        f"diff| {k1['err']:.3e}); per dispatch (pos W={cw} + vel W={vw}, "
+        f"G={grid.n_pos}): N=50 wrapper {k1['ms']:.4f} ms, kernel's own "
+        f"{fmt_ms(k1['device_ms'])}, plain {k1['plain_ms']:.4f} ms; N=10 "
+        f"wrapper {k1['ms10']:.4f} ms, kernel's own "
+        f"{fmt_ms(k1['device_ms10'])} [{card}]")
 
     t0 = time.perf_counter()
     samples, hand, arr = make_capture(CAPTURE_S)
     log(f"capture: {CAPTURE_S:.0f} s synthesized in "
         f"{time.perf_counter() - t0:.1f} s")
-    first = samples[:S * 500]
+    first = samples[:S * 600]        # 500 timed and warm-up blocks + 100
     rel = check_dispatch(first, hand, arr, grid)
     log(f"dispatch: card == cpu on 5 blocks (indices, flips equal; "
         f"windows rel diff {rel:.2e})")
@@ -631,6 +750,12 @@ def main() -> int:
     total = sum(segments)
     log(f"main path: 400 blocks in {total:.3f} s, {400 * T / total:.2f}x "
         f"real time [{card}]")
+    for name, start, group_k in (("per-block", 500, 1),
+                                 ("grouped K=5", 550, 5)):
+        device_record(
+            f"one 50-block dispatch, {name}",
+            lambda: rx.run_batched(50, start_block=start, group_k=group_k,
+                                   **run), "score_kernel", card)
     del raw_dev, rx
 
     k3 = check_correlator(dev, card)
@@ -640,12 +765,13 @@ def main() -> int:
 
     # no single PyTorch call computes any of the four functions: library_ms
     # is null throughout
-    rows = [("K1", k1_launches, (k1_err, k1_ms, k1_plain, k1_bound)),
-            ("K2", counts["score_surface"], k2),
+    rows = [("K1", k1_launches, k1), ("K2", counts["score_surface"], k2),
             ("K3", counts["correlate_window"], k3),
             ("K4", counts["track_chunk"], k4)]
-    kernels = [dict(KERNELS[k], launches=n, max_abs_err=e, ms=m, plain_ms=pm,
-                    **b, library_ms=None) for k, n, (e, m, pm, b) in rows]
+    kernels = [dict(KERNELS[k], launches=n, max_abs_err=r["err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], **r["bound"], library_ms=None,
+                    device_ms=r["device_ms"]) for k, n, r in rows]
+    kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"])
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of "
             f"{k['bound_ms']:.5f} ms ({k['bound_by']}; "

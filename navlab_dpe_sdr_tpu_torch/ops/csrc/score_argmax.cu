@@ -1,359 +1,511 @@
-// Manifold scoring with a fused streaming argmax (K1), and the full score
-// surface of one block (K2), for Hopper (sm_90a).
+// Manifold scoring for Hopper (sm_90a): the streaming argmax over a whole
+// grid (K1) and the full score surface of a block (K2), one kernel.
 //
 // K1 replaces the TPU kernel navlab_dpe_sdr_tpu/ops/pallas_score.py
 // _chunk_kernel / score_chunk_pallas, and the XLA scorer the JAX product
 // path runs in its place (ops/dpe_real.py _score_chunk under
-// _local_argmax_scan). K2 (score_surface_launch) replaces _score_kernel /
-// score_manifold_pallas of the same file: the per-block step's [G] scores
-// (ops/dpe_real.py score_manifolds_mag), which the score-weighted mean and
-// the score dumps need whole. Both evaluate each point with the same
-// __device__ function (point_score). For block n and grid point g (offsets
-// o3 [G, 3], o1 [G]):
+// _local_argmax_scan). K2 replaces _score_kernel / score_manifold_pallas of
+// the same file: the per-block step's [G] scores (ops/dpe_real.py
+// score_manifolds_mag), which the score-weighted mean and the score dumps
+// need whole. For block n and grid point g (offsets o3 [G, 3], o1 [G]):
 //
 //   u_c   = los[n, c] . o3[g]
-//   idx_c = center[n, c] + coef[n, c] * (-u_c + (|o3|^2 - u_c^2) / (2 r0[n, c])
-//                                        + o1[g])      (r0 term: position only)
+//   idx_c = center[n, c] + coef[n, c] * (-u_c + (|o3|^2 - u_c^2) * h[n, c]
+//                                        + o1[g])     (h = 1 / (2 r0[n, c]);
+//                                                      position manifold only)
 //   s     = sum_c interp(win[n, c, :], idx_c) ^ l_power
 //
-// with interp the 3-tap Lagrange ("quadratic": k0 = clip(rint(idx), 1, W-2))
-// or hat weights on floor(idx), floor(idx)+1 inside [0, W-1] ("linear").
-// Out: best[n] = max_g s, arg[n] = the first g at that max, and when
-// weighted the sums of s*[o3, o1] (wsum4[n, 4]) and of s (wtot[n]).
+// with interp the 3-tap Lagrange value about k = clip(rint(idx), 1, W-2),
+// evaluated as a_k + d (b_k + d c_k), d = idx - k, a_k = win[k],
+// b_k = (win[k+1] - win[k-1]) / 2, c_k = (win[k+1] + win[k-1]) / 2 - win[k]
+// ("quadratic"), or hat weights on floor(idx), floor(idx)+1 inside
+// [0, W-1] ("linear"). Out: best[n] = max_g s, arg[n] = the first g at that
+// max; when weighted the sums of s*[o3, o1] (wsum4[n, 4]) and of s
+// (wtot[n]); in surface mode also every s (surface[n, g]).
 //
-// What bounds it on the card: ~30 f32 operations per point-channel (LOS
-// projection, curvature term, index, rint/clamp, three shared-memory taps,
-// Lagrange weights) against 16 bytes of offsets per point. The main path's
-// 390 625-point manifolds hold 6.25 MB of offsets, which stay in the 50 MB
-// L2 across the N blocks of a dispatch, so the kernel is bound by f32
-// instruction throughput, not by HBM. The [N, G] score surface never
-// reaches device memory: each thread block reduces its tile to (max, first
-// index, weighted partial sums), and a second small kernel reduces the
-// tiles of each block n. K2 does the same arithmetic and writes the
-// surface (1.56 MB per manifold and block at N = 1), one 4-byte store per
-// point: still bound by instructions, not by the store stream.
+// What bounds it on the card: f32 instruction rate and, beside it, the
+// shared-memory reads, not device memory. The main path's 390 625-point
+// manifolds hold 6.25 MB of offsets, which stay in the 50 MB L2, and each
+// point-channel costs 22 f32 operations of the plain form (18 without the
+// curvature term). An earlier form of this kernel spent most of its time on
+// six broadcast shared-memory loads of the per-channel parameters and a
+// division per point-channel; both are gone (see Design). The kernel is
+// built without FMA contraction (ops/_build.py) so that every score has
+// the bits of the plain PyTorch version (ops/score.py score_points); an
+// operations bound that counts a fused multiply-add as two can therefore
+// be reached by half at most. At N = 1 (the per-block step) the 1.56 MB
+// surface store and one wave of thread blocks are what is left: the
+// kernel's time there is a few launches' worth.
 //
-// Design (first, simple form): launch grid (tiles of 256 points, N); one
-// thread per grid point looping over the C channels; block n's windows and
-// per-channel parameters in shared memory. Built with -fmad=false (see
-// ops/_build.py) so each point's score is the same f32 arithmetic, in the
-// same order, as the plain PyTorch version (ops/score.py score_points). The
-// weighted sums accumulate in f64: over the symmetric grid they cancel to a
-// small mean, which f32 sums of 4e5 terms would blur.
-//
-// Later: loop over N inside a block so each grid point is read and its
-// |o3|^2 formed once per dispatch; several points per thread; FMA
-// contraction once the comparison tolerates it.
+// Design.
+// - A thread owns kP consecutive grid points (16-byte loads of their
+//   offsets, started before the first barrier) with |o3|^2, in registers,
+//   across a loop over its share of the N blocks: offsets are read once per
+//   share, not once per block, and each (n, c) parameter load (two
+//   broadcast 16-byte loads) serves kP points. Channel loop outside, point
+//   loop inside: kP independent interpolation chains.
+// - Windows and parameters of a batch of blocks are staged in shared memory
+//   at once (one barrier pair per batch, not per block). What depends on
+//   (n, c) alone is formed there once: 1 / (2 r0), and per tap the
+//   coefficients (a, b, c) as one float4, so a point-channel reads one
+//   16-byte tap entry and evaluates 4 operations instead of three loads and
+//   11. Above 48 KB the batch is one block in opt-in dynamic shared memory.
+// - The launch grid is (tiles of kThreads*kP points, shares of N). Shares
+//   are sized so the card holds several waves of thread blocks at N = 50
+//   and 10; at N = 1 the tiles alone are one wave. Offsets that are not
+//   16-byte aligned take kP = 1 and scalar loads.
+// - l_power (1, 2, general), the mode (argmax, weighted, surface) and kP are
+//   template parameters: the argmax-only main path carries no doubles.
+// - Reduction: a thread keeps the first maximum of its kP points, a warp
+//   takes __reduce_max_sync on an order-preserving integer key of the score
+//   and __reduce_min_sync on the indices at that key, lane 0 parks the pair
+//   in shared memory, and after the batch's barrier one lane of warp 0 per
+//   block n folds the warps and makes a single 64-bit atomicMax on
+//   (key << 32 | ~index): (max, smallest index) in any order of arrival.
+//   A ticket per block n tells the tile that arrives last: its lane decodes
+//   best/arg, warp 0 sums the weighted partials of every tile in tile order
+//   (f64, no floating atomics: the same bits run to run), and both scratch
+//   words go back to zero for the next launch. No second kernel, no memset,
+//   and no barrier beyond the two of a batch (staged; scored).
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPar = 6;  // los_e, los_n, los_u, 2*r0 (or 1), center, coef
+constexpr int kParF = 8;          // floats per (n, c): los e, n, u, h | center, coef, 0, 0
+constexpr int kMaxBatch = 32;     // blocks n staged at once, at most
+constexpr int kBatchBytes = 48 * 1024;        // staging budget: no opt-in, >= 4 blocks per SM
+constexpr int kMaxDynShared = 200 * 1024;     // the widest single block n accepted
+constexpr unsigned kFull = 0xffffffffu;
 
-struct Acc {
-  float best;
-  int arg;
-  double w[5];  // sum s*x, s*y, s*z, s*t, sum s
+enum Mode { kArgmax = 0, kWeighted = 1, kSurface = 2 };
+
+struct Args {
+  const float* win;      // [N, C, W] contiguous
+  const float* los;      // [N, C, 3] by strides
+  const float* centers;  // [N, C] by strides
+  const float* coefs;    // [N, C] by strides
+  const float* r0;       // [N, C] by strides, or null (velocity manifold)
+  const float* off3;     // [G, 3] contiguous
+  const float* off1;     // [G]
+  int los_sn, los_sc, los_sj, cen_sn, cen_sc, coef_sn, coef_sc, r0_sn, r0_sc;
+  int n_blocks, n_chan, width, n_grid, l_power;
+  int n_per_share, n_batch;
+  float* surface;                // [N, G] (surface mode)
+  unsigned long long* packed;    // [N] scratch, zero between launches
+  unsigned int* ticket;          // [N] scratch, zero between launches
+  double* part_w;                // [N, tiles, 5] scratch (weighted mode)
+  float* best;                   // [N]
+  int* arg;                      // [N]
+  float* wsum4;                  // [N, 4] (weighted mode)
+  float* wtot;                   // [N]    (weighted mode)
 };
 
-__device__ __forceinline__ Acc acc_empty() {
-  Acc a;
-  a.best = -INFINITY;
-  a.arg = INT_MAX;
-  for (int i = 0; i < 5; ++i) a.w[i] = 0.0;
-  return a;
+// Order-preserving map of a float onto an unsigned integer, and back.
+__device__ __forceinline__ unsigned ordered_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// (max, smallest index at the max): the first-occurrence rule of
-// jnp.argmax over the whole grid, independent of the reduction order.
-__device__ __forceinline__ void combine(Acc& a, const Acc& b, bool weighted) {
-  if (b.best > a.best || (b.best == a.best && b.arg < a.arg)) {
-    a.best = b.best;
-    a.arg = b.arg;
-  }
-  if (weighted)
-    for (int i = 0; i < 5; ++i) a.w[i] += b.w[i];
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-__device__ __forceinline__ Acc shfl_down(const Acc& a, int off, bool weighted) {
-  Acc b;
-  b.best = __shfl_down_sync(0xffffffffu, a.best, off);
-  b.arg = __shfl_down_sync(0xffffffffu, a.arg, off);
-  for (int i = 0; i < 5; ++i)
-    b.w[i] = weighted ? __shfl_down_sync(0xffffffffu, a.w[i], off) : 0.0;
-  return b;
+// One channel's interpolated window value at one grid point, to l_power:
+// the f32 operations of ops/score.py score_points, in their order.
+template <bool kQuad, bool kLinear, int kLP>
+__device__ __forceinline__ float channel_score(const float4 pa, const float4 pb,
+                                               const float* __restrict__ taps,
+                                               int width, int l_power, float x,
+                                               float y, float z, float t, float d2) {
+  const float u = pa.x * x + pa.y * y + pa.z * z;
+  const float rng = kQuad ? -u + (d2 - u * u) * pa.w : -u;
+  const float idx = pb.x + pb.y * (rng + t);
+  float v;
+  if (kLinear) {
+    const float wmax = (float)(width - 1);
+    const float k0 = floorf(idx);
+    const float k1 = k0 + 1.0f;
+    v = 0.0f;
+    if (k0 >= 0.0f && k0 <= wmax) v += fmaxf(0.0f, 1.0f - fabsf(idx - k0)) * taps[(int)k0];
+    if (k1 >= 0.0f && k1 <= wmax) v += fmaxf(0.0f, 1.0f - fabsf(idx - k1)) * taps[(int)k1];
+  } else {
+    const float k0 = fminf(fmaxf(rintf(idx), 1.0f), (float)(width - 2));
+    const float d = idx - k0;
+    const float4 q = reinterpret_cast<const float4*>(taps)[(int)k0];
+    v = q.x + d * (q.y + d * q.z);
+  }
+  if (kLP == 1) return v;
+  if (kLP == 2) return v * v;
+  float vp = v;
+  for (int i = 1; i < l_power; ++i) vp *= v;
+  return vp;
 }
 
-// Reduce over the thread block; the result is valid in thread 0.
-__device__ Acc block_reduce(Acc a, bool weighted) {
-  __shared__ float s_best[kWarps];
-  __shared__ int s_arg[kWarps];
-  __shared__ double s_w[kWarps][5];
-  for (int off = 16; off > 0; off >>= 1) combine(a, shfl_down(a, off, weighted), weighted);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (lane == 0) {
-    s_best[warp] = a.best;
-    s_arg[warp] = a.arg;
-    for (int i = 0; i < 5; ++i) s_w[warp][i] = a.w[i];
+// Parameters and windows of blocks n0 .. n0+nb-1 into shared memory.
+template <bool kQuad, bool kLinear>
+__device__ __forceinline__ void stage_batch(const Args& a, int n0, int nb,
+                                            float* s_par, float* s_tap) {
+  const int C = a.n_chan, W = a.width;
+  float4* par4 = reinterpret_cast<float4*>(s_par);
+  for (int i = threadIdx.x; i < nb * C; i += kThreads) {
+    const int n = n0 + i / C, c = i % C;
+    const float* l = a.los + (size_t)n * a.los_sn + (size_t)c * a.los_sc;
+    float h = 0.0f;
+    if (kQuad) h = 1.0f / (2.0f * a.r0[(size_t)n * a.r0_sn + (size_t)c * a.r0_sc]);
+    par4[2 * i] = make_float4(l[0], l[a.los_sj], l[2 * (size_t)a.los_sj], h);
+    par4[2 * i + 1] = make_float4(a.centers[(size_t)n * a.cen_sn + (size_t)c * a.cen_sc],
+                                  a.coefs[(size_t)n * a.coef_sn + (size_t)c * a.coef_sc],
+                                  0.0f, 0.0f);
   }
-  __syncthreads();
-  if (warp == 0) {
-    Acc b = acc_empty();
-    if (lane < kWarps) {
-      b.best = s_best[lane];
-      b.arg = s_arg[lane];
-      for (int i = 0; i < 5; ++i) b.w[i] = s_w[lane][i];
-    }
-    for (int off = 16; off > 0; off >>= 1) combine(b, shfl_down(b, off, weighted), weighted);
-    a = b;
-  }
-  return a;
-}
-
-// Block n's windows [C * W] and per-channel parameters [C * kPar] into
-// shared memory.
-__device__ __forceinline__ void stage_block(const float* __restrict__ win,
-                                            const float* __restrict__ los,
-                                            const float* __restrict__ centers,
-                                            const float* __restrict__ coefs,
-                                            const float* __restrict__ r0, int n,
-                                            int n_chan, int width, float* s_win,
-                                            float* s_par) {
-  const int cw = n_chan * width;
-  for (int i = threadIdx.x; i < cw; i += blockDim.x) s_win[i] = win[(size_t)n * cw + i];
-  for (int c = threadIdx.x; c < n_chan; c += blockDim.x) {
-    const size_t nc = (size_t)n * n_chan + c;
-    s_par[c * kPar + 0] = los[nc * 3 + 0];
-    s_par[c * kPar + 1] = los[nc * 3 + 1];
-    s_par[c * kPar + 2] = los[nc * 3 + 2];
-    s_par[c * kPar + 3] = r0 != nullptr ? 2.0f * r0[nc] : 1.0f;
-    s_par[c * kPar + 4] = centers[nc];
-    s_par[c * kPar + 5] = coefs[nc];
-  }
-}
-
-// The score of one grid point (offsets x, y, z, t) summed over channels:
-// the f32 arithmetic of ops/score.py score_points, operation for operation.
-template <bool kQuadRange, bool kLinear>
-__device__ __forceinline__ float point_score(const float* s_win, const float* s_par,
-                                             int n_chan, int width, int l_power,
-                                             float x, float y, float z, float t) {
-  const float d2 = x * x + y * y + z * z;
-  const float wmax = (float)(width - 1);
-  float acc = 0.0f;
-  for (int c = 0; c < n_chan; ++c) {
-    const float* p = s_par + c * kPar;
-    const float u = p[0] * x + p[1] * y + p[2] * z;
-    const float rng = kQuadRange ? -u + (d2 - u * u) / p[3] : -u;
-    const float idx = p[4] + p[5] * (rng + t);
-    const float* wr = s_win + c * width;
-    float v;
-    if (kLinear) {
-      const float k0 = floorf(idx);
-      const float k1 = k0 + 1.0f;
-      v = 0.0f;
-      if (k0 >= 0.0f && k0 <= wmax) v += fmaxf(0.0f, 1.0f - fabsf(idx - k0)) * wr[(int)k0];
-      if (k1 >= 0.0f && k1 <= wmax) v += fmaxf(0.0f, 1.0f - fabsf(idx - k1)) * wr[(int)k1];
-    } else {
-      const float k0 = fminf(fmaxf(rintf(idx), 1.0f), (float)(width - 2));
-      const float d = idx - k0;
-      const float dd = d * d;
-      const int k = (int)k0;
-      v = 0.5f * (dd - d) * wr[k - 1] + (1.0f - dd) * wr[k] + 0.5f * (dd + d) * wr[k + 1];
-    }
-    float vp = v;
-    for (int q = 1; q < l_power; ++q) vp *= v;
-    acc += vp;
-  }
-  return acc;
-}
-
-template <bool kQuadRange, bool kLinear>
-__global__ void __launch_bounds__(kThreads)
-score_tiles(const float* __restrict__ win, const float* __restrict__ los,
-            const float* __restrict__ centers, const float* __restrict__ coefs,
-            const float* __restrict__ r0, const float* __restrict__ off3,
-            const float* __restrict__ off1, int n_chan, int width, int n_grid,
-            int l_power, int weighted, float* __restrict__ part_best,
-            int* __restrict__ part_arg, double* __restrict__ part_w) {
-  extern __shared__ float smem[];
-  float* s_win = smem;                   // [C * W]
-  float* s_par = smem + n_chan * width;  // [C * kPar]
-  const int n = blockIdx.y;
-  stage_block(win, los, centers, coefs, kQuadRange ? r0 : nullptr, n, n_chan, width,
-              s_win, s_par);
-  __syncthreads();
-
-  Acc a = acc_empty();
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g < n_grid) {
-    const float x = off3[3 * (size_t)g + 0];
-    const float y = off3[3 * (size_t)g + 1];
-    const float z = off3[3 * (size_t)g + 2];
-    const float t = off1[g];
-    const float acc = point_score<kQuadRange, kLinear>(s_win, s_par, n_chan, width,
-                                                      l_power, x, y, z, t);
-    a.best = acc;
-    a.arg = g;
-    if (weighted) {
-      a.w[0] = (double)acc * x;
-      a.w[1] = (double)acc * y;
-      a.w[2] = (double)acc * z;
-      a.w[3] = (double)acc * t;
-      a.w[4] = (double)acc;
-    }
-  }
-  a = block_reduce(a, weighted != 0);
-  if (threadIdx.x == 0) {
-    const size_t o = (size_t)n * gridDim.x + blockIdx.x;
-    part_best[o] = a.best;
-    part_arg[o] = a.arg;
-    if (weighted)
-      for (int i = 0; i < 5; ++i) part_w[o * 5 + i] = a.w[i];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-reduce_tiles(const float* __restrict__ part_best, const int* __restrict__ part_arg,
-             const double* __restrict__ part_w, int n_tiles, int weighted,
-             float* __restrict__ best, int* __restrict__ arg,
-             float* __restrict__ wsum4, float* __restrict__ wtot) {
-  const int n = blockIdx.x;
-  Acc a = acc_empty();
-  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x) {
-    const size_t o = (size_t)n * n_tiles + t;
-    Acc b = acc_empty();
-    b.best = part_best[o];
-    b.arg = part_arg[o];
-    if (weighted)
-      for (int i = 0; i < 5; ++i) b.w[i] = part_w[o * 5 + i];
-    combine(a, b, weighted != 0);
-  }
-  a = block_reduce(a, weighted != 0);
-  if (threadIdx.x == 0) {
-    best[n] = a.best;
-    arg[n] = a.arg;
-    if (weighted) {
-      for (int i = 0; i < 4; ++i) wsum4[n * 4 + i] = (float)a.w[i];
-      wtot[n] = (float)a.w[4];
+  const float* w = a.win + (size_t)n0 * C * W;
+  if (kLinear) {
+    for (int i = threadIdx.x; i < nb * C * W; i += kThreads) s_tap[i] = w[i];
+  } else {
+    // two rounds of loads in flight before the first store
+    float4* tap4 = reinterpret_cast<float4*>(s_tap);
+    const int total = nb * C * W;
+    for (int i0 = threadIdx.x; i0 < total; i0 += 2 * kThreads) {
+      float w0[2], wm[2], wp[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + r * kThreads, k = i % W;
+        const bool mid = i < total && k >= 1 && k <= W - 2;
+        w0[r] = i < total ? w[i] : 0.0f;
+        wm[r] = mid ? w[i - 1] : 0.0f;
+        wp[r] = mid ? w[i + 1] : 0.0f;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + r * kThreads;
+        if (i < total)     // (b, c of the edge taps k = 0, W-1 are never read)
+          tap4[i] = make_float4(w0[r], 0.5f * (wp[r] - wm[r]),
+                                0.5f * (wp[r] + wm[r]) - w0[r], 0.0f);
+      }
     }
   }
 }
 
-// K2: the whole score surface out[n, g] of block n (no reduction), for the
-// per-block step, its score-weighted mean and its score dumps.
-template <bool kQuadRange, bool kLinear>
-__global__ void __launch_bounds__(kThreads)
-score_surface_kernel(const float* __restrict__ win, const float* __restrict__ los,
-                     const float* __restrict__ centers, const float* __restrict__ coefs,
-                     const float* __restrict__ r0, const float* __restrict__ off3,
-                     const float* __restrict__ off1, int n_chan, int width, int n_grid,
-                     int l_power, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* s_win = smem;
-  float* s_par = smem + n_chan * width;
-  const int n = blockIdx.y;
-  stage_block(win, los, centers, coefs, kQuadRange ? r0 : nullptr, n, n_chan, width,
-              s_win, s_par);
-  __syncthreads();
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g < n_grid)
-    out[(size_t)n * n_grid + g] = point_score<kQuadRange, kLinear>(
-        s_win, s_par, n_chan, width, l_power, off3[3 * (size_t)g + 0],
-        off3[3 * (size_t)g + 1], off3[3 * (size_t)g + 2], off1[g]);
+// The kP points of a thread: 16-byte loads when all four lie inside the grid
+// (the caller sends kP = 4 only with 16-byte-aligned offsets), scalar loads
+// otherwise, and zeros past the ragged end.
+template <int kP>
+__device__ __forceinline__ void load_points(const float* __restrict__ off3,
+                                            const float* __restrict__ off1,
+                                            int g0, int n_grid, float (&x)[kP],
+                                            float (&y)[kP], float (&z)[kP],
+                                            float (&t)[kP]) {
+  if (kP == 4 && g0 + 3 < n_grid) {
+    const float4* q = reinterpret_cast<const float4*>(off3 + 3 * (size_t)g0);
+    const float4 a = q[0], b = q[1], c = q[2];
+    const float4 tt = *reinterpret_cast<const float4*>(off1 + g0);
+    x[0] = a.x; y[0] = a.y; z[0] = a.z;
+    x[1 % kP] = a.w; y[1 % kP] = b.x; z[1 % kP] = b.y;
+    x[2 % kP] = b.z; y[2 % kP] = b.w; z[2 % kP] = c.x;
+    x[3 % kP] = c.y; y[3 % kP] = c.z; z[3 % kP] = c.w;
+    t[0] = tt.x; t[1 % kP] = tt.y; t[2 % kP] = tt.z; t[3 % kP] = tt.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+    const bool in = g0 + j < n_grid;
+    x[j] = in ? off3[3 * (size_t)(g0 + j) + 0] : 0.0f;
+    y[j] = in ? off3[3 * (size_t)(g0 + j) + 1] : 0.0f;
+    z[j] = in ? off3[3 * (size_t)(g0 + j) + 2] : 0.0f;
+    t[j] = in ? off1[g0 + j] : 0.0f;
+  }
 }
 
-template <bool kQuadRange, bool kLinear>
-void launch_tiles(dim3 grid, size_t smem, cudaStream_t s, const float* win,
-                  const float* los, const float* centers, const float* coefs,
-                  const float* r0, const float* off3, const float* off1,
-                  int n_chan, int width, int n_grid, int l_power, int weighted,
-                  float* part_best, int* part_arg, double* part_w) {
-  score_tiles<kQuadRange, kLinear><<<grid, kThreads, smem, s>>>(
-      win, los, centers, coefs, r0, off3, off1, n_chan, width, n_grid, l_power,
-      weighted, part_best, part_arg, part_w);
+template <bool kQuad, bool kLinear, int kP, int kLP, int kMode>
+__global__ void __launch_bounds__(kThreads) score_kernel(const Args a) {
+  // dynamic shared memory: [red: n_batch * kWarps u64]
+  // [wsum: n_batch * kWarps * 5 f64, weighted only] [par] [taps]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = a.n_chan, W = a.width, G = a.n_grid;
+  const int tapf = kLinear ? W : 4 * W;
+  unsigned long long* s_red = reinterpret_cast<unsigned long long*>(smem_raw);
+  double* s_w = reinterpret_cast<double*>(s_red + a.n_batch * kWarps);
+  float* s_par = reinterpret_cast<float*>(
+      s_w + (kMode == kWeighted ? a.n_batch * kWarps * 5 : 0));
+  float* s_tap = s_par + a.n_batch * C * kParF;
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g0 = (blockIdx.x * kThreads + threadIdx.x) * kP;
+  float x[kP], y[kP], z[kP], t[kP], d2[kP];
+  load_points<kP>(a.off3, a.off1, g0, G, x, y, z, t);
+#pragma unroll
+  for (int j = 0; j < kP; ++j) d2[j] = x[j] * x[j] + y[j] * y[j] + z[j] * z[j];
+
+  const int n_begin = blockIdx.y * a.n_per_share;
+  const int n_end = min(a.n_blocks, n_begin + a.n_per_share);
+  for (int n0 = n_begin; n0 < n_end; n0 += a.n_batch) {
+    const int nb = min(a.n_batch, n_end - n0);
+    // no barrier before restaging: every thread read the last batch's
+    // windows for the last time before the barrier that ended its scoring
+    stage_batch<kQuad, kLinear>(a, n0, nb, s_par, s_tap);
+    __syncthreads();
+
+    for (int i = 0; i < nb; ++i) {
+      const float4* par4 = reinterpret_cast<const float4*>(s_par) + 2 * i * C;
+      const float* taps = s_tap + (size_t)i * C * tapf;
+      float acc[kP];
+#pragma unroll
+      for (int j = 0; j < kP; ++j) acc[j] = 0.0f;
+      for (int c = 0; c < C; ++c) {
+        const float4 pa = par4[2 * c], pb = par4[2 * c + 1];
+        const float* tc = taps + c * tapf;
+#pragma unroll
+        for (int j = 0; j < kP; ++j)
+          acc[j] += channel_score<kQuad, kLinear, kLP>(pa, pb, tc, W, a.l_power, x[j],
+                                                       y[j], z[j], t[j], d2[j]);
+      }
+
+      if (kMode == kSurface) {
+        float* out = a.surface + (size_t)(n0 + i) * G + g0;
+        if (kP == 4 && g0 + 3 < G && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+          *reinterpret_cast<float4*>(out) =
+              make_float4(acc[0], acc[1 % kP], acc[2 % kP], acc[3 % kP]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kP; ++j)
+            if (g0 + j < G) out[j] = acc[j];
+        }
+      }
+
+      // first maximum of the thread's points, then of the warp
+      unsigned key = 0u, idx = kFull;
+      if (g0 < G) {
+        float b = acc[0];
+        int bj = 0;
+#pragma unroll
+        for (int j = 1; j < kP; ++j)
+          if (g0 + j < G && acc[j] > b) {
+            b = acc[j];
+            bj = j;
+          }
+        key = ordered_key(b + 0.0f);      // -0 scores as +0, as in a comparison
+        idx = (unsigned)(g0 + bj);
+      }
+      const unsigned kmax = __reduce_max_sync(kFull, key);
+      const unsigned imin = __reduce_min_sync(kFull, key == kmax ? idx : kFull);
+      if (lane == 0) s_red[i * kWarps + warp] = ((unsigned long long)kmax << 32) | (~imin);
+
+      if (kMode == kWeighted) {
+        double w[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+        for (int j = 0; j < kP; ++j)
+          if (g0 + j < G) {
+            w[0] += (double)acc[j] * x[j];
+            w[1] += (double)acc[j] * y[j];
+            w[2] += (double)acc[j] * z[j];
+            w[3] += (double)acc[j] * t[j];
+            w[4] += (double)acc[j];
+          }
+#pragma unroll
+        for (int q = 0; q < 5; ++q) {
+          for (int off = 16; off > 0; off >>= 1) w[q] += __shfl_down_sync(kFull, w[q], off);
+          if (lane == 0) s_w[(i * kWarps + warp) * 5 + q] = w[q];
+        }
+      }
+    }
+
+    __syncthreads();                         // every warp's pairs are parked
+    if (warp == 0) {
+      // lane i < nb (nb <= 32) owns block n0 + i of the batch
+      const int n = n0 + lane;
+      bool last = false;
+      if (lane < nb) {
+        unsigned long long m = s_red[lane * kWarps];
+        for (int wv = 1; wv < kWarps; ++wv) m = max(m, s_red[lane * kWarps + wv]);
+        atomicMax(a.packed + n, m);
+        if (kMode == kWeighted) {
+          double* pw = a.part_w + ((size_t)n * gridDim.x + blockIdx.x) * 5;
+          for (int q = 0; q < 5; ++q) {
+            double s = s_w[lane * kWarps * 5 + q];
+            for (int wv = 1; wv < kWarps; ++wv) s += s_w[(lane * kWarps + wv) * 5 + q];
+            pw[q] = s;
+          }
+        }
+        __threadfence();
+        last = atomicAdd(a.ticket + n, 1u) == gridDim.x - 1u;
+        if (last) {                          // every tile of block n has arrived
+          __threadfence();
+          const unsigned long long best = atomicExch(a.packed + n, 0ull);
+          a.ticket[n] = 0u;
+          a.best[n] = key_value((unsigned)(best >> 32));
+          a.arg[n] = (int)(~(unsigned)(best & 0xffffffffull));
+        }
+      }
+      if (kMode == kWeighted) {
+        // the weighted sums of each finished block n: lane q sums component q
+        unsigned done = __ballot_sync(kFull, last);
+        __syncwarp();
+        while (done) {
+          const int i = __ffs(done) - 1;
+          done &= done - 1;
+          if (lane < 5) {
+            const double* pw = a.part_w + (size_t)(n0 + i) * gridDim.x * 5 + lane;
+            double s = 0.0;
+            for (unsigned tile = 0; tile < gridDim.x; ++tile) s += __ldcg(pw + (size_t)tile * 5);
+            if (lane < 4) a.wsum4[(n0 + i) * 4 + lane] = (float)s;
+            else a.wtot[n0 + i] = (float)s;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Launch geometry of one call, computed on the host.
+struct Plan {
+  int points;        // kP
+  int tiles;         // gridDim.x
+  int shares;        // gridDim.y
+  int n_per_share;
+  int n_batch;
+  size_t smem;
+};
+
+size_t batch_bytes(int n_batch, int n_chan, int width, bool linear, bool weighted) {
+  const size_t tapf = linear ? width : 4 * (size_t)width;
+  return (size_t)n_batch * (kWarps * 8 * (weighted ? 6 : 1) +
+                            (size_t)n_chan * (tapf + kParF) * sizeof(float));
+}
+
+Plan make_plan(int n_blocks, int n_chan, int width, int n_grid, bool linear,
+               bool weighted, bool aligned, int sm_count) {
+  Plan p;
+  const long fill = 16L * sm_count;     // thread blocks for ~4 waves at 4 per SM
+  // four points a thread wherever their 16-byte loads are aligned
+  p.points = aligned ? 4 : 1;
+  p.tiles = (int)(((long)n_grid + (long)p.points * kThreads - 1) / ((long)p.points * kThreads));
+  long shares = (fill + p.tiles - 1) / p.tiles;
+  if (shares > n_blocks) shares = n_blocks;
+  if (shares < 1) shares = 1;
+  p.n_per_share = (int)((n_blocks + shares - 1) / shares);
+  p.shares = (n_blocks + p.n_per_share - 1) / p.n_per_share;
+  const size_t one = batch_bytes(1, n_chan, width, linear, weighted);
+  long cap = (long)(kBatchBytes / one);
+  if (cap > kMaxBatch) cap = kMaxBatch;
+  if (cap < 1) cap = 1;
+  const long rounds = (p.n_per_share + cap - 1) / cap;      // batches per share, evened out
+  p.n_batch = (int)((p.n_per_share + rounds - 1) / rounds);
+  p.smem = batch_bytes(p.n_batch, n_chan, width, linear, weighted);
+  return p;
+}
+
+template <bool kQuad, bool kLinear, int kP, int kLP, int kMode>
+cudaError_t launch_one(const Args& a, const Plan& p, cudaStream_t s) {
+  static size_t allowed = 48 * 1024;    // dynamic shared memory granted so far
+  if (p.smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        score_kernel<kQuad, kLinear, kP, kLP, kMode>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (e != cudaSuccess) return e;
+    allowed = p.smem;
+  }
+  score_kernel<kQuad, kLinear, kP, kLP, kMode>
+      <<<dim3(p.tiles, p.shares), kThreads, p.smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kQuad, bool kLinear, int kP, int kLP>
+cudaError_t launch_mode(int mode, const Args& a, const Plan& p, cudaStream_t s) {
+  switch (mode) {
+    case kArgmax: return launch_one<kQuad, kLinear, kP, kLP, kArgmax>(a, p, s);
+    case kWeighted: return launch_one<kQuad, kLinear, kP, kLP, kWeighted>(a, p, s);
+    default: return launch_one<kQuad, kLinear, kP, kLP, kSurface>(a, p, s);
+  }
+}
+
+template <bool kQuad, bool kLinear, int kP>
+cudaError_t launch_power(int mode, const Args& a, const Plan& p, cudaStream_t s) {
+  if (a.l_power == 1) return launch_mode<kQuad, kLinear, kP, 1>(mode, a, p, s);
+  if (a.l_power == 2) return launch_mode<kQuad, kLinear, kP, 2>(mode, a, p, s);
+  return launch_mode<kQuad, kLinear, kP, 0>(mode, a, p, s);
+}
+
+template <bool kQuad, bool kLinear>
+cudaError_t launch_points(int mode, const Args& a, const Plan& p, cudaStream_t s) {
+  if (p.points == 4) return launch_power<kQuad, kLinear, 4>(mode, a, p, s);
+  return launch_power<kQuad, kLinear, 1>(mode, a, p, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Threads per tile: the caller sizes the [N, tiles] scratch with it.
-int score_argmax_tile() { return kThreads; }
+// The most shared memory one block n may need (windows as staged, with the
+// parameters and the reduction's slots): the caller's limit check.
+int score_max_shared() { return kMaxDynShared; }
 
-// Enqueues both kernels on `stream`; allocates nothing and does not
-// synchronize. r0 == NULL selects the velocity manifold (no curvature
-// term). part_w, wsum4 and wtot are read/written only when weighted.
-// Scratch: part_best/part_arg [N * tiles], part_w [N * tiles * 5].
-// Returns cudaGetLastError() after the launches (0 on success).
-int score_argmax_launch(const float* win, const float* los, const float* centers,
-                        const float* coefs, const float* r0, const float* off3,
-                        const float* off1, int n_blocks, int n_chan, int width,
-                        int n_grid, int linear, int l_power, int weighted,
-                        float* part_best, int* part_arg, double* part_w,
-                        float* best, int* arg, float* wsum4, float* wtot,
-                        void* stream) {
-  if (n_blocks <= 0 || n_blocks > 65535 || n_chan <= 0 || n_grid <= 0 ||
-      l_power < 1 || width < (linear ? 1 : 3))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)n_chan * (width + kPar) * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int tiles = (n_grid + kThreads - 1) / kThreads;
-  const dim3 grid(tiles, n_blocks);
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool quad = r0 != nullptr;
-  if (quad && linear)
-    launch_tiles<true, true>(grid, smem, s, win, los, centers, coefs, r0, off3, off1,
-                             n_chan, width, n_grid, l_power, weighted, part_best, part_arg, part_w);
-  else if (quad)
-    launch_tiles<true, false>(grid, smem, s, win, los, centers, coefs, r0, off3, off1,
-                              n_chan, width, n_grid, l_power, weighted, part_best, part_arg, part_w);
-  else if (linear)
-    launch_tiles<false, true>(grid, smem, s, win, los, centers, coefs, r0, off3, off1,
-                              n_chan, width, n_grid, l_power, weighted, part_best, part_arg, part_w);
-  else
-    launch_tiles<false, false>(grid, smem, s, win, los, centers, coefs, r0, off3, off1,
-                               n_chan, width, n_grid, l_power, weighted, part_best, part_arg, part_w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_tiles<<<n_blocks, kThreads, 0, s>>>(part_best, part_arg, part_w, tiles, weighted,
-                                             best, arg, wsum4, wtot);
-  return (int)cudaGetLastError();
+// Bytes of shared memory one block n needs at this shape.
+long long score_shared_bytes(int n_chan, int width, int linear, int weighted) {
+  return (long long)batch_bytes(1, n_chan, width, linear != 0, weighted != 0);
 }
 
-// K2: scores out [N, G] of every grid point for every block; the same
-// operands and limits as score_argmax_launch. Returns cudaGetLastError().
-int score_surface_launch(const float* win, const float* los, const float* centers,
-                         const float* coefs, const float* r0, const float* off3,
-                         const float* off1, int n_blocks, int n_chan, int width,
-                         int n_grid, int linear, int l_power, float* out,
-                         void* stream) {
-  if (n_blocks <= 0 || n_blocks > 65535 || n_chan <= 0 || n_grid <= 0 ||
-      l_power < 1 || width < (linear ? 1 : 3))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)n_chan * (width + kPar) * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_grid + kThreads - 1) / kThreads, n_blocks);
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool quad = r0 != nullptr;
-#define NAVLAB_SURFACE(Q, L)                                                    \
-  score_surface_kernel<Q, L><<<grid, kThreads, smem, s>>>(                      \
-      win, los, centers, coefs, r0, off3, off1, n_chan, width, n_grid, l_power, out)
-  if (quad && linear) NAVLAB_SURFACE(true, true);
-  else if (quad) NAVLAB_SURFACE(true, false);
-  else if (linear) NAVLAB_SURFACE(false, true);
-  else NAVLAB_SURFACE(false, false);
-#undef NAVLAB_SURFACE
-  return (int)cudaGetLastError();
+// Tiles (thread blocks along the grid) of a launch at this shape: the
+// caller sizes the weighted partials [N, tiles, 5] with it.
+int score_tiles(int n_blocks, int n_chan, int width, int n_grid, int linear,
+                int weighted, int aligned, int sm_count) {
+  return make_plan(n_blocks, n_chan, width, n_grid, linear != 0, weighted != 0,
+                   aligned != 0, sm_count).tiles;
 }
 
-const char* score_argmax_error_string(int code) {
+// Enqueues one kernel on `stream`; allocates nothing and does not
+// synchronize. mode: 0 argmax (best, arg), 1 weighted (+ wsum4, wtot; needs
+// part_w), 2 surface (+ surface [N, G]). r0 == NULL selects the velocity
+// manifold (no curvature term). los/centers/coefs/r0 are read by element
+// strides (los n, c, j; centers n, c; coefs n, c; r0 n, c); win, off3 and
+// off1 are contiguous. packed [N] and ticket [N] are scratch that
+// must be zero at the first launch and is left zero by every launch that
+// runs to its end; launches sharing it must be ordered on one stream.
+// Returns cudaGetLastError() after the launch (0 on success).
+int score_launch(const float* win, const float* los, const float* centers,
+                 const float* coefs, const float* r0, const float* off3,
+                 const float* off1, int los_sn, int los_sc, int los_sj,
+                 int cen_sn, int cen_sc, int coef_sn, int coef_sc, int r0_sn,
+                 int r0_sc, int n_blocks, int n_chan, int width, int n_grid,
+                 int linear, int l_power, int mode, int sm_count, float* surface, unsigned long long* packed,
+                 unsigned int* ticket, double* part_w, float* best, int* arg,
+                 float* wsum4, float* wtot, void* stream) {
+  if (n_blocks <= 0 || n_blocks > 65535 || n_chan <= 0 || n_grid <= 0 ||
+      l_power < 1 || width < (linear ? 1 : 3) || mode < 0 || mode > 2 ||
+      sm_count <= 0)
+    return (int)cudaErrorInvalidValue;
+  const bool weighted = mode == kWeighted;
+  if (batch_bytes(1, n_chan, width, linear != 0, weighted) > (size_t)kMaxDynShared)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = (reinterpret_cast<uintptr_t>(off3) & 15) == 0 &&
+                       (reinterpret_cast<uintptr_t>(off1) & 15) == 0;
+  const Plan p = make_plan(n_blocks, n_chan, width, n_grid, linear != 0, weighted,
+                           aligned, sm_count);
+  Args a;
+  a.win = win; a.los = los; a.centers = centers; a.coefs = coefs; a.r0 = r0;
+  a.off3 = off3; a.off1 = off1;
+  a.los_sn = los_sn; a.los_sc = los_sc; a.los_sj = los_sj;
+  a.cen_sn = cen_sn; a.cen_sc = cen_sc;
+  a.coef_sn = coef_sn; a.coef_sc = coef_sc;
+  a.r0_sn = r0_sn; a.r0_sc = r0_sc;
+  a.n_blocks = n_blocks; a.n_chan = n_chan; a.width = width; a.n_grid = n_grid;
+  a.l_power = l_power; a.n_per_share = p.n_per_share; a.n_batch = p.n_batch;
+  a.surface = surface; a.packed = packed; a.ticket = ticket; a.part_w = part_w;
+  a.best = best; a.arg = arg; a.wsum4 = wsum4; a.wtot = wtot;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool quad = r0 != nullptr;
+  cudaError_t e;
+  if (quad && linear) e = launch_points<true, true>(mode, a, p, s);
+  else if (quad) e = launch_points<true, false>(mode, a, p, s);
+  else if (linear) e = launch_points<false, true>(mode, a, p, s);
+  else e = launch_points<false, false>(mode, a, p, s);
+  return (int)e;
+}
+
+const char* score_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

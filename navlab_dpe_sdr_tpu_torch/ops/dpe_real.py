@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from ..constants import L_CA
 
 from .dpe import CARR_WIN, CODE_WIN, ManifoldParams
-from .score import score_argmax, score_surface
+from .score import score_argmax, score_surface_argmax
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -281,16 +281,16 @@ def score_manifolds_mag(code_mag, carr_mag, params: ManifoldParams, d_enu,
                         interp: str = "quadratic"):
     """(pos_scores [G], pos_arg, vel_scores [G], vel_arg) of one block's
     magnitude windows code_mag/carr_mag [C, W] (the JAX
-    `score_manifolds_mag`): both surfaces through `score_surface` (K2) and
-    first-occurrence argmaxes."""
+    `score_manifolds_mag`): each surface and its first-occurrence argmax
+    from one `score_surface_argmax` call (K2)."""
     los = params.los_enu[None]
-    pos = score_surface(code_mag[None], los, params.pos_center[None],
-                        params.pos_coef[None], params.r0[None], d_enu, dt_m,
-                        interp=interp, l_power=l_power)[0]
-    vel = score_surface(carr_mag[None], los, params.vel_center[None],
-                        params.vel_coef[None], None, dv_enu, dtdot,
-                        interp=interp, l_power=l_power)[0]
-    return pos, torch.argmax(pos), vel, torch.argmax(vel)
+    pos, _, pos_arg = score_surface_argmax(
+        code_mag[None], los, params.pos_center[None], params.pos_coef[None],
+        params.r0[None], d_enu, dt_m, interp=interp, l_power=l_power)
+    vel, _, vel_arg = score_surface_argmax(
+        carr_mag[None], los, params.vel_center[None], params.vel_coef[None],
+        None, dv_enu, dtdot, interp=interp, l_power=l_power)
+    return pos[0], pos_arg[0], vel[0], vel_arg[0]
 
 
 def dpe_device_step_real(raw_re, raw_im, chips, rc_mid, idx_next, fi, ri,

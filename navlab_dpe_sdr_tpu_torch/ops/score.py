@@ -15,17 +15,28 @@ PyTorch. There is no fallback between the two.
 
 `score_surface` returns the whole [N, G] surface instead (the per-block
 step's `score_manifolds_mag`, navlab_dpe_sdr_tpu/ops/dpe_real.py:751, whose
-TPU kernel is pallas_score.py `_score_kernel`): the same file's second
-kernel on a CUDA tensor, `score_surface_plain` on a CPU tensor. Both kernels
-evaluate a point with one device function, so their scores are those of
+TPU kernel is pallas_score.py `_score_kernel`), and `score_surface_argmax`
+the surface with its (max, first index at the max): the same kernel in its
+surface mode on a CUDA tensor, `score_surface_plain` on a CPU tensor. Every
+mode evaluates a point with one device function, so the scores are those of
 `score_points`, bit for bit.
+
+The quadratic interpolation is the 3-tap Lagrange value about
+k = clip(round(idx), 1, W-2) written as a_k + d (b_k + d c_k) with d = idx - k
+and per-tap coefficients a_k = win[k], b_k = (win[k+1] - win[k-1]) / 2,
+c_k = (win[k+1] + win[k-1]) / 2 - win[k]; the curvature term multiplies by
+1 / (2 r0). Both are formed once per (block, channel), on the card while the
+windows are staged, and leave a point-channel 4 operations and one 16-byte
+read where the weight form has 11 and three.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -50,7 +61,7 @@ def score_points(win_mag, los_enu, centers, coefs, r0, o3, o1,
     u = l0 * x + l1 * y + l2 * z                          # [N, C, G']
     if r0 is not None:
         d2 = x * x + y * y + z * z
-        rng = -u + (d2 - u * u) / (2.0 * r0[..., None])
+        rng = -u + (d2 - u * u) * (1.0 / (2.0 * r0))[..., None]
     else:
         rng = -u
     idx = centers[..., None] + coefs[..., None] * (rng + o1)
@@ -59,10 +70,11 @@ def score_points(win_mag, los_enu, centers, coefs, r0, o3, o1,
         k0 = torch.round(idx).clamp(1.0, w - 2.0)         # half to even
         d = idx - k0
         k = k0.long()
-        dd = d * d
-        vals = (0.5 * (dd - d) * torch.gather(win_mag, 2, k - 1)
-                + (1.0 - dd) * torch.gather(win_mag, 2, k)
-                + 0.5 * (dd + d) * torch.gather(win_mag, 2, k + 1))
+        wm, wp = win_mag[..., :-2], win_mag[..., 2:]
+        cb = F.pad(0.5 * (wp - wm), (1, 1))                # per-tap slope
+        cc = F.pad(0.5 * (wp + wm) - win_mag[..., 1:-1], (1, 1))  # curvature
+        vals = (torch.gather(win_mag, 2, k)
+                + d * (torch.gather(cb, 2, k) + d * torch.gather(cc, 2, k)))
     else:
         kf = torch.floor(idx)
         vals = torch.zeros_like(idx)
@@ -122,19 +134,14 @@ def score_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
 
     CPU tensors -> `score_argmax_plain`; CUDA tensors -> the kernel, or an
     exception."""
-    if interp not in INTERP_MODES:
-        raise NotImplementedError(
-            f"interp={interp!r} is not ported (ROADMAP Queue 1 item 5)")
-    if int(l_power) < 1:
-        raise ValueError(f"l_power must be >= 1, got {l_power}")
-    dev = win_mag.device
+    dev = _check_call(win_mag, interp, l_power, "score_argmax")
     if dev.type == "cpu":
         return score_argmax_plain(win_mag, los_enu, centers, coefs, r0,
                                   off3, off1, interp, l_power, weighted)
-    if dev.type != "cuda":
-        raise ValueError(f"score_argmax runs on cpu or cuda, not {dev}")
-    return _score_argmax_cuda(win_mag, los_enu, centers, coefs, r0, off3,
-                              off1, interp, int(l_power), weighted)
+    res = _launch("score_argmax", MODE_WEIGHTED if weighted else MODE_ARGMAX,
+                  win_mag, los_enu, centers, coefs, r0, off3, off1, interp,
+                  int(l_power))
+    return res[1:]
 
 
 def score_surface_plain(win_mag, los_enu, centers, coefs, r0, off3, off1,
@@ -147,121 +154,166 @@ def score_surface_plain(win_mag, los_enu, centers, coefs, r0, off3, off1,
                       for g0 in range(0, off3.shape[0], chunk)], dim=1)
 
 
+def score_surface_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
+                         interp: str = "quadratic", l_power: int = 1):
+    """(scores [N, G] f32, best [N] f32, arg [N] int32): every grid point's
+    score for every block, with the maximum and the first index at it (K2's
+    contract; the per-block step calls it at N = 1).
+
+    CPU tensors -> `score_surface_plain` and a first-occurrence argmax;
+    CUDA tensors -> the kernel, which reduces while it writes, or an
+    exception."""
+    dev = _check_call(win_mag, interp, l_power, "score_surface")
+    if dev.type == "cpu":
+        s = score_surface_plain(win_mag, los_enu, centers, coefs, r0, off3,
+                                off1, interp, l_power)
+        arg = torch.argmax(s, dim=1)                       # first occurrence
+        return s, torch.gather(s, 1, arg[:, None])[:, 0], arg.to(torch.int32)
+    return _launch("score_surface", MODE_SURFACE, win_mag, los_enu, centers,
+                   coefs, r0, off3, off1, interp, int(l_power))
+
+
 def score_surface(win_mag, los_enu, centers, coefs, r0, off3, off1,
                   interp: str = "quadratic", l_power: int = 1):
     """Scores [N, G] f32 of every grid point off3 [G, 3], off1 [G] for
-    every block (K2's contract; the per-block step calls it at N = 1).
+    every block: `score_surface_argmax` without its reduction's results."""
+    return score_surface_argmax(win_mag, los_enu, centers, coefs, r0, off3,
+                                off1, interp, l_power)[0]
 
-    CPU tensors -> `score_surface_plain`; CUDA tensors -> the kernel, or an
-    exception."""
+
+def _check_call(win_mag, interp, l_power, name) -> torch.device:
     if interp not in INTERP_MODES:
         raise NotImplementedError(
             f"interp={interp!r} is not ported (ROADMAP Queue 1 item 5)")
     if int(l_power) < 1:
         raise ValueError(f"l_power must be >= 1, got {l_power}")
     dev = win_mag.device
-    if dev.type == "cpu":
-        return score_surface_plain(win_mag, los_enu, centers, coefs, r0,
-                                   off3, off1, interp, l_power)
-    if dev.type != "cuda":
-        raise ValueError(f"score_surface runs on cpu or cuda, not {dev}")
-    ops, (n, c, w, g) = _operands(win_mag, los_enu, centers, coefs, r0, off3,
-                                  off1, "score_surface")
-    out = torch.empty((n, g), dtype=torch.float32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.score_surface_launch(
-            *(None if t is None else t.data_ptr() for t in ops), n, c, w, g,
-            int(interp == "linear"), int(l_power), out.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.score_argmax_error_string(rc).decode()
-        raise RuntimeError(f"score_surface kernel launch failed: {msg} "
-                           f"(cudaError {rc})")
-    _build.count_launch("score_surface")
-    return out
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    return dev
+
+
+MODE_ARGMAX, MODE_WEIGHTED, MODE_SURFACE = 0, 1, 2   # csrc/score_argmax.cu
+
+# Per (device, stream): the kernel's reduction scratch, an int64 tensor of
+# zeros (packed maxima [cap] u64, then tickets [cap] u32). Each launch leaves
+# it zero for the next one on the same stream; it is dropped when a launch
+# is refused.
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+_sm_count: dict[int, int] = {}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("score_argmax")
-    if lib.score_argmax_launch.argtypes is None:
+    if lib.score_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.score_argmax_launch.argtypes = ([p] * 7 + [i] * 7 + [p] * 7
-                                            + [p])
-        lib.score_argmax_launch.restype = ctypes.c_int
-        lib.score_surface_launch.argtypes = [p] * 7 + [i] * 6 + [p, p]
-        lib.score_surface_launch.restype = ctypes.c_int
-        lib.score_argmax_tile.argtypes = []
-        lib.score_argmax_tile.restype = ctypes.c_int
-        lib.score_argmax_error_string.argtypes = [i]
-        lib.score_argmax_error_string.restype = ctypes.c_char_p
+        lib.score_launch.argtypes = [p] * 7 + [i] * 17 + [p] * 9
+        lib.score_launch.restype = ctypes.c_int
+        lib.score_tiles.argtypes = [i] * 8
+        lib.score_tiles.restype = ctypes.c_int
+        lib.score_shared_bytes.argtypes = [i] * 4
+        lib.score_shared_bytes.restype = ctypes.c_longlong
+        lib.score_max_shared.argtypes = []
+        lib.score_max_shared.restype = ctypes.c_int
+        lib.score_error_string.argtypes = [i]
+        lib.score_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _operand(t, dev, shape, name):
+@functools.lru_cache(maxsize=None)
+def _shared_memory(c, w, linear, weighted) -> tuple[int, int]:
+    """(bytes one block's staged windows need, the kernel's limit): the
+    kernel's own numbers, asked once per shape."""
+    lib = _lib()
+    return (lib.score_shared_bytes(c, w, linear, weighted),
+            lib.score_max_shared())
+
+
+def _operand(t, dev, shape, name, contiguous=False):
     if t.device != dev or t.dtype != torch.float32:
         raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on "
                          f"{t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-    return t.contiguous()
+    return t.contiguous() if contiguous else t
 
 
-def _operands(win_mag, los_enu, centers, coefs, r0, off3, off1, name):
-    """Checked, contiguous kernel operands and (N, C, W, G)."""
+def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
+            interp, l_power):
+    """Check the operands, launch the kernel once on the current stream and
+    return (surface or None, best, arg[, wsum4, wtot]). The windows and the
+    grid offsets must be contiguous (copied if not); the per-channel
+    parameters are read by their strides, so slices of a packed parameter
+    tensor go in as they are."""
     dev = win_mag.device
     n, c, w = win_mag.shape
     g = off3.shape[0]
     if not 0 < n <= 65535 or not 0 < g < 2 ** 31 - 1024:
         raise ValueError(f"{name}: N={n}, G={g} out of the kernel's range")
-    if c * (w + 6) * 4 > 48 * 1024:
-        raise ValueError(f"{name}: C={c} x W={w} windows exceed the "
-                         f"kernel's 48 KB of shared memory")
-    ops = [_operand(win_mag, dev, (n, c, w), "win_mag"),
-           _operand(los_enu, dev, (n, c, 3), "los_enu"),
-           _operand(centers, dev, (n, c), "centers"),
-           _operand(coefs, dev, (n, c), "coefs"),
-           None if r0 is None else _operand(r0, dev, (n, c), "r0"),
-           _operand(off3, dev, (g, 3), "off3"),
-           _operand(off1, dev, (g,), "off1")]
-    return ops, (n, c, w, g)
-
-
-def _score_argmax_cuda(win_mag, los_enu, centers, coefs, r0, off3, off1,
-                       interp, l_power, weighted):
-    dev = win_mag.device
-    ops, (n, c, w, g) = _operands(win_mag, los_enu, centers, coefs, r0, off3,
-                                  off1, "score_argmax")
+    linear, weighted = int(interp == "linear"), int(mode == MODE_WEIGHTED)
     lib = _lib()
-    tiles = -(-g // lib.score_argmax_tile())
+    need, limit = _shared_memory(c, w, linear, weighted)
+    if need > limit:
+        raise ValueError(
+            f"{name}: C={c} x W={w} windows exceed the kernel's "
+            f"{limit // 1024} KB of shared memory")
+    win_mag = _operand(win_mag, dev, (n, c, w), "win_mag", contiguous=True)
+    los_enu = _operand(los_enu, dev, (n, c, 3), "los_enu")
+    centers = _operand(centers, dev, (n, c), "centers")
+    coefs = _operand(coefs, dev, (n, c), "coefs")
+    if r0 is not None:
+        r0 = _operand(r0, dev, (n, c), "r0")
+    off3 = _operand(off3, dev, (g, 3), "off3", contiguous=True)
+    off1 = _operand(off1, dev, (g,), "off1", contiguous=True)
+    strides = (*los_enu.stride(), *centers.stride(), *coefs.stride(),
+               *(r0.stride() if r0 is not None else (0, 0)))
+
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms = _sm_count.get(idx)
+    if sms is None:
+        sms = _sm_count[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
     f32 = dict(dtype=torch.float32, device=dev)
-    part_best = torch.empty((n, tiles), **f32)
-    part_arg = torch.empty((n, tiles), dtype=torch.int32, device=dev)
-    best = torch.empty((n,), **f32)
-    arg = torch.empty((n,), dtype=torch.int32, device=dev)
+    out = torch.empty((2, n), **f32)
+    best, arg = out[0], out[1].view(torch.int32)
+    surface = torch.empty((n, g), **f32) if mode == MODE_SURFACE else None
+    part_w = wsum = None
     if weighted:
+        aligned = int(off3.data_ptr() % 16 == 0 and off1.data_ptr() % 16 == 0)
+        tiles = lib.score_tiles(n, c, w, g, linear, 1, aligned, sms)
         part_w = torch.empty((n, tiles, 5), dtype=torch.float64, device=dev)
-        wsum4 = torch.empty((n, 4), **f32)
-        wtot = torch.empty((n,), **f32)
-    else:
-        part_w = wsum4 = wtot = None
+        wsum = torch.empty(5 * n, **f32)        # wsum4 [N, 4], wtot [N]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.score_argmax_launch(
-            *(ptr(t) for t in ops), n, c, w, g,
-            int(interp == "linear"), l_power, int(weighted),
-            ptr(part_best), ptr(part_arg), ptr(part_w),
-            ptr(best), ptr(arg), ptr(wsum4), ptr(wtot), stream)
+    def launch():
+        stream = torch.cuda.current_stream(idx).cuda_stream
+        key = (idx, stream)
+        scratch = _scratch.get(key)
+        if scratch is None or scratch.numel() < 2 * n:
+            scratch = _scratch[key] = torch.zeros(
+                2 * max(n, 64), dtype=torch.int64, device=dev)
+        return key, lib.score_launch(
+            ptr(win_mag), ptr(los_enu), ptr(centers), ptr(coefs), ptr(r0),
+            ptr(off3), ptr(off1), *strides, n, c, w, g,
+            linear, l_power, mode, sms, ptr(surface), scratch.data_ptr(),
+            scratch.data_ptr() + 4 * scratch.numel(), ptr(part_w),
+            ptr(best), ptr(arg), ptr(wsum),
+            None if wsum is None else wsum.data_ptr() + 16 * n, stream)
+
+    if torch.cuda.current_device() == idx:
+        key, rc = launch()
+    else:                       # the launch goes to the current device
+        with torch.cuda.device(idx):
+            key, rc = launch()
     if rc != 0:
-        msg = lib.score_argmax_error_string(rc).decode()
-        raise RuntimeError(f"score_argmax kernel launch failed: {msg} "
+        _scratch.pop(key, None)
+        msg = lib.score_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} "
                            f"(cudaError {rc})")
-    _build.count_launch("score_argmax")
-    out = (best, arg)
+    _build.count_launch(name)
+    res = (surface, best, arg)
     if weighted:
-        out = out + (wsum4, wtot)
-    return out
+        res += (wsum[:4 * n].view(n, 4), wsum[4 * n:])
+    return res

@@ -4,8 +4,13 @@ The plain PyTorch `score_argmax` is held to the XLA streaming scan
 `_local_argmax_scan` (run with a 1000-point chunk so chunk boundaries are
 crossed) and to the argmax of the Pallas kernel `score_chunk_pallas` in
 interpret mode. Tolerance rtol 2e-4 / atol 2e-4 (as
-tests/test_pallas_score.py); argmaxes exact. The CUDA kernel is held to the
-plain version on the card (marked `cuda`; skips without a CUDA device).
+tests/test_pallas_score.py); argmaxes exact. `score_surface_argmax` (the
+surface with its max and first index) is held to `_score_chunk`, the scan
+and `score_manifolds_mag`, with an exact tie. The CUDA kernel is held to the
+plain version on the card, bit for bit (marked `cuda`; skips without a CUDA
+device): ragged grids at every N the paths use, strided parameters,
+unaligned offsets, ties across tiles, repeatable weighted sums, the
+shared-memory limit.
 JAX is imported inside the tests that use it, so the `cuda` tests also run
 where only PyTorch is installed:
 
@@ -19,6 +24,8 @@ import torch
 from navlab_dpe_sdr_tpu_torch.ops import _build, score
 
 torch.set_num_threads(2)
+
+INTERPS = ("quadratic", "linear")
 
 
 @pytest.fixture
@@ -154,3 +161,162 @@ def test_kernel_matches_plain_on_card(with_r0, interp, weighted,
     plain = [r.cpu().numpy() for r in score.score_argmax_plain(
         *t, interp=interp, l_power=2, weighted=weighted)]
     _check(out, plain, weighted)
+
+
+# -- the fused surface + argmax return (K2's contract) ----------------------
+
+def _port_surface(args, interp, l_power, device="cpu"):
+    res = score.score_surface_argmax(
+        *(None if a is None else torch.from_numpy(a).to(device)
+          for a in args), interp=interp, l_power=l_power)
+    return [r.cpu().numpy() for r in res]
+
+
+@pytest.mark.parametrize("interp,l_power", [("quadratic", 1),
+                                            ("quadratic", 2), ("linear", 1)])
+@pytest.mark.parametrize("with_r0", [True, False])
+def test_score_surface_argmax_matches_jax(with_r0, interp, l_power,
+                                          f32_taps):
+    """(surface, best, arg) of every block against the JAX `_score_chunk`
+    surface (rtol 2e-4 as the scan above, another summation order) and the
+    streaming scan's (best, first index)."""
+    import jax.numpy as jnp
+
+    from navlab_dpe_sdr_tpu.ops import dpe_real as jreal
+
+    args = _inputs(rng_seed=13, n=2, g=3001, with_r0=with_r0)
+    surf, best, arg = _port_surface(args, interp, l_power)
+    assert surf.shape == (2, 3001) and surf.dtype == np.float32
+    assert best.dtype == np.float32 and arg.dtype == np.int32
+    ref = np.asarray(jreal._score_chunk(
+        *(None if a is None else jnp.asarray(a) for a in args), interp,
+        l_power))
+    np.testing.assert_allclose(surf, ref, rtol=2e-4, atol=2e-4)
+    scan = _jax_scan(args, interp, l_power, False)
+    np.testing.assert_array_equal(arg, scan[1])
+    np.testing.assert_array_equal(arg, np.argmax(surf, axis=1))
+    np.testing.assert_array_equal(best, surf[np.arange(2), arg])
+    np.testing.assert_array_equal(
+        surf, score.score_surface(
+            *(None if a is None else torch.from_numpy(a) for a in args),
+            interp=interp, l_power=l_power).numpy())
+
+
+def test_score_surface_argmax_exact_tie_takes_first_index(f32_taps):
+    """The grid twice over: every score appears at g and g + 700, and the
+    index returned beside the surface is the first, as the JAX
+    `score_manifolds_mag` argmax is."""
+    import jax.numpy as jnp
+
+    from navlab_dpe_sdr_tpu.ops import dpe as jdpe_ops
+    from navlab_dpe_sdr_tpu.ops import dpe_real as jreal
+
+    win, los, centers, coefs, r0, o3, o1 = _inputs(rng_seed=3, n=1, g=700)
+    o3, o1 = np.concatenate([o3, o3]), np.concatenate([o1, o1])
+    surf, best, arg = _port_surface((win, los, centers, coefs, r0, o3, o1),
+                                    "quadratic", 1)
+    np.testing.assert_array_equal(surf[0, :700], surf[0, 700:])
+    assert arg[0] < 700 and best[0] == surf[0, arg[0]] == surf[0].max()
+    jp = jdpe_ops.ManifoldParams(*(jnp.asarray(a) for a in (
+        los[0], r0[0], centers[0], coefs[0], centers[0], coefs[0])))
+    ref = jreal.score_manifolds_mag(jnp.asarray(win[0]), jnp.asarray(win[0]),
+                                    jp, *(jnp.asarray(a) for a in
+                                          (o3, o1, o3, o1)))
+    assert int(ref[1]) == int(arg[0])
+
+
+# -- the kernel against its plain version on the card ------------------------
+
+def _card(args, device):
+    return [None if a is None else torch.from_numpy(a).to(device)
+            for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 10, 50])
+@pytest.mark.parametrize("g", [100, 777, 390_625])
+def test_kernel_bit_equal_ragged_grids(g, n, cuda_device):
+    """G below one tile, a small odd G, and the spread grid's odd 390 625
+    (no multiple of the points a thread owns), at the N of every path:
+    best, arg, the surface and its argmax equal the plain version's bits."""
+    t = _card(_inputs(rng_seed=17, n=n, c=8, w=12, g=g), cuda_device)
+    for interp in INTERPS:
+        got = score.score_argmax(*t, interp=interp)
+        want = score.score_argmax_plain(*t, interp=interp)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if n <= 10:
+        surf, best, arg = score.score_surface_argmax(*t)
+        plain = score.score_surface_plain(*t)
+        assert torch.equal(surf, plain)
+        assert torch.equal(arg.long(), plain.argmax(dim=1))
+        assert torch.equal(best, plain.max(dim=1).values)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l_power", [1, 2, 3])
+def test_kernel_strided_parameters_and_unaligned_offsets(l_power,
+                                                         cuda_device):
+    """Slices of a packed parameter tensor go in by their strides, and grid
+    offsets that start 4 bytes off a 16-byte boundary take the one-point
+    loads: the same bits as the plain version on contiguous copies."""
+    n, c, w, g = 6, 8, 36, 5001
+    t = _card(_inputs(rng_seed=19, n=n, c=c, w=w, g=g + 1), cuda_device)
+    pk = torch.empty((n, 11, c), device=cuda_device)
+    pk[:, 3:6] = t[1].transpose(1, 2)
+    pk[:, 6], pk[:, 7], pk[:, 8] = t[4], t[2], t[3]
+    views = (t[0], pk[:, 3:6].transpose(1, 2), pk[:, 7], pk[:, 8], pk[:, 6])
+    assert not views[1].is_contiguous() and not views[2].is_contiguous()
+    for o3, o1 in ((t[5], t[6]), (t[5][1:], t[6][1:])):
+        got = score.score_argmax(*views, o3, o1, l_power=l_power,
+                                 weighted=True)
+        want = score.score_argmax_plain(*t[:5], o3, o1, l_power=l_power,
+                                        weighted=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[2] / got[3][:, None],
+                                   want[2] / want[3][:, None], rtol=1e-4,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_tie_across_tiles_takes_smaller_index(cuda_device):
+    """The grid twice over, 50 000 points apart: the two copies of the
+    maximum lie in different tiles (and thread blocks), and both the
+    streaming argmax and the surface's take the first."""
+    win, los, centers, coefs, r0, o3, o1 = _inputs(rng_seed=3, g=50_000)
+    t = _card((win, los, centers, coefs, r0, np.concatenate([o3, o3]),
+               np.concatenate([o1, o1])), cuda_device)
+    best, arg = score.score_argmax(*t)
+    want = score.score_argmax_plain(*t)
+    assert torch.equal(arg, want[1]) and torch.equal(best, want[0])
+    assert bool((arg < 50_000).all())
+    _, sbest, sarg = score.score_surface_argmax(*t)
+    assert torch.equal(sarg, arg) and torch.equal(sbest, best)
+
+
+@pytest.mark.cuda
+def test_kernel_weighted_sums_repeat_bitwise(cuda_device):
+    """No floating atomics: two runs give the same bits in every output."""
+    t = _card(_inputs(rng_seed=23, n=10, c=8, w=12, g=200_001), cuda_device)
+    a = score.score_argmax(*t, weighted=True)
+    b = score.score_argmax(*t, weighted=True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_windows_beyond_shared_memory(cuda_device):
+    """One block's staged windows (16 bytes a tap) must fit the kernel's
+    shared memory: the widest that does runs, the next is refused by the
+    wrapper with the limit in its message."""
+    lib = score._lib()
+    c = 8
+    w = max(w for w in range(3, 4096)
+            if lib.score_shared_bytes(c, w, 0, 0) <= lib.score_max_shared())
+    t = _card(_inputs(rng_seed=29, n=1, c=c, w=w, g=300), cuda_device)
+    got = score.score_argmax(*t)
+    want = score.score_argmax_plain(*t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    t = _card(_inputs(rng_seed=29, n=1, c=c, w=w + 1, g=300), cuda_device)
+    with pytest.raises(ValueError, match="KB of shared memory"):
+        score.score_argmax(*t)
