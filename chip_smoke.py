@@ -39,7 +39,27 @@ Phases, one line or more each (any failure raises and exits non-zero):
    PVT -> save_handoff -> DPEReceiver.run(1), then 50 more per-block steps;
    K2/K3/K4 launch counts, errors, TTFF wall, tracking real-time factor;
    then one more per-block step under torch.profiler (launches, device-busy
-   ms, K2's device ms).
+   ms, K2's device ms);
+10. (run right after phase 3, before the capture is made) K1's
+   block-summed mode (score_argmax(block_sum=True): the scores of all
+   blocks summed per grid point inside the kernel) against its plain
+   version: bit-equal best, equal first index, weighted sums bitwise equal
+   across two runs, on the spread grid at N=8 and N=50, on the dense grid
+   (2 x 75^4 points, the reference's cap) at N=16 with l_power 1 and 2, and
+   on a grid laid out twice (an exact tie across tiles); sinc interpolation
+   at the survey's zoom shape (33^4 points, 25 epochs) within rtol 1e-5,
+   argmax equal or a tie within 1e-6; 4 points a thread (shipped) and 1
+   timed at every shape;
+11. integrated DPE: run_integrated noncoherent on the spread grid (8 blocks
+   a fix, 25 fixes), coherent on the dense grid (16 blocks a fix, 12
+   fixes), and the first again read from the SampleFile through the
+   read-ahead thread (fixes identical); launches, errors, wall, real-time
+   factor, and the device side of one profiled fix;
+12. the survey: run_survey over 25 s (25 batches of 50 blocks), coherent,
+   default fine lattice, then once more with sinc zoom passes; errors
+   against truth and the wall split (pass, coarse, zoom);
+13. run_batched with refine="newton" and ekf_mode="full": 200 blocks, the
+   rows carrying the score windows.
 The line before the last is the kernels' JSON record (launches on the
 timed paths, error against the plain version, ms, plain ms, the roofline
 bound of the same work and what sets it, library_ms: null where no single
@@ -67,7 +87,9 @@ from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16, SampleFile
 from navlab_dpe_sdr_tpu_torch.io.scenario import make_scenario
 from navlab_dpe_sdr_tpu_torch.io.synth import release_workspace
 from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_table
-from navlab_dpe_sdr_tpu_torch.models.grid import spread_grid
+from navlab_dpe_sdr_tpu_torch.libgnss import frames
+from navlab_dpe_sdr_tpu_torch.models.grid import (_mesh4, dense_grid,
+                                                  spread_grid)
 from navlab_dpe_sdr_tpu_torch.models.dpe import (DPEConfig, DPEReceiver,
                                                  device_state)
 from navlab_dpe_sdr_tpu_torch.models.scalar import ScalarReceiver
@@ -96,6 +118,10 @@ PEAK_BYTES = 3.35e12    # bytes / s
 # and one sample of one channel in correlate_window_plain (phase, cos and
 # sin, wipeoff, three chip indices, segment, 12 multiply-adds).
 OPS_PER_POINT_CHANNEL = {"pos": 22, "vel": 18}
+# sinc: the index (13 with the curvature term, 9 without), then per tap a
+# subtraction, sinpi, two multiplications, a division and an addition (the
+# sine counted as one operation), and the channel sum.
+OPS_SINC = {"pos": (14, 6), "vel": (10, 6)}       # (fixed, per tap)
 OPS_PER_SAMPLE_CHANNEL = 60
 KERNELS = {
     "K1": dict(name="score_argmax", route="cuda", source=SCORE_SRC,
@@ -178,16 +204,20 @@ def device_profile(fn):
 def kernel_device_ms(fn, reps: int, name: str):
     """The device's own ms per launch of the kernels whose name holds
     `name`, from torch.profiler over `reps` calls of fn (per launch the
-    profiler recorded: it can drop one); None when it showed none."""
+    profiler recorded: it can drop one, and now and then a whole window,
+    which is taken again, three times at most); None when it showed none."""
     fn()
 
     def loop():
         for _ in range(reps):
             fn()
 
-    found = [v for k, v in device_profile(loop)[3].items() if name in k]
-    count = sum(n for _, n in found)
-    return sum(ms for ms, _ in found) / count if count else None
+    for _ in range(3):
+        found = [v for k, v in device_profile(loop)[3].items() if name in k]
+        count = sum(n for _, n in found)
+        if count:
+            return sum(ms for ms, _ in found) / count
+    return None
 
 
 def device_record(what: str, fn, kernel: str, card: str) -> None:
@@ -217,9 +247,10 @@ def add_ms(a, b):
     return None if a is None or b is None else a + b
 
 
-def scorer_inputs(rng, manifold: str, width: int, grid, dev):
+def scorer_inputs(rng, manifold: str, width: int, grid, dev,
+                  n: int = N_BLOCKS):
     """Main-path-shaped scorer operands made with numpy from the seed."""
-    n, c = N_BLOCKS, 8
+    c = 8
     win = np.abs(rng.standard_normal((n, c, width))).astype(np.float32) + 0.1
     win[:, :, width // 2 - 1:width // 2 + 2] += [4.0, 10.0, 4.0]
     los = rng.standard_normal((n, c, 3))
@@ -673,6 +704,355 @@ def check_cold_start(samples, hand, arr, grid, dev, card):
     return counts, rx.mcount
 
 
+def sum_bound(args, got, manifold, interp="quadratic"):
+    """Roofline bound of one block-summed call: every point-channel's
+    operations and one add per block and point; inputs once, outputs once."""
+    n, c, w = args[0].shape
+    g = args[5].shape[0]
+    if interp == "sinc":
+        fixed, per_tap = OPS_SINC[manifold]
+        per = fixed + per_tap * w
+    else:
+        per = OPS_PER_POINT_CHANNEL[manifold]
+    return bound(n * c * g * per + n * g, tensor_bytes(*args, *got[:2]))
+
+
+def time_points(args, interp):
+    """The kernel's own ms of a block-summed launch at 4 points a thread
+    (the plan's choice) and at 1."""
+    return {points: kernel_device_ms(
+        lambda: score._launch("score_argmax", score.MODE_SUM_ARGMAX, *args,
+                              interp, 1, points=points), 5, "score_kernel")
+        for points in (4, 1)}
+
+
+def check_sum_case(name, args, manifold, card, interp="quadratic",
+                   l_power=1, reps=10, timed=True):
+    """One shape of the block-summed mode: kernel against plain (bit-equal,
+    or for sinc rtol 1e-5 and a tie within 1e-6), weighted sums bitwise
+    equal across two runs; when timed also their means within rtol 1e-4 of
+    the plain version's, wrapper ms, the kernel's own ms (also at 1 point
+    a thread), plain ms and the bound."""
+    kw = dict(interp=interp, l_power=l_power, block_sum=True)
+    got = score.score_argmax(*args, **kw)
+    want = score.score_argmax_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if interp == "sinc":
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+        if int(got[1]) != int(want[1]):
+            idx = [int(got[1]), int(want[1])]
+            at = score.score_points(*args[:5], args[5][idx], args[6][idx],
+                                    interp, l_power).sum(dim=0)
+            assert abs(float(at[0] - at[1])) <= 1e-6 * abs(float(at[1])), (
+                name, idx, at)
+        verdict = (f"best rel diff "
+                   f"{abs(float(got[0] - want[0])) / abs(float(want[0])):.2e}"
+                   f" (rtol 1e-5), argmax "
+                   f"{'equal' if int(got[1]) == int(want[1]) else 'a tie'}")
+    else:
+        assert torch.equal(got[0], want[0]), (name, got[0], want[0])
+        assert torch.equal(got[1], want[1]), (name, got[1], want[1])
+        verdict = "best bit-equal, arg equal"
+    wa = score.score_argmax(*args, weighted=True, **kw)
+    wb = score.score_argmax(*args, weighted=True, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(wa, wb):
+        assert torch.equal(x, y), (name, "weighted sums differ run to run")
+    assert int(wa[1]) == int(got[1])
+    if not timed:
+        log(f"K1 block sum {name} {manifold} N={args[0].shape[0]} "
+            f"G={args[5].shape[0]} {interp} l_power={l_power}: {verdict}, "
+            f"weighted sums repeat bitwise")
+        return None
+    wp = score.score_argmax_plain(*args, weighted=True, **kw)
+    torch.testing.assert_close(wa[2] / wa[3], wp[2] / wp[3], rtol=1e-4,
+                               atol=1e-5)
+    k_ms = cuda_ms(lambda: score.score_argmax(*args, **kw), reps)
+    d_ms = kernel_device_ms(lambda: score.score_argmax(*args, **kw), reps,
+                            "score_kernel")
+    p_ms = cuda_ms(lambda: score.score_argmax_plain(*args, **kw), 1)
+    bnd = sum_bound(args, got, manifold, interp)
+    n, _, w = args[0].shape
+    line = (f"K1 block sum {name} {manifold} N={n} W={w} G={args[5].shape[0]}"
+            f" {interp} l_power={l_power}: {verdict}, weighted sums repeat "
+            f"bitwise; wrapper {k_ms:.4f} ms, kernel's own {fmt_ms(d_ms)}, "
+            f"plain {p_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']})")
+    by_points = time_points(args, interp)
+    line += (f"; kernel's own at 4 points a thread (shipped) "
+             f"{fmt_ms(by_points[4])}, at 1 {fmt_ms(by_points[1])}")
+    log(line + f" [{card}]")
+    return dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, **bnd)
+
+
+def check_block_sum(grid, widths, dev, card):
+    """Phase 10: the block-summed mode and sinc. Returns the K1 sub-entries
+    of the kernels line (per call of both manifolds)."""
+    rng = np.random.default_rng(SEED + 10)
+    out = {}
+
+    def both(key, cases):
+        tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for r in cases:
+            for k in tot:
+                tot[k] = add_ms(tot[k], r[k])
+        out.update({f"ms_{key}": tot["ms"], f"device_ms_{key}":
+                    tot["device_ms"], f"plain_ms_{key}": tot["plain_ms"],
+                    f"bound_ms_{key}": tot["bound_ms"]})
+
+    # the spread grid at the integrated path's N = 8 and the survey's N = 50
+    for n in (8, 50):
+        cases = []
+        for manifold in ("pos", "vel"):
+            args = scorer_inputs(rng, manifold, widths[manifold], grid, dev,
+                                 n=n)
+            cases.append(check_sum_case("spread", args, manifold, card))
+            if n == 8:
+                for kw in (dict(l_power=2), dict(interp="linear")):
+                    check_sum_case("spread", args, manifold, card, reps=3,
+                                   timed=False, **kw)
+        both(f"sum_n{n}", cases)
+
+    # an exact tie across tiles: the grid laid out twice
+    args = scorer_inputs(rng, "pos", widths["pos"], grid, dev, n=8)
+    args[5] = torch.cat([args[5], args[5]])
+    args[6] = torch.cat([args[6], args[6]])
+    best, arg = score.score_argmax(*args, block_sum=True)
+    want = score.score_argmax_plain(*args, block_sum=True)
+    assert torch.equal(best, want[0]) and torch.equal(arg, want[1])
+    assert int(arg) < grid.n_pos
+    log(f"K1 block sum, the spread grid twice over (G={args[5].shape[0]}): "
+        f"the tie goes to the first copy (arg {int(arg)}), as in the plain "
+        f"version")
+    del args
+
+    # the dense grid (the reference's cap) with its own window widths
+    dense = dense_grid()
+    dcw, dvw = dpe_ops.auto_windows(dense.d_enu, dense.dt_m, dense.dv_enu,
+                                    dense.dtdot, FS, CARR_FFTPTS)
+    cases = []
+    for manifold, w in (("pos", dcw), ("vel", dvw)):
+        args = scorer_inputs(rng, manifold, w, dense, dev, n=16)
+        assert args[5].shape[0] == 75 ** 4 > 2 ** 24
+        cases.append(check_sum_case("dense", args, manifold, card, reps=3))
+        check_sum_case("dense", args, manifold, card, l_power=2, reps=3,
+                       timed=False)
+        del args
+    both("sum_n16_dense", cases)
+    del dense
+
+    # sinc at the survey's zoom shape: 33^4 points about the coarse argmax,
+    # 25 epochs
+    ax = (np.arange(33) - 16.0)
+    cases = []
+    for manifold, sp in (("pos", 0.25), ("vel", 0.02)):
+        args = scorer_inputs(rng, manifold, widths[manifold], grid, dev,
+                             n=25)
+        off3, off1 = _mesh4(ax * sp, ax * sp)
+        args[5] = torch.from_numpy(off3.astype(np.float32)).to(dev)
+        args[6] = torch.from_numpy(off1.astype(np.float32)).to(dev)
+        cases.append(check_sum_case("zoom", args, manifold, card,
+                                    interp="sinc", reps=3))
+        check_sum_case("zoom", args, manifold, card, reps=3, timed=False)
+    both("sum_sinc_zoom", cases)
+    return out
+
+
+def fix_errors(fixes, truth):
+    return np.array([np.linalg.norm(f.x_ecef[:3] - truth[:3])
+                     for f in fixes])
+
+
+def check_integrated(samples, hand, arr, grid, dev, card):
+    """Phase 11: integrated DPE at full width. Returns K1's launches."""
+    first = samples[:S * 216]      # a warm fix, the timed ones, a profiled one
+    raw_dev = torch.from_numpy(first.view(np.int16).reshape(-1, S, 2)).to(dev)
+    cfg = DPEConfig(ekf_mode="alpha", ekf_alpha=0.3)
+
+    def make(g, samp=first):
+        return DPEReceiver(SampleFile(samples=samp, fs=FS),
+                           copy.deepcopy(hand), grid=g,
+                           eph=copy.deepcopy(arr), config=copy.deepcopy(cfg),
+                           device=dev)
+
+    launches = 0
+    runs = {}
+    dense = dense_grid()
+    for name, g, k, n_fix, kw in (
+            ("noncoherent, spread grid", grid, 8, 25, dict()),
+            ("coherent, dense grid 2 x 75^4", dense, 16, 12,
+             dict(coherent=True)),
+            ("noncoherent, spread grid, from the file", grid, 8, 25, None)):
+        rx = make(g)
+        if kw is None:      # file mode: the read-ahead thread stages batches
+            warm = timed = dict()
+        else:
+            warm = dict(raw_blocks_dev=raw_dev, **kw)
+            timed = dict(start_block=k, **warm)
+        rx.run_integrated(1, k, **warm)       # the first fix warms the shape
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rx.run_integrated(n_fix, k, **timed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = _build.launch_counts()["score_argmax"]
+        assert n_launch == 2 * n_fix, (name, n_launch)
+        assert len(rx.fixes) == n_fix + 1 and rx.mc == (n_fix + 1) * k
+        err = fix_errors(rx.fixes[1:], hand.x_ecef)
+        assert np.isfinite(err).all()
+        med = float(np.median(err))
+        assert med < 15.0, (name, med)
+        launches += n_launch
+        runs[name] = rx
+        log(f"integrated DPE, {name}: {n_fix} fixes of {k} blocks "
+            f"(G={g.n_pos} per manifold, windows {rx.code_win}/"
+            f"{rx.carr_win}), {n_launch} kernel launches, error median "
+            f"{med:.2f} m max {float(err.max()):.2f} m [first "
+            f"{err[0]:.2f}, last {err[-1]:.2f}], wall {wall:.3f} s, "
+            f"{n_fix * k * T / wall:.2f}x real time [{card}]")
+        if kw == dict():
+            device_record(
+                "one integrated fix of 8 blocks, spread grid",
+                lambda: rx.run_integrated(1, 8, raw_blocks_dev=raw_dev,
+                                          start_block=208),
+                "score_kernel", card)
+    a = runs["noncoherent, spread grid"]
+    b = runs["noncoherent, spread grid, from the file"]
+    assert len(b.fixes) == 26
+    for fa, fb in zip(a.fixes, b.fixes):
+        assert np.array_equal(fa.x_ecef, fb.x_ecef), (fa.mc, "file mode")
+        assert (fa.pos_score, fa.vel_score) == (fb.pos_score, fb.vel_score)
+    assert not [t for t in threading.enumerate() if t.name == "raw-prefetch"]
+    log("integrated DPE: the file-mode run's 26 fixes equal the "
+        "device-resident run's exactly")
+    return launches
+
+
+def check_survey(samples, hand, arr, grid, dev, card):
+    """Phase 12: the survey solve over 25 s. Returns K1's launches."""
+    n_batches, k = 25, 50
+    raw_dev = torch.from_numpy(samples[:S * n_batches * k].view(np.int16)
+                               .reshape(-1, S, 2)).to(dev)
+    truth = hand.x_ecef
+    r_e2n = frames.ecef_to_enu_matrix(truth[0:3])
+    launches = 0
+    for zoom in (None, None, "sinc"):      # the first pass warms the shapes
+        rx = DPEReceiver(SampleFile(samples=samples, fs=FS),
+                         copy.deepcopy(hand), grid=grid,
+                         eph=copy.deepcopy(arr), device=dev)
+        calls = []
+        inner_pass, inner_joint = rx.run_integrated, rx._joint_argmax
+
+        def timed_pass(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner_pass(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append(("pass", 0, time.perf_counter() - t0))
+            return out
+
+        def timed_joint(win, los, cen, coe, r0, off3, off1, interp=None):
+            t0 = time.perf_counter()
+            out = inner_joint(win, los, cen, coe, r0, off3, off1,
+                              interp=interp)
+            torch.cuda.synchronize()
+            calls.append(("coarse" if off3.shape[0] == grid.n_pos
+                          else "zoom", off3.shape[0],
+                          time.perf_counter() - t0))
+            return out
+
+        rx.run_integrated, rx._joint_argmax = timed_pass, timed_joint
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = rx.run_survey(n_batches=n_batches, blocks_per_fix=k,
+                            raw_blocks_dev=raw_dev, zoom_interp=zoom)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = _build.launch_counts()["score_argmax"]
+        # two per integrated fix, then six joint passes (coarse and two zoom
+        # passes per manifold)
+        assert n_launch == 2 * n_batches + 6, n_launch
+        assert res.n_blocks == n_batches * k and res.n_batches == n_batches
+        assert len(rx.fixes) == n_batches
+        assert np.isfinite(res.pos_score) and np.isfinite(res.vel_score)
+        assert np.isfinite(res.x_ecef).all()
+        assert np.all(res.sigma_pos > 0) and np.all(res.sigma_vel > 0)
+        enu = r_e2n @ (res.x_ecef[0:3] - truth[0:3])
+        assert abs(enu[0]) < 1.5 and abs(enu[1]) < 1.5, enu
+        assert np.linalg.norm(enu) < 6.0, enu
+        split = {key: sum(t for kk, _, t in calls if kk == key)
+                 for key in ("pass", "coarse", "zoom")}
+        launches += n_launch
+        log(f"survey, zoom {zoom or 'quadratic'}: {n_batches} batches of {k} "
+            f"blocks ({n_batches * k * T:.0f} s), {n_launch} kernel "
+            f"launches, ENU error {enu[0]:.2f} / {enu[1]:.2f} / "
+            f"{enu[2]:.2f} m (3-D {float(np.linalg.norm(enu)):.2f} m), clock "
+            f"{res.x_ecef[3] - truth[3]:.2f} m, sigma_pos "
+            f"{np.array2string(res.sigma_pos, precision=3)}, wall "
+            f"{wall:.3f} s ({n_batches * k * T / wall:.1f}x real time): "
+            f"pass {split['pass']:.3f} s, coarse {split['coarse']:.4f} s, "
+            f"zoom {split['zoom']:.4f} s [{card}]")
+    return launches
+
+
+def check_refined(samples, hand, arr, grid, dev, card):
+    """Phase 13: the batched path with the Newton polish and the full EKF.
+    Returns K1's launches."""
+    first = samples[:S * 250]
+    raw_dev = torch.from_numpy(first.view(np.int16).reshape(-1, S, 2)).to(dev)
+    rx = DPEReceiver(SampleFile(samples=first, fs=FS), copy.deepcopy(hand),
+                     grid=grid, eph=copy.deepcopy(arr),
+                     config=DPEConfig(refine="newton", ekf_mode="full"),
+                     device=dev)
+    widths = []
+    inner = dpe_real.pack_rows
+
+    def pack_rows(*a, **kw):
+        rows = inner(*a, **kw)
+        widths.append(rows.shape[1])
+        return rows
+
+    dpe_real.pack_rows = pack_rows
+    try:
+        run = dict(lookahead=N_BLOCKS, raw_blocks_dev=raw_dev, pipeline=True,
+                   pipeline_depth=4)
+        rx.run_batched(50, start_block=0, **run)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rx.run_batched(200, start_block=50, **run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dpe_real.pack_rows = inner
+    launches = _build.launch_counts()["score_argmax"]
+    assert launches == 2 * (200 // N_BLOCKS), launches
+    c = len(rx.prn_list)
+    assert set(widths) == {4 + c + c * (rx.code_win + rx.carr_win)}, widths
+    fixes = rx.fixes[50:]
+    assert len(fixes) == 200
+    err = fix_errors(fixes, hand.x_ecef)
+    assert np.isfinite(err).all()
+    med, p95 = float(np.median(err)), float(np.percentile(err, 95))
+    assert med < 15.0, med
+    # off the lattice: the spread grid's offsets are whole metres
+    r = frames.ecef_to_enu_matrix(hand.x_ecef[0:3])
+    enu = np.stack([r @ (f.x_ecef[0:3] - hand.x_ecef[0:3])
+                    for f in fixes[-6:]])
+    frac = np.abs(enu - np.round(enu))
+    assert frac.max() > 1e-3, enu
+    tr, tr4 = float(np.trace(rx.ekf.P)), float(np.trace(rx.ekf.P[:4, :4]))
+    assert tr < 300.0 and tr4 > 1.0, (tr, tr4)
+    log(f"refined + full EKF batched run: 200 blocks, {launches} kernel "
+        f"launches, rows of {widths[0]} floats (windows inside), error "
+        f"median {med:.2f} m p95 {p95:.2f} m, trace(P) {tr:.1f} "
+        f"(position-clock block {tr4:.2f}), wall {wall:.3f} s, "
+        f"{200 * T / wall:.2f}x real time [{card}]")
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -699,6 +1079,7 @@ def main() -> int:
         f"{fmt_ms(k1['device_ms'])}, plain {k1['plain_ms']:.4f} ms; N=10 "
         f"wrapper {k1['ms10']:.4f} ms, kernel's own "
         f"{fmt_ms(k1['device_ms10'])} [{card}]")
+    k1_sum = check_block_sum(grid, widths, dev, card)
 
     t0 = time.perf_counter()
     samples, hand, arr = make_capture(CAPTURE_S)
@@ -763,15 +1144,25 @@ def main() -> int:
     k2 = check_surface(grid, widths, dev, card)
     counts, k4_steps = check_cold_start(samples, hand, arr, grid, dev, card)
 
+    k1_by_path = {"batched": k1_launches}
+    k1_by_path["integrated"] = check_integrated(samples, hand, arr, grid,
+                                                dev, card)
+    k1_by_path["survey"] = check_survey(samples, hand, arr, grid, dev, card)
+    k1_by_path["refined"] = check_refined(samples, hand, arr, grid, dev,
+                                          card)
+    assert all(n > 0 for n in k1_by_path.values()), k1_by_path
+
     # no single PyTorch call computes any of the four functions: library_ms
     # is null throughout
-    rows = [("K1", k1_launches, k1), ("K2", counts["score_surface"], k2),
+    rows = [("K1", sum(k1_by_path.values()), k1),
+            ("K2", counts["score_surface"], k2),
             ("K3", counts["correlate_window"], k3),
             ("K4", counts["track_chunk"], k4)]
     kernels = [dict(KERNELS[k], launches=n, max_abs_err=r["err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], **r["bound"], library_ms=None,
                     device_ms=r["device_ms"]) for k, n, r in rows]
-    kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"])
+    kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"],
+                      launches_by_path=k1_by_path, **k1_sum)
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of "
             f"{k['bound_ms']:.5f} ms ({k['bound_by']}; "

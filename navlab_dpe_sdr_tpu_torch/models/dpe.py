@@ -1,26 +1,35 @@
-"""Direct Position Estimation receiver on torch devices: the per-block step
-and the batched mode.
+"""Direct Position Estimation receiver on torch devices: the per-block
+step, the batched mode, integrated DPE and the multi-epoch survey solve.
 
-Port of navlab_dpe_sdr_tpu/models/dpe.py (`step`/`run` and `run_batched`):
-host bookkeeping stays float64 numpy, copied verbatim from the JAX
-receiver; only the device calls change. Per block, `step` prepares the
-channel predictions and manifold geometry, uploads them with the raw block
-and runs ops/dpe_real.dpe_device_step_real (the windowed correlator, then
-both full score surfaces through K2), then takes the argmax or the
-score-weighted mean on the host. Per batched dispatch the host prepares N
-blocks (`_prepare_batch`), uploads them as one packed array, runs the fused
+Port of navlab_dpe_sdr_tpu/models/dpe.py on one device with
+engine="real": host bookkeeping stays float64 numpy, copied verbatim from
+the JAX receiver; only the device calls change. Per block, `step` prepares
+the channel predictions and manifold geometry, uploads them with the raw
+block and runs ops/dpe_real.dpe_device_step_real (the windowed correlator,
+then both full score surfaces through K2), then takes the argmax (with
+refine="newton" polished on the score windows) or the score-weighted mean
+on the host; ekf_mode="full" weighs the measurement by the score surface's
+curvature. Per batched dispatch the host prepares N blocks
+(`_prepare_batch`), uploads them as one packed array, runs the fused
 correlate + score step (ops/dpe_real.dpe_batch_blocks, K1) and queues one
 asynchronous fetch of the packed result rows; `_drain_batch` applies the
-measurements at batch boundaries.
+measurements at batch boundaries. `run_integrated` takes one fix per batch
+from the block-summed scorer (ops/dpe_real.dpe_scan_integrate),
+`run_survey` collects every batch's integrated windows and solves one
+state against the whole pass (ops/dpe_real.score_joint_argmax). File-mode
+runs stage their samples through `_RawPrefetcher`.
 
 The receiver takes the JAX package's numpy objects (Handoff, Grid,
 EphArray), so a JAX receiver's `save_handoff()` starts a port receiver
-that continues the same run. Configurations outside the ported slices
-raise NotImplementedError naming their ROADMAP Queue 1 item.
+that continues the same run. engine="fft" and a mesh raise
+NotImplementedError naming their ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations
 
+import functools
+import queue
+import threading
 from collections import deque
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -32,6 +41,7 @@ from ..constants import C, F_CA, F_L1, L_CA, T_CA
 from ..device import resolve_device
 from ..io.handoff import Handoff
 from ..io.rawfile import SampleFile
+from ..io.synth import white_noise_iq16
 from ..libgnss import frames, naveng, satpos
 from ..libgnss.cacode import ca_table
 from ..libgnss.ephemeris import EphArray
@@ -39,7 +49,7 @@ from ..libgnss.satcache import SatStateCache
 from ..ops import dpe as dpe_ops
 from ..ops import dpe_real as dpe_real_ops
 from .ekf import NavEKF
-from .grid import Grid, check_grid_size, spread_grid
+from .grid import Grid, _mesh4, check_grid_size, spread_grid
 
 
 @dataclass
@@ -53,20 +63,42 @@ class DPEFix:
 
 
 @dataclass
+class SurveyResult:
+    """Multi-epoch joint DPE estimate (static 'survey' mode)."""
+    x_ecef: np.ndarray       # 8-state at t_ref: pos [m], clk [m], vel, drift
+    t_ref: float             # receive-time epoch the state refers to
+    n_blocks: int
+    n_batches: int
+    pos_score: float
+    vel_score: float
+    sigma_pos: np.ndarray    # [4] 1-sigma ENU+clock, joint curvature [m]
+    sigma_vel: np.ndarray    # [4] 1-sigma ENU+drift [m/s]
+    cov_pos: np.ndarray      # [4,4] full ENU+clock covariance — the U/clock
+                             # ridge lives in the off-diagonals; sigma_pos
+                             # alone understates along-ridge uncertainty
+    cov_vel: np.ndarray      # [4,4]
+    d_enu_t: np.ndarray      # [4] joint displacement from the final
+                             # prediction (diagnostic)
+
+
+@dataclass
 class DPEConfig:
     """Same fields and defaults as the JAX DPEConfig; see
-    `_check_config` for the values this slice runs."""
+    `_check_config` for what is refused."""
     T: float = 0.02
     l_power: int = 1
     ekf_mode: str = "passthrough"   # "alpha" = fixed-gain smoother,
-                                     # "full" = 8-state EKF (not ported)
+                                     # "full" = 8-state EKF
     ekf_alpha: float = 0.3
     use_argmax: bool = True          # False = score-weighted mean
-    interp: str = "quadratic"        # "linear" = exact reference parity
+    interp: str = "quadratic"        # "linear" = exact reference parity,
+                                     # "sinc" = whole-window reconstruction
     engine: str = "real"             # "fft" = full-FFT oracle (not ported)
     doppler_sign: float = 1.0
     use_sat_cache: bool = True       # Hermite-interpolated satellite states
-    refine: str | None = None        # "newton" sub-grid polish (not ported)
+    refine: str | None = None        # "newton": continuous sub-grid ML
+                                     # polish of the argmax from the score
+                                     # windows
     dump_scores_to: str | None = None  # per-block score dump (npz)
     mesh: object | None = None         # multi-device scoring (not ported)
     ekf_q_accel: float = 1.0
@@ -79,22 +111,30 @@ class DPEConfig:
 
 
 def _check_config(cfg: DPEConfig) -> None:
-    """Refuse what this slice does not run — never fall back."""
+    """The JAX constructor's refusals, then what the port does not run —
+    never a fallback."""
+    if cfg.engine == "fft" and cfg.refine:
+        raise ValueError(
+            "refine needs the score windows of engine='real'; the FFT "
+            "engine never returns them, so the polish would silently "
+            "not run")
+    if cfg.refine and not cfg.use_argmax:
+        raise ValueError(
+            "refine polishes the grid argmax; the score-weighted-mean "
+            "estimator (use_argmax=False) has no lattice point to "
+            "polish — pick one")
     unported = [
         (cfg.engine != "real", f"engine={cfg.engine!r}",
          "item 8 (FFT engine)"),
         (cfg.mesh is not None, "mesh", "item 11 (mesh)"),
-        (bool(cfg.refine), f"refine={cfg.refine!r}",
-         "item 4 (refine and full EKF)"),
-        (cfg.ekf_mode == "full", "ekf_mode='full'",
-         "item 4 (refine and full EKF)"),
-        (cfg.interp not in ("quadratic", "linear"),
-         f"interp={cfg.interp!r}", "item 5 (integrated and survey modes)"),
     ]
     for bad, what, item in unported:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported yet: ROADMAP Queue 1 {item}")
+    if cfg.interp not in dpe_real_ops.INTERP_MODES:
+        raise ValueError(f"interp={cfg.interp!r}: one of "
+                         f"{dpe_real_ops.INTERP_MODES}")
 
 
 class DeviceState(NamedTuple):
@@ -145,6 +185,105 @@ def _fetched(f: _Fetch) -> np.ndarray:
     if f.event is not None:
         f.event.synchronize()
     return f.host.numpy()
+
+
+class _RawPrefetcher:
+    """Read-ahead sample staging for file-based batched and integrated
+    runs (the JAX receiver's `_RawPrefetcher`).
+
+    A daemon thread owns the rawfile cursor: it reads each planned batch
+    and keeps up to `depth` staged batches ahead of the consumer. On a
+    CUDA device a batch is copied into one of a ring of pinned host
+    buffers and uploaded with a non-blocking copy on a copy stream of its
+    own, with an event recorded after it; `get()` makes the current
+    stream wait on that event, so disk read and host->device copy hide
+    behind the device's work on earlier batches. A pinned buffer is
+    written again only after the event of its last upload has completed.
+    On the CPU the thread still reads ahead and hands over CPU tensors.
+    """
+
+    def __init__(self, rawfile, sizes, device, depth: int = 2):
+        self._q = queue.Queue(maxsize=depth)
+        self._err = None
+        self._closed = False
+        self._device = torch.device(device)
+        cuda = self._device.type == "cuda"
+        self._copy_stream = torch.cuda.Stream(self._device) if cuda else None
+        sizes = list(sizes)
+        # queued + the one being consumed + the one being filled
+        ring = [None] * (depth + 2)      # (pinned buffer, upload event)
+
+        def read(n):
+            try:
+                # one bulk slice per batch
+                return rawfile.read_chunk_raw(n).reshape(n, rawfile.S, -1)
+            except (AttributeError, ValueError):
+                return np.stack([rawfile.read_block_raw() for _ in range(n)])
+
+        def stage(k, blocks):
+            if not cuda:
+                return torch.from_numpy(np.ascontiguousarray(blocks)), None
+            slot = ring[k % len(ring)]
+            if slot is None:
+                t = torch.from_numpy(blocks)
+                slot = (torch.empty((max(sizes),) + tuple(t.shape[1:]),
+                                    dtype=t.dtype, pin_memory=True), None)
+            pinned, last = slot
+            if last is not None:
+                last.synchronize()       # its upload has left the buffer
+            host = pinned[:blocks.shape[0]]
+            host.numpy()[...] = blocks
+            with torch.cuda.stream(self._copy_stream):
+                dev_t = host.to(self._device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(self._copy_stream)
+            ring[k % len(ring)] = (pinned, ready)
+            return dev_t, ready
+
+        def work():
+            try:
+                for k, n in enumerate(sizes):
+                    if self._closed:
+                        return
+                    staged = stage(k, read(n))
+                    while not self._closed:     # bounded put: exit on close
+                        try:
+                            self._q.put(staged, timeout=0.2)
+                            break
+                        except queue.Full:
+                            pass
+            except Exception as e:        # surfaced on the consumer side
+                self._err = e
+                self._q.put(None)
+
+        self._thread = threading.Thread(target=work, daemon=True,
+                                        name="raw-prefetch")
+        self._thread.start()
+
+    def get(self) -> torch.Tensor:
+        """The next staged batch [n, S, 2] on the device; on CUDA the
+        current stream waits for its upload."""
+        item = self._q.get()
+        if item is None:
+            raise self._err
+        dev_t, ready = item
+        if ready is not None:
+            cur = torch.cuda.current_stream(self._device)
+            cur.wait_event(ready)
+            dev_t.record_stream(cur)
+        return dev_t
+
+    def close(self):
+        """Stop reading ahead and release staged buffers. After an abnormal
+        exit the rawfile cursor is wherever the reader got to — resume via
+        the receiver's checkpointed state, not the raw cursor."""
+        self._closed = True
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2.0)
 
 
 class DPEReceiver:
@@ -220,6 +359,34 @@ class DPEReceiver:
         self.fixes: list[DPEFix] = []
         self.flip_log: list[np.ndarray] = []
         self._sat_cache: SatStateCache | None = None
+
+    # Whole-grid constants of the full EKF and the Newton polish, taken at
+    # first use: a default receiver (the cold start's first fix) never pays
+    # for the passes over the grid.
+
+    @functools.cached_property
+    def _lat_var(self):
+        """Per-axis grid lattice variance (ENU+clock) of both manifolds,
+        for the adaptive-R quantization floor: uniform-quantizer variance
+        spacing^2/12."""
+        def lat_var(vals):
+            d = np.diff(np.unique(np.round(np.asarray(vals), 6)))
+            d = d[d > 0]
+            s = float(d.min()) if d.size else 1.0
+            return s * s / 12.0
+
+        g = self.grid
+        return (np.array([lat_var(g.d_enu[:, j]) for j in range(3)]
+                         + [lat_var(g.dt_m)]),
+                np.array([lat_var(g.dv_enu[:, j]) for j in range(3)]
+                         + [lat_var(g.dtdot)]))
+
+    @functools.cached_property
+    def _refine_span(self):
+        """How far the Newton polish may leave each grid: 1.5 x its reach
+        (position, velocity)."""
+        return (np.abs(self.grid.d_enu).max() * 1.5,
+                np.abs(self.grid.dv_enu).max() * 1.5)
 
     # -- host-side f64 helpers (verbatim from the JAX receiver) ------------
 
@@ -443,8 +610,8 @@ class DPEReceiver:
             vel_center=fp[9], vel_coef=fp[10])
         d = self._dev
         rawf = raw.float()
-        (pos_scores, pos_arg, vel_scores, vel_arg, flip_used, _,
-         _) = dpe_real_ops.dpe_device_step_real(
+        (pos_scores, pos_arg, vel_scores, vel_arg, flip_used, code_mag,
+         carr_mag) = dpe_real_ops.dpe_device_step_real(
             rawf[:, 0], rawf[:, 1], d.chips, fp[0], ip[0], fp[1], fp[2],
             d.time_idc, ip[1], ip[2], params, d.d_enu, d.dt_m, d.dv_enu,
             d.dtdot, carr_fftpts=self.carr_fftpts, period=self.period,
@@ -460,6 +627,17 @@ class DPEReceiver:
             dtdot = self.grid.dtdot[va]
             pos_peak = float(pos_scores[pa])
             vel_peak = float(vel_scores[va])
+            if self.cfg.refine == "newton":
+                dp = self._refine_ml(
+                    code_mag.cpu().numpy(), pos_idx_c - pos_start, pos_coef,
+                    los_enu, np.concatenate([d_enu, [dt]]),
+                    span=self._refine_span[0])
+                d_enu, dt = dp[0:3], dp[3]
+                dv = self._refine_ml(
+                    carr_mag.cpu().numpy(), vel_idx_c - vel_start, vel_coef,
+                    los_enu, np.concatenate([dv_enu, [dtdot]]),
+                    span=self._refine_span[1])
+                dv_enu, dtdot = dv[0:3], dv[3]
         else:   # score-weighted mean, host float64 (JAX models/dpe.py:574)
             ps = pos_scores.cpu().numpy().astype(np.float64)
             vs = vel_scores.cpu().numpy().astype(np.float64)
@@ -474,7 +652,18 @@ class DPEReceiver:
         z[3] += dt
         z[4:7] += r_e2n.T @ dv_enu
         z[7] += dtdot
-        self.ekf.measurement_update(z)
+
+        # EKF measurement update (full mode: adaptive R from the score
+        # surface curvature)
+        r_meas = None
+        if self.cfg.ekf_mode == "full":
+            r_meas = self._adaptive_r(
+                code_mag.cpu().numpy(), carr_mag.cpu().numpy(),
+                pos_idx_c - pos_start, pos_coef,
+                vel_idx_c - vel_start, vel_coef, los_enu,
+                np.concatenate([d_enu, [dt]]),
+                np.concatenate([dv_enu, [dtdot]]), r_e2n)
+        self.ekf.measurement_update(z, R=r_meas)
         self.rx_time_a = self.rx_time - self.ekf.x[3] / C
 
         # 6. back-calculate channel frequencies from the updated state
@@ -495,23 +684,6 @@ class DPEReceiver:
         for _ in range(n_blocks):
             self.step()
         return self.fixes
-
-    # -- modes outside the ported slices ------------------------------------
-
-    def run_integrated(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_integrated is not ported yet: ROADMAP Queue 1 item 5 "
-            "(integrated and survey modes)")
-
-    def noise_envelope(self, *args, **kwargs):
-        raise NotImplementedError(
-            "noise_envelope is not ported yet: ROADMAP Queue 1 item 5 "
-            "(integrated and survey modes)")
-
-    def run_survey(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_survey is not ported yet: ROADMAP Queue 1 item 5 "
-            "(integrated and survey modes)")
 
     # -- batched mode (deferred feedback) ----------------------------------
 
@@ -581,9 +753,18 @@ class DPEReceiver:
         rf = self.rawfile
         eph = self.eph
 
-        # EKF chain: F = I in the slice's modes (passthrough, alpha)
+        full = self.ekf.mode == "full"
+
+        # EKF chain: n time updates (F = I except "full"; routed through
+        # time_update for single-source filter math — note the resulting
+        # n-predictions-then-updates history is NOT RTS-pairable;
+        # rts_smooth validates and refuses it)
         xs = np.empty((n, 8))
-        xs[:] = self.ekf.x
+        if full:
+            for k in range(n):
+                xs[k] = self.ekf.time_update()
+        else:
+            xs[:] = self.ekf.x
         rx_times = np.empty(n)
         t = self.rx_time
         for k in range(n):            # sequential += T, as the scalar path
@@ -672,7 +853,11 @@ class DPEReceiver:
                             - self.carr_win // 2, 0,
                             self.carr_fftpts - self.carr_win).astype(np.int32)
 
-        r_e2ns = [frames.ecef_to_enu_matrix(xs[0, 0:3])] * n
+        if full:
+            r_e2ns = [frames.ecef_to_enu_matrix(xs[k, 0:3])
+                      for k in range(n)]
+        else:
+            r_e2ns = [frames.ecef_to_enu_matrix(xs[0, 0:3])] * n
         los_enu = np.einsum("nij,jnc->nic", np.stack(r_e2ns), los)  # [N,3,C]
 
         fpk_all = np.stack([
@@ -695,8 +880,113 @@ class DPEReceiver:
         return [(fpk_all[k], ipk_all[k], r_e2ns[k], rx_times[k],
                  mc0 + k + 1, xs[k].copy()) for k in range(n)]
 
+    @staticmethod
+    def _refine_ml(win_mag, center, coef, los_enu, d0, iters: int = 4,
+                   span=None):
+        """Continuous ML polish: maximize sum_c q_c(center_c + coef_c *
+        (-los_c . d + dt)) over (d_enu, dt) by Newton iterations on the
+        per-channel 3-point parabolas. d0: (4,) start (the grid argmax)."""
+        c, w = win_mag.shape
+        g = np.concatenate([-los_enu, np.ones((c, 1))], axis=1)   # [C, 4]
+        d = np.asarray(d0, dtype=np.float64).copy()
+        for _ in range(iters):
+            idx = center + coef * (g @ d)
+            k0 = np.clip(np.round(idx), 1, w - 2).astype(int)
+            frac = idx - k0
+            y0 = win_mag[np.arange(c), k0 - 1]
+            y1 = win_mag[np.arange(c), k0]
+            y2 = win_mag[np.arange(c), k0 + 1]
+            q1 = 0.5 * (y2 - y0) + (y2 - 2 * y1 + y0) * frac   # dq/didx
+            q2 = (y2 - 2 * y1 + y0)                            # d2q/didx2
+            grad = (q1 * coef) @ g                             # (4,)
+            hess = (g.T * (q2 * coef * coef)) @ g              # [4, 4]
+            # Newton toward the max: hess should be negative definite near
+            # the peak; regularize and bail out if not
+            hd = hess - 1e-9 * np.eye(4)
+            try:
+                step = np.linalg.solve(hd, -grad)
+            except np.linalg.LinAlgError:
+                break
+            if not np.all(np.isfinite(step)):
+                break
+            step = np.clip(step, -20.0, 20.0)
+            d = d + step
+            if span is not None:
+                d = np.clip(d, -span, span)
+        return d
+
+    @staticmethod
+    def _surface_hess_gvar(win_mag, center, coef, los_enu, d):
+        """Score-surface Hessian + gradient-noise covariance at offset d
+        (ENU+clock coordinates) — the building blocks of both the per-fix
+        adaptive R and the joint survey covariance (which sums them over
+        epochs)."""
+        c, w = win_mag.shape
+        g = np.concatenate([-los_enu, np.ones((c, 1))], axis=1)  # [C, 4]
+        idx = center + coef * (g @ d)
+        k0 = np.clip(np.round(idx), 1, w - 2).astype(int)
+        ar = np.arange(c)
+        y0 = win_mag[ar, k0 - 1]
+        y1 = win_mag[ar, k0]
+        y2 = win_mag[ar, k0 + 1]
+        q2 = y2 - 2.0 * y1 + y0                  # d2(score)/d(idx)^2
+        hess = (g.T * (q2 * coef * coef)) @ g    # [4,4] (negative definite)
+        # per-channel score noise: 2nd differences away from the peak have
+        # var = 6 sigma^2 for iid window noise
+        d2 = win_mag[:, 2:] - 2.0 * win_mag[:, 1:-1] + win_mag[:, :-2]
+        cols = np.arange(1, w - 1)[None, :]
+        tail = np.abs(cols - k0[:, None]) > 2
+        sig2 = np.where(
+            tail.any(axis=1),
+            np.sum(d2 * d2 * tail, axis=1) / np.maximum(tail.sum(axis=1), 1)
+            / 6.0,
+            np.mean(d2 * d2, axis=1) / 6.0)
+        gvar = 0.5 * sig2 * coef * coef          # central-diff gradient var
+        gmat = (g.T * gvar) @ g
+        return hess, gmat
+
+    @staticmethod
+    def _measurement_cov(win_mag, center, coef, los_enu, d, lat_var4):
+        """Per-axis DPE measurement covariance from the score-surface
+        curvature at the measured offset (ENU+clock coordinates).
+
+        The argmax displacement under score noise is delta ~= -H^{-1} grad,
+        so Cov(delta) = H^{-1} G H^{-1} with H the summed-score Hessian
+        (3-point second differences per channel, projected through the
+        manifold geometry) and G the gradient-noise covariance (per-channel
+        window noise estimated from off-peak second differences). A grid
+        quantization floor spacing^2/12 is added per axis.
+        """
+        hess, gmat = DPEReceiver._surface_hess_gvar(win_mag, center, coef,
+                                                    los_enu, d)
+        floor = np.diag(lat_var4)
+        try:
+            hinv = np.linalg.inv(hess - 1e-9 * np.eye(4))
+        except np.linalg.LinAlgError:
+            return floor * 4.0
+        cov = hinv @ gmat @ hinv
+        cov = 0.5 * (cov + cov.T) + floor
+        evals, evecs = np.linalg.eigh(cov)
+        evals = np.clip(evals, lat_var4.min() * 0.25, 1e6)
+        return (evecs * evals) @ evecs.T
+
+    def _adaptive_r(self, code_mag, carr_mag, pos_center, pos_coef,
+                    vel_center, vel_coef, los_enu, dp4, dv4, r_e2n):
+        """8x8 ECEF measurement covariance for the full EKF."""
+        rp = self._measurement_cov(code_mag, pos_center, pos_coef,
+                                   los_enu, dp4, self._lat_var[0])
+        rv = self._measurement_cov(carr_mag, vel_center, vel_coef,
+                                   los_enu, dv4, self._lat_var[1])
+        t4 = np.eye(4)
+        t4[0:3, 0:3] = r_e2n.T
+        r = np.zeros((8, 8))
+        r[0:4, 0:4] = t4 @ rp @ t4.T
+        r[4:8, 4:8] = t4 @ rv @ t4.T
+        return r
+
     def _apply_measurement(self, pa: int, va: int, r_e2n, rx_time, mc,
                            pos_peak, vel_peak, flip_row, x_pred,
+                           fpk=None, code_mag=None, carr_mag=None,
                            wmean=None):
         # offsets are relative to the prediction the scoring used.
         # wmean: optional [8] continuous offsets from the device-side
@@ -715,7 +1005,13 @@ class DPEReceiver:
         z[3] += dp4[3]
         z[4:7] += r_e2n.T @ dv4[0:3]
         z[7] += dv4[3]
-        self.ekf.measurement_update(z)
+        r_meas = None
+        if (self.cfg.ekf_mode == "full" and code_mag is not None
+                and fpk is not None):
+            r_meas = self._adaptive_r(
+                code_mag, carr_mag, fpk[7], fpk[8], fpk[9], fpk[10],
+                fpk[3:6].T, dp4, dv4, r_e2n)
+        self.ekf.measurement_update(z, R=r_meas)
         self.flip_log.append(flip_row)
         fix = DPEFix(mc=mc, rx_time=rx_time,
                      rx_time_a=rx_time - self.ekf.x[3] / C,
@@ -724,20 +1020,8 @@ class DPEReceiver:
         self.fixes.append(fix)
         return fix
 
-    def _stage_blocks(self, n: int) -> torch.Tensor:
-        """Read the next n blocks from the SampleFile and upload them as
-        one [n, S, 2] tensor (synchronous staging: the read-ahead thread
-        of the JAX receiver is ROADMAP Queue 1 item 3)."""
-        rf = self.rawfile
-        try:
-            # one bulk slice per batch
-            blocks = rf.read_chunk_raw(n).reshape(n, rf.S, -1)
-        except (AttributeError, ValueError):
-            blocks = np.stack([rf.read_block_raw() for _ in range(n)])
-        return dpe_real_ops.to_device(blocks, self.device)
-
     def _dispatch_batch(self, n, raw_blocks_dev, start_block, done,
-                        group_k: int = 1):
+                        raw_staged=None, group_k: int = 1):
         preps = self._prepare_batch(n)
         fpk = np.stack([p[0] for p in preps])                   # [N, 11, C]
         ipk = np.stack([p[1] for p in preps])                   # [N, 3, C]
@@ -746,7 +1030,10 @@ class DPEReceiver:
             raw_dev = raw_blocks_dev
             start = start_block + done
         else:
-            raw_dev = self._stage_blocks(n)                     # [N, S, 2]
+            # file mode always stages through the prefetcher (run_batched
+            # is the only caller) — one read+upload implementation
+            assert raw_staged is not None
+            raw_dev = raw_staged                                # [N, S, 2]
             start = 0
 
         d = self._dev
@@ -756,8 +1043,9 @@ class DPEReceiver:
             carr_fftpts=self.carr_fftpts, period=self.period,
             n_periods=self.S // self.period, n_blocks=n,
             l_power=self.cfg.l_power, interp=self.cfg.interp,
-            return_windows=False, code_win=self.code_win,
-            carr_win=self.carr_win, group_k=group_k,
+            return_windows=(self.cfg.refine == "newton"
+                            or self.cfg.ekf_mode == "full"),
+            code_win=self.code_win, carr_win=self.carr_win, group_k=group_k,
             use_argmax=self.cfg.use_argmax)
         # queue the device->host copy now: it runs as soon as the batch
         # finishes on the device, overlapping the NEXT batch's host prep
@@ -766,6 +1054,8 @@ class DPEReceiver:
     def _drain_batch(self, fetch: _Fetch, preps, group_k: int = 1):
         rows = _fetched(fetch)
         c = len(self.prn_list)
+        cw = self.code_win
+        vw = self.carr_win
         pas, vas = dpe_real_ops.unpack_row_indices(rows)
         pps = rows[:, 1]
         vps = rows[:, 3]
@@ -774,22 +1064,388 @@ class DPEReceiver:
         wmeans = None
         if not self.cfg.use_argmax:     # weighted-mean cols follow flips
             wmeans = rows[:, base:base + dpe_real_ops.WMEAN_COLS]
+            base += dpe_real_ops.WMEAN_COLS
+        if rows.shape[1] > base:        # windows present (refine / full EKF)
+            code_mags = rows[:, base:base + c * cw].reshape(-1, c, cw)
+            carr_mags = rows[:, base + c * cw:].reshape(-1, c, vw)
+        else:
+            code_mags = carr_mags = None
         for i in range(rows.shape[0]):
             # group_k > 1: one row per K-block coherent group, referenced
-            # to the group's LAST block's prediction
-            _, _, r_e2n, rx_time, mc, x_pred = preps[(i + 1) * group_k - 1]
-            self._apply_measurement(int(pas[i]), int(vas[i]), r_e2n,
-                                    rx_time, mc, pps[i], vps[i], flips[i],
-                                    x_pred, wmean=(None if wmeans is None
-                                                   else wmeans[i]))
+            # to the group's LAST block's prediction (same convention as
+            # dpe_scan_integrate)
+            fpk, _, r_e2n, rx_time, mc, x_pred = preps[(i + 1) * group_k - 1]
+            if self.cfg.refine == "newton":
+                self._apply_refined(fpk, r_e2n, rx_time, mc,
+                                    int(pas[i]), int(vas[i]),
+                                    pps[i], vps[i], flips[i],
+                                    code_mags[i], carr_mags[i], x_pred)
+            else:
+                self._apply_measurement(int(pas[i]), int(vas[i]), r_e2n,
+                                        rx_time, mc, pps[i], vps[i],
+                                        flips[i], x_pred, fpk=fpk,
+                                        code_mag=(None if code_mags is None
+                                                  else code_mags[i]),
+                                        carr_mag=(None if carr_mags is None
+                                                  else carr_mags[i]),
+                                        wmean=(None if wmeans is None
+                                               else wmeans[i]))
         # steer channel frequencies from the newest state at the current epoch
         self.rx_time_a = self.rx_time - self.ekf.x[3] / C
         self._update_channels_from_state()
 
+    def _apply_refined(self, fpk, r_e2n, rx_time, mc, pa, va, pos_peak,
+                       vel_peak, flip_row, code_mag, carr_mag, x_pred):
+        los_enu = fpk[3:6].T
+        d0 = np.concatenate([self.grid.d_enu[pa], [self.grid.dt_m[pa]]])
+        dp = self._refine_ml(code_mag, fpk[7], fpk[8], los_enu, d0,
+                             span=self._refine_span[0])
+        v0 = np.concatenate([self.grid.dv_enu[va], [self.grid.dtdot[va]]])
+        dv = self._refine_ml(carr_mag, fpk[9], fpk[10], los_enu, v0,
+                             span=self._refine_span[1])
+        z = np.asarray(x_pred, dtype=np.float64).copy()
+        z[0:3] += r_e2n.T @ dp[0:3]
+        z[3] += dp[3]
+        z[4:7] += r_e2n.T @ dv[0:3]
+        z[7] += dv[3]
+        r_meas = None
+        if self.cfg.ekf_mode == "full":
+            r_meas = self._adaptive_r(code_mag, carr_mag, fpk[7], fpk[8],
+                                      fpk[9], fpk[10], los_enu, dp, dv,
+                                      r_e2n)
+        self.ekf.measurement_update(z, R=r_meas)
+        self.flip_log.append(flip_row)
+        fix = DPEFix(mc=mc, rx_time=rx_time,
+                     rx_time_a=rx_time - self.ekf.x[3] / C,
+                     x_ecef=self.ekf.x.copy(),
+                     pos_score=float(pos_peak), vel_score=float(vel_peak))
+        self.fixes.append(fix)
+        return fix
+
+    def run_integrated(self, n_batches: int, blocks_per_fix: int = 8,
+                       raw_blocks_dev: torch.Tensor | None = None,
+                       start_block: int = 0, coherent: bool = False,
+                       _collect: list | None = None, feedback: bool = True):
+        """Integrated DPE: one fix per `blocks_per_fix` blocks with the
+        score surfaces accumulated on device (noncoherent integration).
+        Trades fix rate for ~sqrt(N) lower score noise.
+
+        coherent=True sums the complex correlation windows instead (with
+        data-aided nav-bit alignment): equal accuracy at practical C/N0,
+        but ONE manifold scoring pass per fix instead of per block — the
+        N x cheaper path for dense-grid integration.
+
+        feedback=False (coast / open-loop mode): the per-batch argmax is
+        recorded as a diagnostic fix but NOT applied to the EKF state, so
+        channel steering runs on pure geometric prediction from the
+        initial state. At low C/N0 the per-batch argmax is too noisy to
+        steer with — feeding it back corrupts the window centers and the
+        run never recovers; coasting keeps the windows centered for the
+        full-pass survey solve (weak-signal mode)."""
+        self._check_batch_mode(raw_blocks_dev, start_block,
+                               n_batches * blocks_per_fix)
+        prefetch = (_RawPrefetcher(self.rawfile,
+                                   [blocks_per_fix] * n_batches, self.device)
+                    if raw_blocks_dev is None else None)
+        try:
+            return self._run_integrated(n_batches, blocks_per_fix,
+                                        raw_blocks_dev, start_block,
+                                        coherent, prefetch, _collect,
+                                        feedback)
+        finally:
+            if prefetch is not None:
+                prefetch.close()
+
+    def _run_integrated(self, n_batches, blocks_per_fix, raw_blocks_dev,
+                        start_block, coherent, prefetch, collect=None,
+                        feedback=True):
+        done = 0
+        c = len(self.prn_list)
+        d = self._dev
+        for _ in range(n_batches):
+            n = blocks_per_fix
+            preps = self._prepare_batch(n)
+            fpk = np.stack([p[0] for p in preps])
+            ipk = np.stack([p[1] for p in preps])
+            if raw_blocks_dev is None:
+                raw_dev = prefetch.get()
+                start = 0
+            else:
+                raw_dev = raw_blocks_dev
+                start = start_block + done
+            # sub-grid Newton polish needs the integrated windows; the
+            # coherent path is the one that forms a single summed window.
+            # With the noise integrated away the polish is limited by the
+            # 3-tap interpolant's vertex bias, which cancels in the argmax
+            # (all candidates go through the same interpolant): newton for
+            # off-lattice smoothness, argmax for absolute accuracy on
+            # dense grids.
+            refine = self.cfg.refine == "newton" and coherent
+            want_windows = refine or collect is not None
+            res = dpe_real_ops.dpe_scan_integrate(
+                raw_dev, dpe_real_ops.pack_params(fpk, ipk, start), d.chips,
+                d.time_idc, d.d_enu, d.dt_m, d.dv_enu, d.dtdot,
+                carr_fftpts=self.carr_fftpts, period=self.period,
+                n_periods=self.S // self.period, n_blocks=n,
+                l_power=self.cfg.l_power, interp=self.cfg.interp,
+                code_win=self.code_win, carr_win=self.carr_win,
+                coherent=coherent, return_windows=want_windows,
+                use_argmax=self.cfg.use_argmax)
+            # one device->host fetch: head, the last block's flips, windows
+            flat = _fetched(_fetch_async(torch.cat(
+                [res[0], res[1][-1].float()]
+                + [w.reshape(-1) for w in res[2:]])))
+            n_head = res[0].shape[0]
+            row = flat[:n_head]
+            flip_last = flat[n_head:n_head + c]
+            pa_i, va_i = dpe_real_ops.unpack_row_indices(row[None, :])
+            pa_i, va_i = int(pa_i[0]), int(va_i[0])
+            wmean = row[4:12] if not self.cfg.use_argmax else None
+            # the measurement is referenced to the LAST block's prediction
+            # (identical to every other block's: X frozen during the batch)
+            fpk_last, _, r_e2n, rx_time, mc, x_pred = preps[-1]
+            code_mag = carr_mag = None
+            if want_windows:
+                base = n_head + c
+                code_mag = flat[base:base + c * self.code_win].reshape(
+                    c, self.code_win)
+                carr_mag = flat[base + c * self.code_win:].reshape(
+                    c, self.carr_win)
+            if not feedback:
+                # coast: record the argmax as a diagnostic fix, leave the
+                # EKF state (and so the channel steering) on prediction
+                z = np.asarray(x_pred, dtype=np.float64).copy()
+                z[0:3] += r_e2n.T @ self.grid.d_enu[pa_i]
+                z[3] += self.grid.dt_m[pa_i]
+                z[4:7] += r_e2n.T @ self.grid.dv_enu[va_i]
+                z[7] += self.grid.dtdot[va_i]
+                self.flip_log.append(flip_last)
+                self.fixes.append(DPEFix(
+                    mc=mc, rx_time=rx_time,
+                    rx_time_a=rx_time - self.ekf.x[3] / C, x_ecef=z,
+                    pos_score=float(row[1]), vel_score=float(row[3])))
+            elif refine:
+                self._apply_refined(fpk_last, r_e2n, rx_time, mc,
+                                    pa_i, va_i, row[1], row[3], flip_last,
+                                    code_mag, carr_mag, x_pred)
+            else:
+                self._apply_measurement(pa_i, va_i, r_e2n,
+                                        rx_time, mc, row[1], row[3],
+                                        flip_last, x_pred, wmean=wmean)
+            if collect is not None:
+                collect.append((code_mag, carr_mag, fpk_last, r_e2n,
+                                rx_time, x_pred))
+            self.rx_time_a = self.rx_time - self.ekf.x[3] / C
+            self._update_channels_from_state()
+            done += n
+        return self.fixes
+
+    def noise_envelope(self, blocks_per_fix: int = 16, n_batches: int = 8,
+                       seed: int = 0):
+        """Deterministic per-lag noise gain of the integrated noncoherent
+        windows: (env_code [Wc], env_carr [Wv]), each normalized to mean 1.
+
+        The windowed correlation algebra does not have a flat noise
+        floor: the two-stage folded carrier DFT attenuates noise away
+        from the fold center with the same Dirichlet envelope as the
+        signal, and the code window's flip/no-flip max-selection inflates
+        E|noise| at the decision lag. Summed noncoherently over hundreds
+        of blocks these deterministic bumps dominate the integrated
+        surface long before thermal noise does — an un-normalized
+        weak-signal joint solve "finds" the window center (= the coasted
+        prediction) at arbitrarily low C/N0. This calibrates the envelope
+        empirically by streaming white noise through the IDENTICAL engine
+        config on a throwaway receiver built from the current state."""
+        noise = white_noise_iq16(self.S * blocks_per_fix * n_batches, seed)
+        h = self.save_handoff()
+        h.bytes_read = 0
+        cal = DPEReceiver(
+            SampleFile(samples=noise, fs=self.rawfile.fs,
+                       ds=self.rawfile.ds),
+            h, grid=self.grid, config=self.cfg, device=self.device)
+        collect: list = []
+        cal.run_integrated(n_batches, blocks_per_fix, coherent=False,
+                           feedback=False, _collect=collect)
+        env_code = np.stack([c[0] for c in collect]).mean(axis=(0, 1))
+        env_carr = np.stack([c[1] for c in collect]).mean(axis=(0, 1))
+        return (env_code / env_code.mean(), env_carr / env_carr.mean())
+
+    def run_survey(self, n_batches: int, blocks_per_fix: int = 50,
+                   raw_blocks_dev: torch.Tensor | None = None,
+                   start_block: int = 0,
+                   fine_spacing: float = 0.25, fine_n: int = 33,
+                   vel_fine_spacing: float = 0.02,
+                   zoom_interp: str | None = None,
+                   coherent: bool = True,
+                   feedback: bool = True,
+                   envelope="auto") -> SurveyResult:
+        """Multi-epoch joint DPE: ONE position-clock state estimated
+        against the WHOLE pass (static-receiver survey mode).
+
+        Phase 1 streams the pass through the coherent integrated engine
+        (run_integrated — per-batch fixes keep the channel steering
+        centered and land in self.fixes as usual), collecting each batch's
+        integrated correlation windows + manifold geometry. Phase 2
+        re-references every batch to one common state under a linear
+        clock-drift model (drift estimated first from the joint
+        velocity-drift manifold) and scores the joint 4-D manifold across
+        ALL batches at once (ops.dpe_real.score_joint_argmax): score noise
+        integrates down over the full pass while satellite motion adds
+        genuine geometric diversity across epochs. A coarse pass on the
+        receiver grid is followed by a fine lattice (fine_n^4 points at
+        fine_spacing m / vel_fine_spacing m/s).
+
+        Weak-signal mode: coherent=False collects NONCOHERENT batch
+        windows (per-block magnitudes summed on the common window frame —
+        no nav-bit alignment needed), and feedback=False coasts the
+        channel steering on pure prediction so a noisy per-batch argmax
+        can never corrupt the window centers. The joint solve then
+        integrates the whole pass.
+
+        envelope: noise-floor equalization of the collected windows (see
+        noise_envelope). "auto" (default) calibrates and applies it on
+        the noncoherent path — without it the deterministic window
+        envelope pins the weak-signal argmax to the coasted prediction
+        at arbitrarily low C/N0 (a false "hold"). Pass a precomputed
+        (env_code, env_carr) to amortize the calibration across runs, or
+        None to disable (coherent default: the strong-signal peak
+        dominates the envelope; estimates unchanged).
+
+        zoom_interp="sinc" reconstructs the bandlimited correlation
+        exactly in the zoom passes, removing the 3-tap interpolant's
+        common vertex bias from the clock estimate; the default keeps the
+        estimator identical to the per-block scorer.
+        """
+        if envelope == "auto":
+            # calibrate BEFORE the pass advances the receiver state
+            envelope = (self.noise_envelope(blocks_per_fix=blocks_per_fix,
+                                            n_batches=max(
+                                                2, 96 // blocks_per_fix))
+                        if not coherent else None)
+        collect: list = []
+        self.run_integrated(n_batches, blocks_per_fix, raw_blocks_dev,
+                            start_block, coherent=coherent,
+                            _collect=collect, feedback=feedback)
+        if envelope is not None:
+            env_c, env_v = envelope
+            collect = [(c[0] / env_c[None, :], c[1] / env_v[None, :],
+                        *c[2:]) for c in collect]
+        return self._survey_solve(collect, n_batches * blocks_per_fix,
+                                  fine_spacing, fine_n, vel_fine_spacing,
+                                  zoom_interp)
+
+    def _joint_argmax(self, win, los, centers, coefs, r0, off3, off1,
+                      interp: str | None = None):
+        """(argmax offsets, peak) of the joint multi-epoch surface."""
+        def f32(a):
+            return dpe_real_ops.to_device(
+                np.ascontiguousarray(a, np.float32), self.device)
+
+        best, arg = dpe_real_ops.score_joint_argmax(
+            f32(win), f32(los), f32(centers), f32(coefs),
+            f32(r0 if r0 is not None else np.zeros_like(centers)),
+            f32(off3), f32(np.broadcast_to(off1, off3.shape[:1])),
+            interp=interp or self.cfg.interp, l_power=self.cfg.l_power,
+            has_r0=r0 is not None)
+        a = int(arg)
+        return (np.asarray(off3[a], np.float64).copy(),
+                float(np.asarray(off1).reshape(-1)[a]
+                      if np.ndim(off1) else off1), float(best))
+
+    def _survey_solve(self, collect, n_blocks, fine_spacing, fine_n,
+                      vel_fine_spacing,
+                      zoom_interp: str | None = None) -> SurveyResult:
+        b_n = len(collect)
+        code_mag = np.stack([c[0] for c in collect])        # [B, C, Wc]
+        carr_mag = np.stack([c[1] for c in collect])        # [B, C, Wv]
+        fpk = np.stack([c[2] for c in collect]).astype(np.float64)
+        r_e2n = collect[-1][3]
+        rx_times = np.array([c[4] for c in collect])
+        xs = np.stack([c[5] for c in collect]).astype(np.float64)  # [B, 8]
+        t_ref = float(rx_times[-1])
+        x_ref = xs[-1].copy()
+        los = np.transpose(fpk[:, 3:6], (0, 2, 1))          # [B, C, 3]
+
+        # -- stage 1: joint velocity/drift (drift feeds the clock model) --
+        # re-reference each batch's centers to the common state: candidate
+        # v = x_ref + grid, so the displacement from batch b's prediction
+        # is R(x_ref - x_b) + grid; the batch part folds into the centers.
+        dvb = (x_ref[None, 4:7] - xs[:, 4:7]) @ r_e2n.T     # [B, 3] ENU
+        ddb = x_ref[7] - xs[:, 7]                           # [B]
+        vcen = fpk[:, 9] + fpk[:, 10] * (-np.einsum("bci,bi->bc", los, dvb)
+                                         + ddb[:, None])
+        dv3, dd1, vel_peak = self._joint_argmax(
+            carr_mag, los, vcen, fpk[:, 10], None,
+            self.grid.dv_enu, self.grid.dtdot)
+        # zoom: mid lattice covers the coarse grid's quantization cell,
+        # fine lattice resolves the final estimate
+        for sp in (4.0 * vel_fine_spacing, vel_fine_spacing):
+            ax_v = (np.arange(fine_n) - (fine_n - 1) / 2.0) * sp
+            off3v, off1v = _mesh4(ax_v, ax_v)
+            dv3, dd1, vel_peak = self._joint_argmax(
+                carr_mag, los, vcen, fpk[:, 10], None,
+                dv3[None, :] + off3v, dd1 + off1v, interp=zoom_interp)
+        d_hat = x_ref[7] + dd1                          # drift at reference
+
+        # -- stage 2: joint position/clock under the linear clock model --
+        # candidate clock at batch b: b_ref + d_hat*(t_b - t_ref) + grid
+        dpb = (x_ref[None, 0:3] - xs[:, 0:3]) @ r_e2n.T     # [B, 3] ENU
+        dbb = (x_ref[3] + d_hat * (rx_times - t_ref)) - xs[:, 3]
+        pcen = fpk[:, 7] + fpk[:, 8] * (-np.einsum("bci,bi->bc", los, dpb)
+                                        + dbb[:, None])
+        dp3, db1, pos_peak = self._joint_argmax(
+            code_mag, los, pcen, fpk[:, 8], fpk[:, 6],
+            self.grid.d_enu, self.grid.dt_m)
+        for sp in (4.0 * fine_spacing, fine_spacing):
+            ax_p = (np.arange(fine_n) - (fine_n - 1) / 2.0) * sp
+            off3p, off1p = _mesh4(ax_p, ax_p)
+            dp3, db1, pos_peak = self._joint_argmax(
+                code_mag, los, pcen, fpk[:, 8], fpk[:, 6],
+                dp3[None, :] + off3p, db1 + off1p, interp=zoom_interp)
+
+        # -- joint covariance: per-epoch Hessians/gradient noise summed --
+        hp = gp = hv = gv = 0.0
+        for b in range(b_n):
+            d_p = np.concatenate([dpb[b] + dp3, [dbb[b] + db1]])
+            h, g2 = self._surface_hess_gvar(code_mag[b], fpk[b, 7],
+                                            fpk[b, 8], los[b], d_p)
+            hp, gp = hp + h, gp + g2
+            d_v = np.concatenate([dvb[b] + dv3, [ddb[b] + dd1]])
+            h, g2 = self._surface_hess_gvar(carr_mag[b], fpk[b, 9],
+                                            fpk[b, 10], los[b], d_v)
+            hv, gv = hv + h, gv + g2
+
+        def _cov(h, g2, spacing):
+            try:
+                hinv = np.linalg.inv(h - 1e-9 * np.eye(4))
+                cov = hinv @ g2 @ hinv
+            except np.linalg.LinAlgError:
+                cov = np.full((4, 4), np.inf)
+            cov = 0.5 * (cov + cov.T) + (spacing ** 2 / 12.0) * np.eye(4)
+            return cov, np.sqrt(np.clip(np.diag(cov), 0.0, None))
+
+        cov_p, sig_p = _cov(hp, gp, fine_spacing)
+        cov_v, sig_v = _cov(hv, gv, vel_fine_spacing)
+        x = x_ref.copy()
+        x[0:3] += r_e2n.T @ dp3
+        x[3] += db1
+        x[4:7] += r_e2n.T @ dv3
+        x[7] += dd1
+        return SurveyResult(
+            x_ecef=x, t_ref=t_ref, n_blocks=n_blocks, n_batches=b_n,
+            pos_score=pos_peak, vel_score=vel_peak,
+            sigma_pos=sig_p, sigma_vel=sig_v, cov_pos=cov_p, cov_vel=cov_v,
+            d_enu_t=np.concatenate([dp3, [db1]]))
+
     def _check_batch_mode(self, raw_blocks_dev, start_block, n_blocks):
-        """Reject a device-resident capture the batched path cannot use,
-        instead of silently diverging: torch slicing of the capture would
-        silently truncate where it runs out."""
+        """Reject configurations the batched/integrated device paths do not
+        honor, instead of silently diverging from run(): score dumps, and a
+        device-resident capture they cannot use (torch slicing of the
+        capture would silently truncate where it runs out)."""
+        if self.cfg.dump_scores_to:
+            raise ValueError(
+                "dump_scores_to needs the per-block run() path (batched/"
+                "integrated modes never materialize the score surfaces)")
         if raw_blocks_dev is not None:
             if raw_blocks_dev.device != self.device:
                 raise ValueError(
@@ -850,7 +1506,8 @@ class DPEReceiver:
 
         raw_blocks_dev: optional int16 capture [B, S, 2] on the receiver's
         device covering blocks start_block..; if None, blocks are read from
-        the SampleFile and uploaded per batch.
+        the SampleFile by a read-ahead thread and uploaded per batch
+        (`_RawPrefetcher`).
 
         group_k > 1: coherent-grouped fixes — each group of group_k
         consecutive blocks is coherently summed on the device before
@@ -867,16 +1524,26 @@ class DPEReceiver:
         while left > 0:
             sizes.append(min(lookahead, left))
             left -= sizes[-1]
-        done = 0
-        depth = max(1, int(pipeline_depth)) if pipeline else 0
-        pending = deque()
-        for n in sizes:
-            pending.append(self._dispatch_batch(n, raw_blocks_dev,
-                                                start_block, done,
-                                                group_k=group_k))
-            done += n
-            if len(pending) > depth:
+        # file-based streaming: a reader thread stages batch k+1's samples
+        # on the device while batch k computes
+        prefetch = (_RawPrefetcher(self.rawfile, sizes, self.device)
+                    if raw_blocks_dev is None else None)
+        try:
+            done = 0
+            depth = max(1, int(pipeline_depth)) if pipeline else 0
+            pending = deque()
+            for n in sizes:
+                staged = prefetch.get() if prefetch is not None else None
+                pending.append(self._dispatch_batch(n, raw_blocks_dev,
+                                                    start_block, done,
+                                                    raw_staged=staged,
+                                                    group_k=group_k))
+                done += n
+                if len(pending) > depth:
+                    self._drain_batch(*pending.popleft(), group_k=group_k)
+            while pending:
                 self._drain_batch(*pending.popleft(), group_k=group_k)
-        while pending:
-            self._drain_batch(*pending.popleft(), group_k=group_k)
-        return self.fixes
+            return self.fixes
+        finally:
+            if prefetch is not None:
+                prefetch.close()

@@ -1,5 +1,6 @@
 // Manifold scoring for Hopper (sm_90a): the streaming argmax over a whole
-// grid (K1) and the full score surface of a block (K2), one kernel.
+// grid (K1), per block or of the scores summed over all blocks, and the
+// full score surface of a block (K2), one kernel.
 //
 // K1 replaces the TPU kernel navlab_dpe_sdr_tpu/ops/pallas_score.py
 // _chunk_kernel / score_chunk_pallas, and the XLA scorer the JAX product
@@ -7,7 +8,10 @@
 // _local_argmax_scan). K2 replaces _score_kernel / score_manifold_pallas of
 // the same file: the per-block step's [G] scores (ops/dpe_real.py
 // score_manifolds_mag), which the score-weighted mean and the score dumps
-// need whole. For block n and grid point g (offsets o3 [G, 3], o1 [G]):
+// need whole. The block-summed modes replace what the JAX package leaves to
+// XLA around the same scorer (ops/dpe_real.py _score_axis_accumulate ->
+// _local_argmax_scan(block_sum=True): integrated DPE and the multi-epoch
+// survey solve). For block n and grid point g (offsets o3 [G, 3], o1 [G]):
 //
 //   u_c   = los[n, c] . o3[g]
 //   idx_c = center[n, c] + coef[n, c] * (-u_c + (|o3|^2 - u_c^2) * h[n, c]
@@ -19,9 +23,13 @@
 // evaluated as a_k + d (b_k + d c_k), d = idx - k, a_k = win[k],
 // b_k = (win[k+1] - win[k-1]) / 2, c_k = (win[k+1] + win[k-1]) / 2 - win[k]
 // ("quadratic"), or hat weights on floor(idx), floor(idx)+1 inside
-// [0, W-1] ("linear"). Out: best[n] = max_g s, arg[n] = the first g at that
-// max; when weighted the sums of s*[o3, o1] (wsum4[n, 4]) and of s
-// (wtot[n]); in surface mode also every s (surface[n, g]).
+// [0, W-1] ("linear"), or sum_k win[k] sinc(idx - k) over the whole window,
+// no clamp ("sinc": sinpif(x) / (pi x), 1 at x = 0). Out: best[n] = max_g s,
+// arg[n] = the first g at that max; when weighted the sums of s*[o3, o1]
+// (wsum4[n, 4]) and of s (wtot[n]); in surface mode also every s
+// (surface[n, g]). In the block-summed modes S(g) = sum_n s(n, g), added in
+// f32 in ascending n, takes the place of s, and the outputs are one slot:
+// best[0], arg[0], wsum4[0, 4], wtot[0].
 //
 // What bounds it on the card: f32 instruction rate and, beside it, the
 // shared-memory reads, not device memory. The main path's 390 625-point
@@ -67,6 +75,16 @@
 //   (f64, no floating atomics: the same bits run to run), and both scratch
 //   words go back to zero for the next launch. No second kernel, no memset,
 //   and no barrier beyond the two of a batch (staged; scored).
+// - Block-summed modes: one share holds all of N (gridDim.y = 1), a thread's
+//   kP sums stay in registers across every batch, and the reduction above
+//   runs once, after the last batch, into slot 0. N is not split over
+//   thread blocks: floating atomics would lose the order of the sum, and
+//   with it bit-equality with the plain version and repeatability. With no
+//   second grid axis the tiles alone must fill the card; four points a
+//   thread still won over two and one at every shape read, down to the 382
+//   tiles of a 390 625-point grid, so kP stays 4 (make_plan).
+// - sinc reads the window as staged for "linear" (W floats a channel) and
+//   loops over all W taps; its l_power is a run-time argument.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -82,7 +100,12 @@ constexpr int kBatchBytes = 48 * 1024;        // staging budget: no opt-in, >= 4
 constexpr int kMaxDynShared = 200 * 1024;     // the widest single block n accepted
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Mode { kArgmax = 0, kWeighted = 1, kSurface = 2 };
+enum Mode { kArgmax = 0, kWeighted = 1, kSurface = 2, kSumArgmax = 3, kSumWeighted = 4 };
+enum Interp { kQuadratic = 0, kLinear = 1, kSinc = 2 };
+
+__host__ __device__ constexpr bool sums_blocks(int mode) { return mode == kSumArgmax || mode == kSumWeighted; }
+__host__ __device__ constexpr bool is_weighted(int mode) { return mode == kWeighted || mode == kSumWeighted; }
+constexpr float kPi = 3.14159265358979323846f;
 
 struct Args {
   const float* win;      // [N, C, W] contiguous
@@ -96,13 +119,14 @@ struct Args {
   int n_blocks, n_chan, width, n_grid, l_power;
   int n_per_share, n_batch;
   float* surface;                // [N, G] (surface mode)
+  // below, N is 1 in the block-summed modes
   unsigned long long* packed;    // [N] scratch, zero between launches
   unsigned int* ticket;          // [N] scratch, zero between launches
-  double* part_w;                // [N, tiles, 5] scratch (weighted mode)
+  double* part_w;                // [N, tiles, 5] scratch (weighted modes)
   float* best;                   // [N]
   int* arg;                      // [N]
-  float* wsum4;                  // [N, 4] (weighted mode)
-  float* wtot;                   // [N]    (weighted mode)
+  float* wsum4;                  // [N, 4] (weighted modes)
+  float* wtot;                   // [N]    (weighted modes)
 };
 
 // Order-preserving map of a float onto an unsigned integer, and back.
@@ -117,7 +141,7 @@ __device__ __forceinline__ float key_value(unsigned k) {
 
 // One channel's interpolated window value at one grid point, to l_power:
 // the f32 operations of ops/score.py score_points, in their order.
-template <bool kQuad, bool kLinear, int kLP>
+template <bool kQuad, int kInterp, int kLP>
 __device__ __forceinline__ float channel_score(const float4 pa, const float4 pb,
                                                const float* __restrict__ taps,
                                                int width, int l_power, float x,
@@ -126,7 +150,14 @@ __device__ __forceinline__ float channel_score(const float4 pa, const float4 pb,
   const float rng = kQuad ? -u + (d2 - u * u) * pa.w : -u;
   const float idx = pb.x + pb.y * (rng + t);
   float v;
-  if (kLinear) {
+  if (kInterp == kSinc) {
+    v = 0.0f;
+    for (int k = 0; k < width; ++k) {
+      const float d = idx - (float)k;
+      const float s = d == 0.0f ? 1.0f : sinpif(d) / (kPi * d);
+      v += taps[k] * s;
+    }
+  } else if (kInterp == kLinear) {
     const float wmax = (float)(width - 1);
     const float k0 = floorf(idx);
     const float k1 = k0 + 1.0f;
@@ -147,7 +178,7 @@ __device__ __forceinline__ float channel_score(const float4 pa, const float4 pb,
 }
 
 // Parameters and windows of blocks n0 .. n0+nb-1 into shared memory.
-template <bool kQuad, bool kLinear>
+template <bool kQuad, int kInterp>
 __device__ __forceinline__ void stage_batch(const Args& a, int n0, int nb,
                                             float* s_par, float* s_tap) {
   const int C = a.n_chan, W = a.width;
@@ -163,7 +194,7 @@ __device__ __forceinline__ void stage_batch(const Args& a, int n0, int nb,
                                   0.0f, 0.0f);
   }
   const float* w = a.win + (size_t)n0 * C * W;
-  if (kLinear) {
+  if (kInterp != kQuadratic) {
     for (int i = threadIdx.x; i < nb * C * W; i += kThreads) s_tap[i] = w[i];
   } else {
     // two rounds of loads in flight before the first store
@@ -220,25 +251,124 @@ __device__ __forceinline__ void load_points(const float* __restrict__ off3,
   }
 }
 
-template <bool kQuad, bool kLinear, int kP, int kLP, int kMode>
+// The first maximum of a thread's kP values and of its warp, parked in slot
+// `slot` of s_red; in the weighted modes also the warp's f64 sums of
+// value * [x, y, z, t] and of the values, in s_w.
+template <int kP, int kMode>
+__device__ __forceinline__ void park_slot(const float (&acc)[kP], const float (&x)[kP],
+                                          const float (&y)[kP], const float (&z)[kP],
+                                          const float (&t)[kP], int g0, int G, int slot,
+                                          unsigned long long* s_red, double* s_w) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  unsigned key = 0u, idx = kFull;
+  if (g0 < G) {
+    float b = acc[0];
+    int bj = 0;
+#pragma unroll
+    for (int j = 1; j < kP; ++j)
+      if (g0 + j < G && acc[j] > b) {
+        b = acc[j];
+        bj = j;
+      }
+    key = ordered_key(b + 0.0f);      // -0 scores as +0, as in a comparison
+    idx = (unsigned)(g0 + bj);
+  }
+  const unsigned kmax = __reduce_max_sync(kFull, key);
+  const unsigned imin = __reduce_min_sync(kFull, key == kmax ? idx : kFull);
+  if (lane == 0) s_red[slot * kWarps + warp] = ((unsigned long long)kmax << 32) | (~imin);
+
+  if (is_weighted(kMode)) {
+    double w[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+    for (int j = 0; j < kP; ++j)
+      if (g0 + j < G) {
+        w[0] += (double)acc[j] * x[j];
+        w[1] += (double)acc[j] * y[j];
+        w[2] += (double)acc[j] * z[j];
+        w[3] += (double)acc[j] * t[j];
+        w[4] += (double)acc[j];
+      }
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+      for (int off = 16; off > 0; off >>= 1) w[q] += __shfl_down_sync(kFull, w[q], off);
+      if (lane == 0) s_w[(slot * kWarps + warp) * 5 + q] = w[q];
+    }
+  }
+}
+
+// Warp 0, after the barrier that follows park_slot: lane i < nb folds the
+// warps' pairs of slot i into output slot n0 + i (one atomicMax, the
+// weighted partials of this tile, a ticket), and the tile that arrives last
+// writes the slot's outputs and zeroes its scratch.
+template <int kMode>
+__device__ __forceinline__ void publish_slots(const Args& a, int n0, int nb,
+                                              const unsigned long long* s_red,
+                                              const double* s_w) {
+  const int lane = threadIdx.x % 32;
+  const int n = n0 + lane;
+  bool last = false;
+  if (lane < nb) {
+    unsigned long long m = s_red[lane * kWarps];
+    for (int wv = 1; wv < kWarps; ++wv) m = max(m, s_red[lane * kWarps + wv]);
+    atomicMax(a.packed + n, m);
+    if (is_weighted(kMode)) {
+      double* pw = a.part_w + ((size_t)n * gridDim.x + blockIdx.x) * 5;
+      for (int q = 0; q < 5; ++q) {
+        double s = s_w[lane * kWarps * 5 + q];
+        for (int wv = 1; wv < kWarps; ++wv) s += s_w[(lane * kWarps + wv) * 5 + q];
+        pw[q] = s;
+      }
+    }
+    __threadfence();
+    last = atomicAdd(a.ticket + n, 1u) == gridDim.x - 1u;
+    if (last) {                          // every tile of slot n has arrived
+      __threadfence();
+      const unsigned long long best = atomicExch(a.packed + n, 0ull);
+      a.ticket[n] = 0u;
+      a.best[n] = key_value((unsigned)(best >> 32));
+      a.arg[n] = (int)(~(unsigned)(best & 0xffffffffull));
+    }
+  }
+  if (is_weighted(kMode)) {
+    // the weighted sums of each finished slot: lane q sums component q
+    unsigned done = __ballot_sync(kFull, last);
+    __syncwarp();
+    while (done) {
+      const int i = __ffs(done) - 1;
+      done &= done - 1;
+      if (lane < 5) {
+        const double* pw = a.part_w + (size_t)(n0 + i) * gridDim.x * 5 + lane;
+        double s = 0.0;
+        for (unsigned tile = 0; tile < gridDim.x; ++tile) s += __ldcg(pw + (size_t)tile * 5);
+        if (lane < 4) a.wsum4[(n0 + i) * 4 + lane] = (float)s;
+        else a.wtot[n0 + i] = (float)s;
+      }
+    }
+  }
+}
+
+template <bool kQuad, int kInterp, int kP, int kLP, int kMode>
 __global__ void __launch_bounds__(kThreads) score_kernel(const Args a) {
   // dynamic shared memory: [red: n_batch * kWarps u64]
   // [wsum: n_batch * kWarps * 5 f64, weighted only] [par] [taps]
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = a.n_chan, W = a.width, G = a.n_grid;
-  const int tapf = kLinear ? W : 4 * W;
+  const int tapf = kInterp == kQuadratic ? 4 * W : W;
   unsigned long long* s_red = reinterpret_cast<unsigned long long*>(smem_raw);
   double* s_w = reinterpret_cast<double*>(s_red + a.n_batch * kWarps);
   float* s_par = reinterpret_cast<float*>(
-      s_w + (kMode == kWeighted ? a.n_batch * kWarps * 5 : 0));
+      s_w + (is_weighted(kMode) ? a.n_batch * kWarps * 5 : 0));
   float* s_tap = s_par + a.n_batch * C * kParF;
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g0 = (blockIdx.x * kThreads + threadIdx.x) * kP;
   float x[kP], y[kP], z[kP], t[kP], d2[kP];
   load_points<kP>(a.off3, a.off1, g0, G, x, y, z, t);
 #pragma unroll
   for (int j = 0; j < kP; ++j) d2[j] = x[j] * x[j] + y[j] * y[j] + z[j] * z[j];
+
+  float total[kP];                           // block-summed modes: S(g)
+#pragma unroll
+  for (int j = 0; j < kP; ++j) total[j] = 0.0f;
 
   const int n_begin = blockIdx.y * a.n_per_share;
   const int n_end = min(a.n_blocks, n_begin + a.n_per_share);
@@ -246,7 +376,7 @@ __global__ void __launch_bounds__(kThreads) score_kernel(const Args a) {
     const int nb = min(a.n_batch, n_end - n0);
     // no barrier before restaging: every thread read the last batch's
     // windows for the last time before the barrier that ended its scoring
-    stage_batch<kQuad, kLinear>(a, n0, nb, s_par, s_tap);
+    stage_batch<kQuad, kInterp>(a, n0, nb, s_par, s_tap);
     __syncthreads();
 
     for (int i = 0; i < nb; ++i) {
@@ -260,8 +390,14 @@ __global__ void __launch_bounds__(kThreads) score_kernel(const Args a) {
         const float* tc = taps + c * tapf;
 #pragma unroll
         for (int j = 0; j < kP; ++j)
-          acc[j] += channel_score<kQuad, kLinear, kLP>(pa, pb, tc, W, a.l_power, x[j],
+          acc[j] += channel_score<kQuad, kInterp, kLP>(pa, pb, tc, W, a.l_power, x[j],
                                                        y[j], z[j], t[j], d2[j]);
+      }
+
+      if (sums_blocks(kMode)) {              // one f32 add per block, ascending n
+#pragma unroll
+        for (int j = 0; j < kP; ++j) total[j] += acc[j];
+        continue;
       }
 
       if (kMode == kSurface) {
@@ -275,88 +411,18 @@ __global__ void __launch_bounds__(kThreads) score_kernel(const Args a) {
             if (g0 + j < G) out[j] = acc[j];
         }
       }
-
-      // first maximum of the thread's points, then of the warp
-      unsigned key = 0u, idx = kFull;
-      if (g0 < G) {
-        float b = acc[0];
-        int bj = 0;
-#pragma unroll
-        for (int j = 1; j < kP; ++j)
-          if (g0 + j < G && acc[j] > b) {
-            b = acc[j];
-            bj = j;
-          }
-        key = ordered_key(b + 0.0f);      // -0 scores as +0, as in a comparison
-        idx = (unsigned)(g0 + bj);
-      }
-      const unsigned kmax = __reduce_max_sync(kFull, key);
-      const unsigned imin = __reduce_min_sync(kFull, key == kmax ? idx : kFull);
-      if (lane == 0) s_red[i * kWarps + warp] = ((unsigned long long)kmax << 32) | (~imin);
-
-      if (kMode == kWeighted) {
-        double w[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
-#pragma unroll
-        for (int j = 0; j < kP; ++j)
-          if (g0 + j < G) {
-            w[0] += (double)acc[j] * x[j];
-            w[1] += (double)acc[j] * y[j];
-            w[2] += (double)acc[j] * z[j];
-            w[3] += (double)acc[j] * t[j];
-            w[4] += (double)acc[j];
-          }
-#pragma unroll
-        for (int q = 0; q < 5; ++q) {
-          for (int off = 16; off > 0; off >>= 1) w[q] += __shfl_down_sync(kFull, w[q], off);
-          if (lane == 0) s_w[(i * kWarps + warp) * 5 + q] = w[q];
-        }
-      }
+      park_slot<kP, kMode>(acc, x, y, z, t, g0, G, i, s_red, s_w);
     }
 
     __syncthreads();                         // every warp's pairs are parked
-    if (warp == 0) {
-      // lane i < nb (nb <= 32) owns block n0 + i of the batch
-      const int n = n0 + lane;
-      bool last = false;
-      if (lane < nb) {
-        unsigned long long m = s_red[lane * kWarps];
-        for (int wv = 1; wv < kWarps; ++wv) m = max(m, s_red[lane * kWarps + wv]);
-        atomicMax(a.packed + n, m);
-        if (kMode == kWeighted) {
-          double* pw = a.part_w + ((size_t)n * gridDim.x + blockIdx.x) * 5;
-          for (int q = 0; q < 5; ++q) {
-            double s = s_w[lane * kWarps * 5 + q];
-            for (int wv = 1; wv < kWarps; ++wv) s += s_w[(lane * kWarps + wv) * 5 + q];
-            pw[q] = s;
-          }
-        }
-        __threadfence();
-        last = atomicAdd(a.ticket + n, 1u) == gridDim.x - 1u;
-        if (last) {                          // every tile of block n has arrived
-          __threadfence();
-          const unsigned long long best = atomicExch(a.packed + n, 0ull);
-          a.ticket[n] = 0u;
-          a.best[n] = key_value((unsigned)(best >> 32));
-          a.arg[n] = (int)(~(unsigned)(best & 0xffffffffull));
-        }
-      }
-      if (kMode == kWeighted) {
-        // the weighted sums of each finished block n: lane q sums component q
-        unsigned done = __ballot_sync(kFull, last);
-        __syncwarp();
-        while (done) {
-          const int i = __ffs(done) - 1;
-          done &= done - 1;
-          if (lane < 5) {
-            const double* pw = a.part_w + (size_t)(n0 + i) * gridDim.x * 5 + lane;
-            double s = 0.0;
-            for (unsigned tile = 0; tile < gridDim.x; ++tile) s += __ldcg(pw + (size_t)tile * 5);
-            if (lane < 4) a.wsum4[(n0 + i) * 4 + lane] = (float)s;
-            else a.wtot[n0 + i] = (float)s;
-          }
-        }
-      }
-    }
+    if (!sums_blocks(kMode) && threadIdx.x < 32)
+      publish_slots<kMode>(a, n0, nb, s_red, s_w);   // lane i owns block n0 + i
+  }
+
+  if (sums_blocks(kMode)) {
+    park_slot<kP, kMode>(total, x, y, z, t, g0, G, 0, s_red, s_w);
+    __syncthreads();
+    if (threadIdx.x < 32) publish_slots<kMode>(a, 0, 1, s_red, s_w);
   }
 }
 
@@ -370,69 +436,81 @@ struct Plan {
   size_t smem;
 };
 
-size_t batch_bytes(int n_batch, int n_chan, int width, bool linear, bool weighted) {
-  const size_t tapf = linear ? width : 4 * (size_t)width;
+size_t batch_bytes(int n_batch, int n_chan, int width, int interp, bool weighted) {
+  const size_t tapf = interp == kQuadratic ? 4 * (size_t)width : width;
   return (size_t)n_batch * (kWarps * 8 * (weighted ? 6 : 1) +
                             (size_t)n_chan * (tapf + kParF) * sizeof(float));
 }
 
-Plan make_plan(int n_blocks, int n_chan, int width, int n_grid, bool linear,
-               bool weighted, bool aligned, int sm_count) {
+// points: 0 lets the plan choose; 4 or 1 fixes it.
+Plan make_plan(int n_blocks, int n_chan, int width, int n_grid, int interp,
+               int mode, bool aligned, int sm_count, int points) {
   Plan p;
+  const bool sum = sums_blocks(mode), weighted = is_weighted(mode);
   const long fill = 16L * sm_count;     // thread blocks for ~4 waves at 4 per SM
   // four points a thread wherever their 16-byte loads are aligned
-  p.points = aligned ? 4 : 1;
+  p.points = aligned && points != 1 ? 4 : 1;
   p.tiles = (int)(((long)n_grid + (long)p.points * kThreads - 1) / ((long)p.points * kThreads));
-  long shares = (fill + p.tiles - 1) / p.tiles;
+  long shares = sum ? 1 : (fill + p.tiles - 1) / p.tiles;
   if (shares > n_blocks) shares = n_blocks;
   if (shares < 1) shares = 1;
   p.n_per_share = (int)((n_blocks + shares - 1) / shares);
   p.shares = (n_blocks + p.n_per_share - 1) / p.n_per_share;
-  const size_t one = batch_bytes(1, n_chan, width, linear, weighted);
+  const size_t one = batch_bytes(1, n_chan, width, interp, weighted);
   long cap = (long)(kBatchBytes / one);
   if (cap > kMaxBatch) cap = kMaxBatch;
   if (cap < 1) cap = 1;
   const long rounds = (p.n_per_share + cap - 1) / cap;      // batches per share, evened out
   p.n_batch = (int)((p.n_per_share + rounds - 1) / rounds);
-  p.smem = batch_bytes(p.n_batch, n_chan, width, linear, weighted);
+  p.smem = batch_bytes(p.n_batch, n_chan, width, interp, weighted);
   return p;
 }
 
-template <bool kQuad, bool kLinear, int kP, int kLP, int kMode>
+template <bool kQuad, int kInterp, int kP, int kLP, int kMode>
 cudaError_t launch_one(const Args& a, const Plan& p, cudaStream_t s) {
   static size_t allowed = 48 * 1024;    // dynamic shared memory granted so far
   if (p.smem > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
-        score_kernel<kQuad, kLinear, kP, kLP, kMode>,
+        score_kernel<kQuad, kInterp, kP, kLP, kMode>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (e != cudaSuccess) return e;
     allowed = p.smem;
   }
-  score_kernel<kQuad, kLinear, kP, kLP, kMode>
+  score_kernel<kQuad, kInterp, kP, kLP, kMode>
       <<<dim3(p.tiles, p.shares), kThreads, p.smem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <bool kQuad, bool kLinear, int kP, int kLP>
+template <bool kQuad, int kInterp, int kP, int kLP>
 cudaError_t launch_mode(int mode, const Args& a, const Plan& p, cudaStream_t s) {
   switch (mode) {
-    case kArgmax: return launch_one<kQuad, kLinear, kP, kLP, kArgmax>(a, p, s);
-    case kWeighted: return launch_one<kQuad, kLinear, kP, kLP, kWeighted>(a, p, s);
-    default: return launch_one<kQuad, kLinear, kP, kLP, kSurface>(a, p, s);
+    case kArgmax: return launch_one<kQuad, kInterp, kP, kLP, kArgmax>(a, p, s);
+    case kWeighted: return launch_one<kQuad, kInterp, kP, kLP, kWeighted>(a, p, s);
+    case kSurface: return launch_one<kQuad, kInterp, kP, kLP, kSurface>(a, p, s);
+    case kSumArgmax: return launch_one<kQuad, kInterp, kP, kLP, kSumArgmax>(a, p, s);
+    default: return launch_one<kQuad, kInterp, kP, kLP, kSumWeighted>(a, p, s);
   }
 }
 
-template <bool kQuad, bool kLinear, int kP>
-cudaError_t launch_power(int mode, const Args& a, const Plan& p, cudaStream_t s) {
-  if (a.l_power == 1) return launch_mode<kQuad, kLinear, kP, 1>(mode, a, p, s);
-  if (a.l_power == 2) return launch_mode<kQuad, kLinear, kP, 2>(mode, a, p, s);
-  return launch_mode<kQuad, kLinear, kP, 0>(mode, a, p, s);
+template <bool kQuad, int kInterp, int kLP>
+cudaError_t launch_points(int mode, const Args& a, const Plan& p, cudaStream_t s) {
+  if (p.points == 4) return launch_mode<kQuad, kInterp, 4, kLP>(mode, a, p, s);
+  return launch_mode<kQuad, kInterp, 1, kLP>(mode, a, p, s);
 }
 
-template <bool kQuad, bool kLinear>
-cudaError_t launch_points(int mode, const Args& a, const Plan& p, cudaStream_t s) {
-  if (p.points == 4) return launch_power<kQuad, kLinear, 4>(mode, a, p, s);
-  return launch_power<kQuad, kLinear, 1>(mode, a, p, s);
+// l_power 1 and 2 are compiled in for the 3-tap and hat interpolations;
+// sinc, whose W taps a point-channel dwarf the power, reads it at run time.
+template <bool kQuad>
+cudaError_t launch_interp(int interp, int mode, const Args& a, const Plan& p, cudaStream_t s) {
+  if (interp == kSinc) return launch_points<kQuad, kSinc, 0>(mode, a, p, s);
+  if (interp == kLinear) {
+    if (a.l_power == 1) return launch_points<kQuad, kLinear, 1>(mode, a, p, s);
+    if (a.l_power == 2) return launch_points<kQuad, kLinear, 2>(mode, a, p, s);
+    return launch_points<kQuad, kLinear, 0>(mode, a, p, s);
+  }
+  if (a.l_power == 1) return launch_points<kQuad, kQuadratic, 1>(mode, a, p, s);
+  if (a.l_power == 2) return launch_points<kQuad, kQuadratic, 2>(mode, a, p, s);
+  return launch_points<kQuad, kQuadratic, 0>(mode, a, p, s);
 }
 
 }  // namespace
@@ -443,47 +521,52 @@ extern "C" {
 // parameters and the reduction's slots): the caller's limit check.
 int score_max_shared() { return kMaxDynShared; }
 
-// Bytes of shared memory one block n needs at this shape.
-long long score_shared_bytes(int n_chan, int width, int linear, int weighted) {
-  return (long long)batch_bytes(1, n_chan, width, linear != 0, weighted != 0);
+// Bytes of shared memory one block n needs at this shape (interp: 0
+// quadratic, 1 linear, 2 sinc).
+long long score_shared_bytes(int n_chan, int width, int interp, int weighted) {
+  return (long long)batch_bytes(1, n_chan, width, interp, weighted != 0);
 }
 
 // Tiles (thread blocks along the grid) of a launch at this shape: the
-// caller sizes the weighted partials [N, tiles, 5] with it.
-int score_tiles(int n_blocks, int n_chan, int width, int n_grid, int linear,
-                int weighted, int aligned, int sm_count) {
-  return make_plan(n_blocks, n_chan, width, n_grid, linear != 0, weighted != 0,
-                   aligned != 0, sm_count).tiles;
+// caller sizes the weighted partials [slots, tiles, 5] with it.
+int score_tiles(int n_blocks, int n_chan, int width, int n_grid, int interp,
+                int mode, int aligned, int sm_count, int points) {
+  return make_plan(n_blocks, n_chan, width, n_grid, interp, mode, aligned != 0,
+                   sm_count, points).tiles;
 }
 
 // Enqueues one kernel on `stream`; allocates nothing and does not
 // synchronize. mode: 0 argmax (best, arg), 1 weighted (+ wsum4, wtot; needs
-// part_w), 2 surface (+ surface [N, G]). r0 == NULL selects the velocity
+// part_w), 2 surface (+ surface [N, G]), 3 and 4 as 0 and 1 of the scores
+// summed over the N blocks (one output slot). interp: 0 quadratic, 1 linear,
+// 2 sinc. points: 0, or the points a thread owns (4 or 1) for a timing of
+// the alternative. r0 == NULL selects the velocity
 // manifold (no curvature term). los/centers/coefs/r0 are read by element
 // strides (los n, c, j; centers n, c; coefs n, c; r0 n, c); win, off3 and
-// off1 are contiguous. packed [N] and ticket [N] are scratch that
-// must be zero at the first launch and is left zero by every launch that
-// runs to its end; launches sharing it must be ordered on one stream.
-// Returns cudaGetLastError() after the launch (0 on success).
+// off1 are contiguous. packed and ticket (one entry per output slot) are
+// scratch that must be zero at the first launch and is left zero by every
+// launch that runs to its end; launches sharing it must be ordered on one
+// stream. Returns cudaGetLastError() after the launch (0 on success).
 int score_launch(const float* win, const float* los, const float* centers,
                  const float* coefs, const float* r0, const float* off3,
                  const float* off1, int los_sn, int los_sc, int los_sj,
                  int cen_sn, int cen_sc, int coef_sn, int coef_sc, int r0_sn,
                  int r0_sc, int n_blocks, int n_chan, int width, int n_grid,
-                 int linear, int l_power, int mode, int sm_count, float* surface, unsigned long long* packed,
+                 int interp, int l_power, int mode, int sm_count, int points,
+                 float* surface, unsigned long long* packed,
                  unsigned int* ticket, double* part_w, float* best, int* arg,
                  float* wsum4, float* wtot, void* stream) {
   if (n_blocks <= 0 || n_blocks > 65535 || n_chan <= 0 || n_grid <= 0 ||
-      l_power < 1 || width < (linear ? 1 : 3) || mode < 0 || mode > 2 ||
+      l_power < 1 || interp < 0 || interp > kSinc ||
+      width < (interp == kQuadratic ? 3 : 1) || mode < 0 || mode > kSumWeighted ||
       sm_count <= 0)
     return (int)cudaErrorInvalidValue;
-  const bool weighted = mode == kWeighted;
-  if (batch_bytes(1, n_chan, width, linear != 0, weighted) > (size_t)kMaxDynShared)
+  if (batch_bytes(1, n_chan, width, interp, is_weighted(mode)) > (size_t)kMaxDynShared)
     return (int)cudaErrorInvalidValue;
   const bool aligned = (reinterpret_cast<uintptr_t>(off3) & 15) == 0 &&
                        (reinterpret_cast<uintptr_t>(off1) & 15) == 0;
-  const Plan p = make_plan(n_blocks, n_chan, width, n_grid, linear != 0, weighted,
-                           aligned, sm_count);
+  const Plan p = make_plan(n_blocks, n_chan, width, n_grid, interp, mode, aligned,
+                           sm_count, points);
   Args a;
   a.win = win; a.los = los; a.centers = centers; a.coefs = coefs; a.r0 = r0;
   a.off3 = off3; a.off1 = off1;
@@ -496,12 +579,8 @@ int score_launch(const float* win, const float* los, const float* centers,
   a.surface = surface; a.packed = packed; a.ticket = ticket; a.part_w = part_w;
   a.best = best; a.arg = arg; a.wsum4 = wsum4; a.wtot = wtot;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool quad = r0 != nullptr;
-  cudaError_t e;
-  if (quad && linear) e = launch_points<true, true>(mode, a, p, s);
-  else if (quad) e = launch_points<true, false>(mode, a, p, s);
-  else if (linear) e = launch_points<false, true>(mode, a, p, s);
-  else e = launch_points<false, false>(mode, a, p, s);
+  const cudaError_t e = r0 != nullptr ? launch_interp<true>(interp, mode, a, p, s)
+                                      : launch_interp<false>(interp, mode, a, p, s);
   return (int)e;
 }
 

@@ -3,7 +3,10 @@
 Port of navlab_dpe_sdr_tpu/ops/dpe_real.py: the windowed code correlation
 (per-code-period folds, the nav-bit tail fold and its exact boundary arc,
 lag windows) and the windowed carrier DFT, then manifold scoring with a
-streaming argmax (ops/score.py), batched over N blocks in one call.
+streaming argmax (ops/score.py), batched over N blocks in one call, per
+block (`dpe_batch_blocks`) or integrated over the batch
+(`dpe_scan_integrate`), and the multi-epoch joint argmax of the survey
+solve (`score_joint_argmax`).
 
 Differences from the JAX module, all in form, not in result:
 - the block axis N is written out instead of the vmap in `_batch_correlate`;
@@ -31,7 +34,7 @@ import torch.nn.functional as F
 from ..constants import L_CA
 
 from .dpe import CARR_WIN, CODE_WIN, ManifoldParams
-from .score import score_argmax, score_surface_argmax
+from .score import INTERP_MODES, score_argmax, score_surface_argmax
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -486,3 +489,64 @@ def dpe_batch_blocks(raw_all_i16, pk: np.ndarray, chips, time_idc,
     wmean = weighted_cols(pres, vres) if weighted else None
     return pack_rows(out, pres[1], pres[0], vres[1], vres[0],
                      return_windows, wmean=wmean)
+
+
+def dpe_scan_integrate(raw_all_i16, pk: np.ndarray, chips, time_idc,
+                       d_enu, dt_m, dv_enu, dtdot, carr_fftpts: int,
+                       period: int, n_periods: int, n_blocks: int,
+                       l_power: int = 1, interp: str = "quadratic",
+                       code_win: int = CODE_WIN, carr_win: int = CARR_WIN,
+                       coherent: bool = False, return_windows: bool = False,
+                       use_argmax: bool = True):
+    """Multi-block score integration in one dispatch (JAX
+    `dpe_scan_integrate` without a mesh): one argmax per batch of n_blocks.
+
+    Noncoherent: the score surfaces of all blocks are summed per grid point
+    inside the scorer (`score_argmax(block_sum=True)`; no [N, G] surface
+    exists). Coherent: the complex windows are summed over the batch with
+    data-aided nav-bit alignment (`coherent_sum`) and scored once, with the
+    last block's geometry. Returns (head, flips [N, C] bool[, code_mag
+    [C, Wc], carr_mag [C, Wv]]): head [4] f32 is (pos argmax bitcast, pos
+    peak, vel argmax bitcast, vel peak), 12 long with the weighted-mean
+    offsets of the integrated surfaces when use_argmax is False; with
+    return_windows the windows summed over the batch."""
+    start = int(pk[0, START_ROW, 0])
+    fpk, ipk = unpack_params(to_device(pk, raw_all_i16.device))
+    out = batch_correlate(raw_all_i16, start, fpk, ipk, chips, time_idc,
+                          carr_fftpts, period, n_periods, n_blocks, code_win,
+                          carr_win, complex_out=coherent)
+    flips = out.flip_used
+    if coherent:
+        out = coherent_sum(RealBlockOutC(*(x[None] for x in out)))
+        fpk = fpk[-1:]
+    los_enu = fpk[:, 3:6].transpose(1, 2)
+    weighted = not use_argmax
+    pres = score_argmax(out.code_mag, los_enu, fpk[:, 7], fpk[:, 8],
+                        fpk[:, 6], d_enu, dt_m, interp=interp,
+                        l_power=l_power, weighted=weighted, block_sum=True)
+    vres = score_argmax(out.carr_mag, los_enu, fpk[:, 9], fpk[:, 10], None,
+                        dv_enu, dtdot, interp=interp, l_power=l_power,
+                        weighted=weighted, block_sum=True)
+    # the indices are bitcast, never value-converted: a dense manifold has
+    # more points than float32 counts exactly
+    head = torch.stack([pres[1].view(torch.float32), pres[0],
+                        vres[1].view(torch.float32), vres[0]])
+    if weighted:
+        head = torch.cat([head, weighted_cols(pres, vres)])
+    if return_windows:
+        return head, flips, out.code_mag.sum(dim=0), out.carr_mag.sum(dim=0)
+    return head, flips
+
+
+def score_joint_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
+                       interp: str = "quadratic", l_power: int = 1,
+                       has_r0: bool = True):
+    """Multi-epoch joint (max, argmax): one candidate state scored against
+    many epochs' integrated windows, each with its own geometry (JAX
+    `score_joint_argmax` without a mesh). The epoch axis is the scorer's
+    block axis: win_mag [B, C, W], los_enu [B, C, 3], centers/coefs/r0
+    [B, C]; off3 [G, 3], off1 [G] are displacements from one common
+    reference state. Returns scalars (best f32, arg int32)."""
+    return score_argmax(win_mag, los_enu, centers, coefs,
+                        r0 if has_r0 else None, off3, off1, interp=interp,
+                        l_power=l_power, block_sum=True)

@@ -1,12 +1,17 @@
-"""Manifold scoring: a streaming argmax (port of K1) and the full score
-surface of a block (port of K2).
+"""Manifold scoring: a streaming argmax (port of K1), per block or of the
+scores summed over blocks, and the full score surface of a block (port of
+K2).
 
 `score_argmax` is the contract of the JAX package's `_score_axis_argmax`
 without a mesh (navlab_dpe_sdr_tpu/ops/dpe_real.py:1171): for each block n,
 score every grid point of one manifold against block n's score windows
 (`_score_chunk`, :876) and keep (max, first index at the max) over the grid
 (`_local_argmax_scan`, :1023) — plus, when weighted, the score-weighted sums
-of the offsets. The [N, G] surface is never materialized whole.
+of the offsets. The [N, G] surface is never materialized whole. With
+`block_sum=True` it is the contract of `_score_axis_accumulate` (:1191) and
+`score_joint_argmax` (:1506): the scores of all N blocks (or epochs) are
+summed per grid point, in float32 and in ascending n, before the running
+(max, first index) and the weighted sums; the results are scalars.
 
 On a CUDA tensor it launches the hand-written Hopper kernel
 `csrc/score_argmax.cu` (the port of ops/pallas_score.py `_chunk_kernel`);
@@ -28,6 +33,11 @@ c_k = (win[k+1] + win[k-1]) / 2 - win[k]; the curvature term multiplies by
 1 / (2 r0). Both are formed once per (block, channel), on the card while the
 windows are staged, and leave a point-channel 4 operations and one 16-byte
 read where the weight form has 11 and three.
+
+`interp="sinc"` is sum_k win[k] sinc(idx - k) over the whole window, no
+clamp (the JAX `_interp_weights`). `torch.sinc` and the kernel's `sinpif`
+round differently, so for sinc alone kernel and plain version agree to
+rtol 1e-5 on scores, not to the bit.
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ import torch.nn.functional as F
 
 from . import _build
 
-INTERP_MODES = ("quadratic", "linear")
+INTERP_MODES = ("quadratic", "linear", "sinc")    # csrc/score_argmax.cu: 0, 1, 2
 PLAIN_CHUNK = 16384     # grid points per step of the plain streaming scan
 
 
@@ -54,8 +64,7 @@ def score_points(win_mag, los_enu, centers, coefs, r0, o3, o1,
     score_argmax.cu), and the semantics those of the JAX `_score_chunk`.
     """
     if interp not in INTERP_MODES:
-        raise NotImplementedError(
-            f"interp={interp!r} is not ported (ROADMAP Queue 1 item 5)")
+        raise ValueError(f"interp={interp!r}: one of {INTERP_MODES}")
     x, y, z = o3[:, 0], o3[:, 1], o3[:, 2]                 # [G']
     l0, l1, l2 = (los_enu[..., j:j + 1] for j in range(3))  # [N, C, 1]
     u = l0 * x + l1 * y + l2 * z                          # [N, C, G']
@@ -75,6 +84,9 @@ def score_points(win_mag, los_enu, centers, coefs, r0, o3, o1,
         cc = F.pad(0.5 * (wp + wm) - win_mag[..., 1:-1], (1, 1))  # curvature
         vals = (torch.gather(win_mag, 2, k)
                 + d * (torch.gather(cb, 2, k) + d * torch.gather(cc, 2, k)))
+    elif interp == "sinc":
+        k = torch.arange(w, dtype=idx.dtype, device=idx.device)
+        vals = (torch.sinc(idx[..., None] - k) * win_mag[:, :, None, :]).sum(-1)
     else:
         kf = torch.floor(idx)
         vals = torch.zeros_like(idx)
@@ -94,12 +106,17 @@ def score_points(win_mag, los_enu, centers, coefs, r0, o3, o1,
 
 def score_argmax_plain(win_mag, los_enu, centers, coefs, r0, off3, off1,
                        interp: str = "quadratic", l_power: int = 1,
-                       weighted: bool = False, chunk: int = PLAIN_CHUNK):
+                       weighted: bool = False, chunk: int | None = None,
+                       block_sum: bool = False):
     """Plain PyTorch `score_argmax`: a scan over grid chunks carrying the
     running best (strict `>` across chunks, first occurrence inside one —
-    the global first-index rule). Weighted sums accumulate in float64."""
-    n = win_mag.shape[0]
+    the global first-index rule). Weighted sums accumulate in float64.
+    block_sum: the blocks' scores are added, one after the other from n = 0
+    up (the kernel's order), before the reduction; outputs are scalars."""
+    n = 1 if block_sum else win_mag.shape[0]
     g = off3.shape[0]
+    if chunk is None:       # sinc holds a [N, C, chunk, W] weight tensor
+        chunk = PLAIN_CHUNK // 8 if interp == "sinc" else PLAIN_CHUNK
     dev = win_mag.device
     best = torch.full((n,), float("-inf"), dtype=torch.float32, device=dev)
     arg = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -110,6 +127,11 @@ def score_argmax_plain(win_mag, los_enu, centers, coefs, r0, off3, off1,
         o1 = off1[g0:g0 + chunk]
         s = score_points(win_mag, los_enu, centers, coefs, r0, o3, o1,
                          interp, l_power)                  # [N, chunk]
+        if block_sum:
+            tot = s[0]
+            for i in range(1, s.shape[0]):
+                tot = tot + s[i]
+            s = tot[None]
         if weighted:
             sd = s.double()
             o4 = torch.cat([o3, o1[:, None]], dim=1).double()
@@ -123,25 +145,31 @@ def score_argmax_plain(win_mag, los_enu, centers, coefs, r0, off3, off1,
     out = (best, arg.to(torch.int32))
     if weighted:
         out = out + (wsum4.float(), wtot.float())
-    return out
+    return tuple(t[0] for t in out) if block_sum else out
 
 
 def score_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
                  interp: str = "quadratic", l_power: int = 1,
-                 weighted: bool = False):
+                 weighted: bool = False, block_sum: bool = False):
     """(best [N] f32, arg [N] int32) (+ (wsum4 [N, 4], wtot [N]) when
     weighted) of one manifold over the whole grid off3 [G, 3], off1 [G].
+    block_sum=True: the same of S(g) = sum_n score(n, g), as scalars
+    (best [], arg [], wsum4 [4], wtot []): noncoherent integration over
+    blocks, or the joint surface of many epochs.
 
     CPU tensors -> `score_argmax_plain`; CUDA tensors -> the kernel, or an
     exception."""
     dev = _check_call(win_mag, interp, l_power, "score_argmax")
     if dev.type == "cpu":
         return score_argmax_plain(win_mag, los_enu, centers, coefs, r0,
-                                  off3, off1, interp, l_power, weighted)
-    res = _launch("score_argmax", MODE_WEIGHTED if weighted else MODE_ARGMAX,
-                  win_mag, los_enu, centers, coefs, r0, off3, off1, interp,
-                  int(l_power))
-    return res[1:]
+                                  off3, off1, interp, l_power, weighted,
+                                  block_sum=block_sum)
+    mode = MODE_WEIGHTED if weighted else MODE_ARGMAX
+    if block_sum:
+        mode = MODE_SUM_WEIGHTED if weighted else MODE_SUM_ARGMAX
+    res = _launch("score_argmax", mode, win_mag, los_enu, centers, coefs, r0,
+                  off3, off1, interp, int(l_power))[1:]
+    return tuple(t[0] for t in res) if block_sum else res
 
 
 def score_surface_plain(win_mag, los_enu, centers, coefs, r0, off3, off1,
@@ -183,8 +211,7 @@ def score_surface(win_mag, los_enu, centers, coefs, r0, off3, off1,
 
 def _check_call(win_mag, interp, l_power, name) -> torch.device:
     if interp not in INTERP_MODES:
-        raise NotImplementedError(
-            f"interp={interp!r} is not ported (ROADMAP Queue 1 item 5)")
+        raise ValueError(f"interp={interp!r}: one of {INTERP_MODES}")
     if int(l_power) < 1:
         raise ValueError(f"l_power must be >= 1, got {l_power}")
     dev = win_mag.device
@@ -193,7 +220,9 @@ def _check_call(win_mag, interp, l_power, name) -> torch.device:
     return dev
 
 
-MODE_ARGMAX, MODE_WEIGHTED, MODE_SURFACE = 0, 1, 2   # csrc/score_argmax.cu
+# csrc/score_argmax.cu; the last two reduce the scores summed over blocks
+MODE_ARGMAX, MODE_WEIGHTED, MODE_SURFACE = 0, 1, 2
+MODE_SUM_ARGMAX, MODE_SUM_WEIGHTED = 3, 4
 
 # Per (device, stream): the kernel's reduction scratch, an int64 tensor of
 # zeros (packed maxima [cap] u64, then tickets [cap] u32). Each launch leaves
@@ -207,9 +236,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("score_argmax")
     if lib.score_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.score_launch.argtypes = [p] * 7 + [i] * 17 + [p] * 9
+        lib.score_launch.argtypes = [p] * 7 + [i] * 18 + [p] * 9
         lib.score_launch.restype = ctypes.c_int
-        lib.score_tiles.argtypes = [i] * 8
+        lib.score_tiles.argtypes = [i] * 9
         lib.score_tiles.restype = ctypes.c_int
         lib.score_shared_bytes.argtypes = [i] * 4
         lib.score_shared_bytes.restype = ctypes.c_longlong
@@ -221,11 +250,11 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _shared_memory(c, w, linear, weighted) -> tuple[int, int]:
+def _shared_memory(c, w, interp_code, weighted) -> tuple[int, int]:
     """(bytes one block's staged windows need, the kernel's limit): the
     kernel's own numbers, asked once per shape."""
     lib = _lib()
-    return (lib.score_shared_bytes(c, w, linear, weighted),
+    return (lib.score_shared_bytes(c, w, interp_code, weighted),
             lib.score_max_shared())
 
 
@@ -239,20 +268,26 @@ def _operand(t, dev, shape, name, contiguous=False):
 
 
 def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
-            interp, l_power):
+            interp, l_power, points: int = 0):
     """Check the operands, launch the kernel once on the current stream and
-    return (surface or None, best, arg[, wsum4, wtot]). The windows and the
-    grid offsets must be contiguous (copied if not); the per-channel
-    parameters are read by their strides, so slices of a packed parameter
-    tensor go in as they are."""
+    return (surface or None, best, arg[, wsum4, wtot]), each with one entry
+    per output slot: per block, or one in the block-summed modes. The
+    windows and the grid offsets must be contiguous (copied if not); the
+    per-channel parameters are read by their strides, so slices of a packed
+    parameter tensor go in as they are. points: 0 leaves the grid points a
+    thread owns to the kernel's plan (4 wherever the offsets are 16-byte
+    aligned); 4 or 1 fixes them (for timing the alternative: the results
+    do not depend on it)."""
     dev = win_mag.device
     n, c, w = win_mag.shape
     g = off3.shape[0]
     if not 0 < n <= 65535 or not 0 < g < 2 ** 31 - 1024:
         raise ValueError(f"{name}: N={n}, G={g} out of the kernel's range")
-    linear, weighted = int(interp == "linear"), int(mode == MODE_WEIGHTED)
+    icode = INTERP_MODES.index(interp)
+    weighted = int(mode in (MODE_WEIGHTED, MODE_SUM_WEIGHTED))
+    slots = 1 if mode in (MODE_SUM_ARGMAX, MODE_SUM_WEIGHTED) else n
     lib = _lib()
-    need, limit = _shared_memory(c, w, linear, weighted)
+    need, limit = _shared_memory(c, w, icode, weighted)
     if need > limit:
         raise ValueError(
             f"{name}: C={c} x W={w} windows exceed the kernel's "
@@ -274,15 +309,16 @@ def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
         sms = _sm_count[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
     f32 = dict(dtype=torch.float32, device=dev)
-    out = torch.empty((2, n), **f32)
+    out = torch.empty((2, slots), **f32)
     best, arg = out[0], out[1].view(torch.int32)
     surface = torch.empty((n, g), **f32) if mode == MODE_SURFACE else None
     part_w = wsum = None
     if weighted:
         aligned = int(off3.data_ptr() % 16 == 0 and off1.data_ptr() % 16 == 0)
-        tiles = lib.score_tiles(n, c, w, g, linear, 1, aligned, sms)
-        part_w = torch.empty((n, tiles, 5), dtype=torch.float64, device=dev)
-        wsum = torch.empty(5 * n, **f32)        # wsum4 [N, 4], wtot [N]
+        tiles = lib.score_tiles(n, c, w, g, icode, mode, aligned, sms, points)
+        part_w = torch.empty((slots, tiles, 5), dtype=torch.float64,
+                             device=dev)
+        wsum = torch.empty(5 * slots, **f32)    # wsum4 [slots, 4], wtot [slots]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -291,16 +327,17 @@ def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
         stream = torch.cuda.current_stream(idx).cuda_stream
         key = (idx, stream)
         scratch = _scratch.get(key)
-        if scratch is None or scratch.numel() < 2 * n:
+        if scratch is None or scratch.numel() < 2 * slots:
             scratch = _scratch[key] = torch.zeros(
-                2 * max(n, 64), dtype=torch.int64, device=dev)
+                2 * max(slots, 64), dtype=torch.int64, device=dev)
         return key, lib.score_launch(
             ptr(win_mag), ptr(los_enu), ptr(centers), ptr(coefs), ptr(r0),
             ptr(off3), ptr(off1), *strides, n, c, w, g,
-            linear, l_power, mode, sms, ptr(surface), scratch.data_ptr(),
+            icode, l_power, mode, sms, points, ptr(surface),
+            scratch.data_ptr(),
             scratch.data_ptr() + 4 * scratch.numel(), ptr(part_w),
             ptr(best), ptr(arg), ptr(wsum),
-            None if wsum is None else wsum.data_ptr() + 16 * n, stream)
+            None if wsum is None else wsum.data_ptr() + 16 * slots, stream)
 
     if torch.cuda.current_device() == idx:
         key, rc = launch()
@@ -315,5 +352,5 @@ def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
     _build.count_launch(name)
     res = (surface, best, arg)
     if weighted:
-        res += (wsum[:4 * n].view(n, 4), wsum[4 * n:])
+        res += (wsum[:4 * slots].view(slots, 4), wsum[4 * slots:])
     return res

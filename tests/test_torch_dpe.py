@@ -211,22 +211,17 @@ def test_unported_configs_raise(scenario):
     from navlab_dpe_sdr_tpu_torch.ops import tracking as ttrk
 
     samples, hand, arr, grid, _ = scenario
-    for cfg in (dict(engine="fft"), dict(mesh=object()),
-                dict(refine="newton"), dict(ekf_mode="full"),
-                dict(interp="sinc")):
+    for cfg in (dict(engine="fft"), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             tmodel.DPEReceiver(SampleFile(samples=samples, fs=FS),
                                copy.deepcopy(hand), grid=grid,
                                config=tmodel.DPEConfig(**cfg), eph=arr,
                                device="cpu")
-    rx = _receiver(tmodel, scenario)
     srx = tscalar.ScalarReceiver(SampleFile(samples=samples, fs=FS),
                                  hand.prn_list, device="cpu")
     srx.state = ttrk.init_state(rc=hand.rc, ri=hand.ri, fc=hand.fc,
                                 fi=hand.fi, device="cpu")
-    for call in (lambda: rx.run_integrated(1), lambda: rx.noise_envelope(),
-                 lambda: rx.run_survey(1),
-                 lambda: srx.acquire(engine="real", verbose=False),
+    for call in (lambda: srx.acquire(engine="real", verbose=False),
                  lambda: srx.acquire(deep_ms=400, verbose=False),
                  lambda: srx.track(20, coh_ms=4),
                  lambda: srx.track(20, batch_k=4),

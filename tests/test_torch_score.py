@@ -10,7 +10,9 @@ and `score_manifolds_mag`, with an exact tie. The CUDA kernel is held to the
 plain version on the card, bit for bit (marked `cuda`; skips without a CUDA
 device): ragged grids at every N the paths use, strided parameters,
 unaligned offsets, ties across tiles, repeatable weighted sums, the
-shared-memory limit.
+shared-memory limit; the block-summed mode the same way, at 4 points a
+thread and 1 and over several staged batches; sinc within rtol 1e-5
+(`torch.sinc` and the kernel's `sinpif` round differently).
 JAX is imported inside the tests that use it, so the `cuda` tests also run
 where only PyTorch is installed:
 
@@ -133,9 +135,11 @@ def test_score_argmax_exact_tie_takes_first_index(f32_taps):
 
 
 def test_score_argmax_rejects_unported_interp():
+    """Quadratic, linear and sinc are ported; any other name is refused."""
     args = _inputs(g=10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(args, "sinc", 1, False)
+    with pytest.raises(ValueError, match="interp='cubic'"):
+        _port(args, "cubic", 1, False)
+    assert len(_port(args, "sinc", 1, False)) == 2
 
 
 @pytest.fixture
@@ -320,3 +324,123 @@ def test_kernel_refuses_windows_beyond_shared_memory(cuda_device):
     t = _card(_inputs(rng_seed=29, n=1, c=c, w=w + 1, g=300), cuda_device)
     with pytest.raises(ValueError, match="KB of shared memory"):
         score.score_argmax(*t)
+
+
+# -- the block-summed mode and sinc on the card -------------------------------
+
+def _sum_pair(t, **kw):
+    got = score.score_argmax(*t, block_sum=True, **kw)
+    want = score.score_argmax_plain(*t, block_sum=True, **kw)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8, 50])
+@pytest.mark.parametrize("g", [100, 777, 390_625])
+def test_kernel_block_sum_bit_equal(g, n, cuda_device):
+    """The scores of all blocks summed per grid point inside the kernel
+    (f32, ascending n): best and arg equal the plain version's bits, on
+    both manifolds, and the launch counts once."""
+    for with_r0 in (True, False):
+        t = _card(_inputs(rng_seed=41, n=n, c=8, w=12, g=g,
+                          with_r0=with_r0), cuda_device)
+        for kw in (dict(), dict(interp="linear"), dict(l_power=2)):
+            before = _build.launch_counts()["score_argmax"]
+            got, want = _sum_pair(t, **kw)
+            assert _build.launch_counts()["score_argmax"] == before + 1
+            assert got[0].shape == () and got[1].dtype == torch.int32
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_kernel_block_sum_many_epochs_and_points(cuda_device):
+    """N = 300 epochs of 36-tap windows are staged in several batches with
+    the sums held in registers; 4 points a thread and 1 give the same
+    bits as the plain version."""
+    t = _card(_inputs(rng_seed=43, n=300, c=8, w=36, g=20_001,
+                      with_r0=False), cuda_device)
+    got, want = _sum_pair(t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for points in (4, 1):
+        _, best, arg = score._launch(
+            "score_argmax", score.MODE_SUM_ARGMAX, *t, "quadratic", 1,
+            points=points)
+        assert torch.equal(best[0], want[0]) and torch.equal(arg[0], want[1])
+
+
+@pytest.mark.cuda
+def test_kernel_block_sum_strided_unaligned_weighted(cuda_device):
+    """Slices of a packed parameter tensor, offsets 4 bytes off a 16-byte
+    boundary, weighted: best and arg bit-equal, the weighted means within
+    rtol 1e-4 (f64 sums in another order), and bitwise equal run to run."""
+    n, c, w, g = 16, 8, 12, 70_001
+    t = _card(_inputs(rng_seed=47, n=n, c=c, w=w, g=g + 1), cuda_device)
+    pk = torch.empty((n, 11, c), device=cuda_device)
+    pk[:, 3:6] = t[1].transpose(1, 2)
+    pk[:, 6], pk[:, 7], pk[:, 8] = t[4], t[2], t[3]
+    views = (t[0], pk[:, 3:6].transpose(1, 2), pk[:, 7], pk[:, 8], pk[:, 6])
+    for o3, o1 in ((t[5], t[6]), (t[5][1:], t[6][1:])):
+        got = score.score_argmax(*views, o3, o1, weighted=True,
+                                 block_sum=True)
+        again = score.score_argmax(*views, o3, o1, weighted=True,
+                                   block_sum=True)
+        want = score.score_argmax_plain(*t[:5], o3, o1, weighted=True,
+                                        block_sum=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[2].shape == (4,) and got[3].shape == ()
+        torch.testing.assert_close(got[2] / got[3], want[2] / want[3],
+                                   rtol=1e-4, atol=1e-6)
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_kernel_block_sum_tie_across_tiles(cuda_device):
+    """The grid twice over, 50 000 points apart: the summed scores tie
+    exactly in two thread blocks and the smaller index wins."""
+    win, los, centers, coefs, r0, o3, o1 = _inputs(rng_seed=3, n=8, g=50_000)
+    t = _card((win, los, centers, coefs, r0, np.concatenate([o3, o3]),
+               np.concatenate([o1, o1])), cuda_device)
+    got, want = _sum_pair(t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1]) < 50_000
+
+
+def _assert_argmax_or_tie(t, got, want, n_rows, block_sum):
+    """Indices equal, or the plain scores at the two indices within 1e-6
+    relative (a tie to the rounding of sinc)."""
+    ga, wa = got[1].reshape(-1).tolist(), want[1].reshape(-1).tolist()
+    for row, (a, b) in enumerate(zip(ga, wa)):
+        if a == b:
+            continue
+        sel = slice(None) if block_sum else slice(row, row + 1)
+        args = [None if x is None else x[sel] for x in t[:5]]
+        at = score.score_points(*args, t[5][[a, b]], t[6][[a, b]], "sinc",
+                                1).sum(dim=0)
+        assert abs(float(at[0] - at[1])) <= 1e-6 * abs(float(at[1])), (a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_r0", [True, False])
+def test_kernel_sinc_within_tolerance(with_r0, cuda_device):
+    """sinc in every mode the wrapper reaches: per-block argmax, the block
+    sum and the surface, scores within rtol 1e-5 of the plain version."""
+    t = _card(_inputs(rng_seed=53, n=6, c=8, w=12, g=30_001,
+                      with_r0=with_r0), cuda_device)
+    for block_sum in (False, True):
+        got = score.score_argmax(*t, interp="sinc", weighted=True,
+                                 block_sum=block_sum)
+        want = score.score_argmax_plain(*t, interp="sinc", weighted=True,
+                                        block_sum=block_sum)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+        _assert_argmax_or_tie(t, got, want, 6, block_sum)
+        torch.testing.assert_close(got[2] / got[3][..., None],
+                                   want[2] / want[3][..., None], rtol=1e-4,
+                                   atol=1e-5)
+    surf, best, arg = score.score_surface_argmax(*t, interp="sinc",
+                                                 l_power=2)
+    plain = score.score_surface_plain(*t, interp="sinc", l_power=2)
+    torch.testing.assert_close(surf, plain, rtol=1e-5, atol=1e-5)
+    assert torch.equal(best, surf.max(dim=1).values)
+    assert torch.equal(arg.long(), surf.argmax(dim=1))
