@@ -45,19 +45,21 @@ Phases, one line or more each (any failure raises and exits non-zero):
    blocks summed per grid point inside the kernel) against its plain
    version: bit-equal best, equal first index, weighted sums bitwise equal
    across two runs, on the spread grid at N=8 and N=50, on the dense grid
-   (2 x 75^4 points, the reference's cap) at N=16 with l_power 1 and 2, and
-   on a grid laid out twice (an exact tie across tiles); sinc interpolation
-   at the survey's zoom shape (33^4 points, 25 epochs) within rtol 1e-5,
-   argmax equal or a tie within 1e-6; 4 points a thread (shipped) and 1
-   timed at every shape;
+   (2 x 75^4 points, the reference's cap) at N=16 with l_power 1 and 2 and
+   at N=1 (the coherent run's launch: its blocks are summed before the
+   scorer), and on a grid laid out twice (an exact tie across tiles); sinc
+   interpolation at the survey's zoom shape (33^4 points, 25 epochs) within
+   rtol 1e-5, argmax equal or a tie within 1e-6;
 11. integrated DPE: run_integrated noncoherent on the spread grid (8 blocks
    a fix, 25 fixes), coherent on the dense grid (16 blocks a fix, 12
    fixes), and the first again read from the SampleFile through the
    read-ahead thread (fixes identical); launches, errors, wall, real-time
    factor, and the device side of one profiled fix;
 12. the survey: run_survey over 25 s (25 batches of 50 blocks), coherent,
-   default fine lattice, then once more with sinc zoom passes; errors
-   against truth and the wall split (pass, coarse, zoom);
+   default fine lattice, a warm-up run, then one timed run and one with
+   sinc zoom passes (their launches are the ones counted); errors against
+   truth; the wall split (pass, coarse, zoom) from one more run of each,
+   synchronized after every stage;
 13. run_batched with refine="newton" and ekf_mode="full": 200 blocks, the
    rows carrying the score windows.
 The line before the last is the kernels' JSON record (launches on the
@@ -717,22 +719,13 @@ def sum_bound(args, got, manifold, interp="quadratic"):
     return bound(n * c * g * per + n * g, tensor_bytes(*args, *got[:2]))
 
 
-def time_points(args, interp):
-    """The kernel's own ms of a block-summed launch at 4 points a thread
-    (the plan's choice) and at 1."""
-    return {points: kernel_device_ms(
-        lambda: score._launch("score_argmax", score.MODE_SUM_ARGMAX, *args,
-                              interp, 1, points=points), 5, "score_kernel")
-        for points in (4, 1)}
-
-
 def check_sum_case(name, args, manifold, card, interp="quadratic",
                    l_power=1, reps=10, timed=True):
     """One shape of the block-summed mode: kernel against plain (bit-equal,
     or for sinc rtol 1e-5 and a tie within 1e-6), weighted sums bitwise
     equal across two runs; when timed also their means within rtol 1e-4 of
-    the plain version's, wrapper ms, the kernel's own ms (also at 1 point
-    a thread), plain ms and the bound."""
+    the plain version's, wrapper ms, the kernel's own ms, plain ms and the
+    bound."""
     kw = dict(interp=interp, l_power=l_power, block_sum=True)
     got = score.score_argmax(*args, **kw)
     want = score.score_argmax_plain(*args, **kw)
@@ -773,15 +766,11 @@ def check_sum_case(name, args, manifold, card, interp="quadratic",
     p_ms = cuda_ms(lambda: score.score_argmax_plain(*args, **kw), 1)
     bnd = sum_bound(args, got, manifold, interp)
     n, _, w = args[0].shape
-    line = (f"K1 block sum {name} {manifold} N={n} W={w} G={args[5].shape[0]}"
-            f" {interp} l_power={l_power}: {verdict}, weighted sums repeat "
-            f"bitwise; wrapper {k_ms:.4f} ms, kernel's own {fmt_ms(d_ms)}, "
-            f"plain {p_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
-            f"({bnd['bound_by']})")
-    by_points = time_points(args, interp)
-    line += (f"; kernel's own at 4 points a thread (shipped) "
-             f"{fmt_ms(by_points[4])}, at 1 {fmt_ms(by_points[1])}")
-    log(line + f" [{card}]")
+    log(f"K1 block sum {name} {manifold} N={n} W={w} G={args[5].shape[0]}"
+        f" {interp} l_power={l_power}: {verdict}, weighted sums repeat "
+        f"bitwise; wrapper {k_ms:.4f} ms, kernel's own {fmt_ms(d_ms)}, "
+        f"plain {p_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}) [{card}]")
     return dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, **bnd)
 
 
@@ -830,15 +819,20 @@ def check_block_sum(grid, widths, dev, card):
     dense = dense_grid()
     dcw, dvw = dpe_ops.auto_windows(dense.d_enu, dense.dt_m, dense.dv_enu,
                                     dense.dtdot, FS, CARR_FFTPTS)
-    cases = []
+    cases, cases_n1 = [], []
     for manifold, w in (("pos", dcw), ("vel", dvw)):
         args = scorer_inputs(rng, manifold, w, dense, dev, n=16)
         assert args[5].shape[0] == 75 ** 4 > 2 ** 24
         cases.append(check_sum_case("dense", args, manifold, card, reps=3))
         check_sum_case("dense", args, manifold, card, l_power=2, reps=3,
                        timed=False)
-        del args
+        # one block: what the coherent integrated run launches on this grid
+        one = [None if a is None else a[:1].contiguous() for a in args[:5]]
+        cases_n1.append(check_sum_case("dense", one + args[5:], manifold,
+                                       card, reps=3))
+        del args, one
     both("sum_n16_dense", cases)
+    both("sum_n1_dense", cases_n1)
     del dense
 
     # sinc at the survey's zoom shape: 33^4 points about the coarse argmax,
@@ -930,38 +924,41 @@ def check_integrated(samples, hand, arr, grid, dev, card):
 
 
 def check_survey(samples, hand, arr, grid, dev, card):
-    """Phase 12: the survey solve over 25 s. Returns K1's launches."""
+    """Phase 12: the survey solve over 25 s. A warm-up run, then the timed
+    runs (quadratic and sinc zoom passes) on the receiver as it is, whose
+    launches are the ones returned; then one more run of each with a
+    synchronize after every pass and joint argmax, for the wall split
+    alone."""
     n_batches, k = 25, 50
     raw_dev = torch.from_numpy(samples[:S * n_batches * k].view(np.int16)
                                .reshape(-1, S, 2)).to(dev)
     truth = hand.x_ecef
     r_e2n = frames.ecef_to_enu_matrix(truth[0:3])
-    launches = 0
-    for zoom in (None, None, "sinc"):      # the first pass warms the shapes
+
+    def survey(zoom, calls=None):
         rx = DPEReceiver(SampleFile(samples=samples, fs=FS),
                          copy.deepcopy(hand), grid=grid,
                          eph=copy.deepcopy(arr), device=dev)
-        calls = []
-        inner_pass, inner_joint = rx.run_integrated, rx._joint_argmax
+        if calls is not None:
+            inner_pass, inner_joint = rx.run_integrated, rx._joint_argmax
 
-        def timed_pass(*a, **kw):
-            t0 = time.perf_counter()
-            out = inner_pass(*a, **kw)
-            torch.cuda.synchronize()
-            calls.append(("pass", 0, time.perf_counter() - t0))
-            return out
+            def timed_pass(*a, **kw):
+                t0 = time.perf_counter()
+                out = inner_pass(*a, **kw)
+                torch.cuda.synchronize()
+                calls.append(("pass", time.perf_counter() - t0))
+                return out
 
-        def timed_joint(win, los, cen, coe, r0, off3, off1, interp=None):
-            t0 = time.perf_counter()
-            out = inner_joint(win, los, cen, coe, r0, off3, off1,
-                              interp=interp)
-            torch.cuda.synchronize()
-            calls.append(("coarse" if off3.shape[0] == grid.n_pos
-                          else "zoom", off3.shape[0],
-                          time.perf_counter() - t0))
-            return out
+            def timed_joint(win, los, cen, coe, r0, off3, off1, interp=None):
+                t0 = time.perf_counter()
+                out = inner_joint(win, los, cen, coe, r0, off3, off1,
+                                  interp=interp)
+                torch.cuda.synchronize()
+                calls.append(("coarse" if off3.shape[0] == grid.n_pos
+                              else "zoom", time.perf_counter() - t0))
+                return out
 
-        rx.run_integrated, rx._joint_argmax = timed_pass, timed_joint
+            rx.run_integrated, rx._joint_argmax = timed_pass, timed_joint
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -981,8 +978,12 @@ def check_survey(samples, hand, arr, grid, dev, card):
         enu = r_e2n @ (res.x_ecef[0:3] - truth[0:3])
         assert abs(enu[0]) < 1.5 and abs(enu[1]) < 1.5, enu
         assert np.linalg.norm(enu) < 6.0, enu
-        split = {key: sum(t for kk, _, t in calls if kk == key)
-                 for key in ("pass", "coarse", "zoom")}
+        return res, enu, wall, n_launch
+
+    survey(None)                           # warms the shapes
+    launches = 0
+    for zoom in (None, "sinc"):
+        res, enu, wall, n_launch = survey(zoom)
         launches += n_launch
         log(f"survey, zoom {zoom or 'quadratic'}: {n_batches} batches of {k} "
             f"blocks ({n_batches * k * T:.0f} s), {n_launch} kernel "
@@ -990,9 +991,17 @@ def check_survey(samples, hand, arr, grid, dev, card):
             f"{enu[2]:.2f} m (3-D {float(np.linalg.norm(enu)):.2f} m), clock "
             f"{res.x_ecef[3] - truth[3]:.2f} m, sigma_pos "
             f"{np.array2string(res.sigma_pos, precision=3)}, wall "
-            f"{wall:.3f} s ({n_batches * k * T / wall:.1f}x real time): "
-            f"pass {split['pass']:.3f} s, coarse {split['coarse']:.4f} s, "
-            f"zoom {split['zoom']:.4f} s [{card}]")
+            f"{wall:.3f} s ({n_batches * k * T / wall:.1f}x real time) "
+            f"[{card}]")
+    for zoom in (None, "sinc"):
+        calls = []
+        _, _, wall, _ = survey(zoom, calls)
+        split = {key: sum(t for kk, t in calls if kk == key)
+                 for key in ("pass", "coarse", "zoom")}
+        log(f"survey, zoom {zoom or 'quadratic'}, one more run synchronized "
+            f"after every stage: wall {wall:.3f} s: pass "
+            f"{split['pass']:.3f} s, coarse {split['coarse']:.4f} s, zoom "
+            f"{split['zoom']:.4f} s [{card}]")
     return launches
 
 

@@ -442,14 +442,13 @@ size_t batch_bytes(int n_batch, int n_chan, int width, int interp, bool weighted
                             (size_t)n_chan * (tapf + kParF) * sizeof(float));
 }
 
-// points: 0 lets the plan choose; 4 or 1 fixes it.
 Plan make_plan(int n_blocks, int n_chan, int width, int n_grid, int interp,
-               int mode, bool aligned, int sm_count, int points) {
+               int mode, bool aligned, int sm_count) {
   Plan p;
   const bool sum = sums_blocks(mode), weighted = is_weighted(mode);
   const long fill = 16L * sm_count;     // thread blocks for ~4 waves at 4 per SM
   // four points a thread wherever their 16-byte loads are aligned
-  p.points = aligned && points != 1 ? 4 : 1;
+  p.points = aligned ? 4 : 1;
   p.tiles = (int)(((long)n_grid + (long)p.points * kThreads - 1) / ((long)p.points * kThreads));
   long shares = sum ? 1 : (fill + p.tiles - 1) / p.tiles;
   if (shares > n_blocks) shares = n_blocks;
@@ -530,19 +529,17 @@ long long score_shared_bytes(int n_chan, int width, int interp, int weighted) {
 // Tiles (thread blocks along the grid) of a launch at this shape: the
 // caller sizes the weighted partials [slots, tiles, 5] with it.
 int score_tiles(int n_blocks, int n_chan, int width, int n_grid, int interp,
-                int mode, int aligned, int sm_count, int points) {
+                int mode, int aligned, int sm_count) {
   return make_plan(n_blocks, n_chan, width, n_grid, interp, mode, aligned != 0,
-                   sm_count, points).tiles;
+                   sm_count).tiles;
 }
 
 // Enqueues one kernel on `stream`; allocates nothing and does not
 // synchronize. mode: 0 argmax (best, arg), 1 weighted (+ wsum4, wtot; needs
 // part_w), 2 surface (+ surface [N, G]), 3 and 4 as 0 and 1 of the scores
 // summed over the N blocks (one output slot). interp: 0 quadratic, 1 linear,
-// 2 sinc. points: 0, or the points a thread owns (4 or 1) for a timing of
-// the alternative. r0 == NULL selects the velocity
-// manifold (no curvature term). los/centers/coefs/r0 are read by element
-// strides (los n, c, j; centers n, c; coefs n, c; r0 n, c); win, off3 and
+// 2 sinc. r0 == NULL selects the velocity manifold (no curvature term).
+// los/centers/coefs/r0 are read by element strides (los n, c, j; centers n, c; coefs n, c; r0 n, c); win, off3 and
 // off1 are contiguous. packed and ticket (one entry per output slot) are
 // scratch that must be zero at the first launch and is left zero by every
 // launch that runs to its end; launches sharing it must be ordered on one
@@ -552,7 +549,7 @@ int score_launch(const float* win, const float* los, const float* centers,
                  const float* off1, int los_sn, int los_sc, int los_sj,
                  int cen_sn, int cen_sc, int coef_sn, int coef_sc, int r0_sn,
                  int r0_sc, int n_blocks, int n_chan, int width, int n_grid,
-                 int interp, int l_power, int mode, int sm_count, int points,
+                 int interp, int l_power, int mode, int sm_count,
                  float* surface, unsigned long long* packed,
                  unsigned int* ticket, double* part_w, float* best, int* arg,
                  float* wsum4, float* wtot, void* stream) {
@@ -566,7 +563,7 @@ int score_launch(const float* win, const float* los, const float* centers,
   const bool aligned = (reinterpret_cast<uintptr_t>(off3) & 15) == 0 &&
                        (reinterpret_cast<uintptr_t>(off1) & 15) == 0;
   const Plan p = make_plan(n_blocks, n_chan, width, n_grid, interp, mode, aligned,
-                           sm_count, points);
+                           sm_count);
   Args a;
   a.win = win; a.los = los; a.centers = centers; a.coefs = coefs; a.r0 = r0;
   a.off3 = off3; a.off1 = off1;

@@ -236,9 +236,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("score_argmax")
     if lib.score_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.score_launch.argtypes = [p] * 7 + [i] * 18 + [p] * 9
+        lib.score_launch.argtypes = [p] * 7 + [i] * 17 + [p] * 9
         lib.score_launch.restype = ctypes.c_int
-        lib.score_tiles.argtypes = [i] * 9
+        lib.score_tiles.argtypes = [i] * 8
         lib.score_tiles.restype = ctypes.c_int
         lib.score_shared_bytes.argtypes = [i] * 4
         lib.score_shared_bytes.restype = ctypes.c_longlong
@@ -268,16 +268,13 @@ def _operand(t, dev, shape, name, contiguous=False):
 
 
 def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
-            interp, l_power, points: int = 0):
+            interp, l_power):
     """Check the operands, launch the kernel once on the current stream and
     return (surface or None, best, arg[, wsum4, wtot]), each with one entry
     per output slot: per block, or one in the block-summed modes. The
     windows and the grid offsets must be contiguous (copied if not); the
     per-channel parameters are read by their strides, so slices of a packed
-    parameter tensor go in as they are. points: 0 leaves the grid points a
-    thread owns to the kernel's plan (4 wherever the offsets are 16-byte
-    aligned); 4 or 1 fixes them (for timing the alternative: the results
-    do not depend on it)."""
+    parameter tensor go in as they are."""
     dev = win_mag.device
     n, c, w = win_mag.shape
     g = off3.shape[0]
@@ -315,7 +312,7 @@ def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
     part_w = wsum = None
     if weighted:
         aligned = int(off3.data_ptr() % 16 == 0 and off1.data_ptr() % 16 == 0)
-        tiles = lib.score_tiles(n, c, w, g, icode, mode, aligned, sms, points)
+        tiles = lib.score_tiles(n, c, w, g, icode, mode, aligned, sms)
         part_w = torch.empty((slots, tiles, 5), dtype=torch.float64,
                              device=dev)
         wsum = torch.empty(5 * slots, **f32)    # wsum4 [slots, 4], wtot [slots]
@@ -333,7 +330,7 @@ def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
         return key, lib.score_launch(
             ptr(win_mag), ptr(los_enu), ptr(centers), ptr(coefs), ptr(r0),
             ptr(off3), ptr(off1), *strides, n, c, w, g,
-            icode, l_power, mode, sms, points, ptr(surface),
+            icode, l_power, mode, sms, ptr(surface),
             scratch.data_ptr(),
             scratch.data_ptr() + 4 * scratch.numel(), ptr(part_w),
             ptr(best), ptr(arg), ptr(wsum),
