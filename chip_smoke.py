@@ -61,7 +61,29 @@ Phases, one line or more each (any failure raises and exits non-zero):
    truth; the wall split (pass, coarse, zoom) from one more run of each,
    synchronized after every stage;
 13. run_batched with refine="newton" and ekf_mode="full": 200 blocks, the
-   rows carrying the score windows.
+   rows carrying the score windows;
+14. K4's coherent mode against its plain version from the acquisition
+   state (K4's limits of phase 7), 8 channels: m = 2, 8, 10 code periods a
+   window over 200 updates, m = 4 on the coherent cold start's 2000 ms chunk
+   (500 updates);
+15. K4's batch_k = 4 schedule against its plain version on one 2000 ms
+   chunk, then ScalarReceiver.track(2000, batch_k=4) from the acquisition
+   state;
+16. K3's windows mode (the open-loop correlation of vector tracking)
+   against its plain version: 20 windows x 8 channels, bit-equal;
+17. the coherent cold start: acquire -> track(36 000, coh_ms=4) with the
+   CLI's coherent loop defaults -> 8/8 ephemerides -> scalar PVT within
+   15 m; TTFF wall and tracking real-time factor per chunk;
+18. the weak start: 2 s of the scenario at 27 dB-Hz, deep acquisition
+   (deep_ms=400, n_coh_ms=10) and track(2000, coh_ms=8), held to the JAX
+   package's run of the same sequence on the CPU
+   (tools/weak_start_reference.json, written by
+   tools/weak_start_reference.py);
+19. VectorReceiver for 50 epochs from the truth handoff and from
+   from_scalar after phase 9's cold start: median error under 20 m,
+   epochs per second, one K3 windows-mode launch an epoch.
+Each path is driven with the launch counts set to 0 just before it and
+read just after.
 The line before the last is the kernels' JSON record (launches on the
 timed paths, error against the plain version, ms, plain ms, the roofline
 bound of the same work and what sets it, library_ms: null where no single
@@ -74,7 +96,9 @@ no result. Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
+import pathlib
 import subprocess
 import sys
 import threading
@@ -95,9 +119,11 @@ from navlab_dpe_sdr_tpu_torch.models.grid import (_mesh4, dense_grid,
 from navlab_dpe_sdr_tpu_torch.models.dpe import (DPEConfig, DPEReceiver,
                                                  device_state)
 from navlab_dpe_sdr_tpu_torch.models.scalar import ScalarReceiver
+from navlab_dpe_sdr_tpu_torch.models.vector import VectorReceiver
 from navlab_dpe_sdr_tpu_torch.ops import _build, score, track, tracking
 from navlab_dpe_sdr_tpu_torch.ops import dpe as dpe_ops
 from navlab_dpe_sdr_tpu_torch.ops import dpe_real
+from navlab_dpe_sdr_tpu_torch.ops.acquisition import deep_dopplers
 
 SEED = 20261016
 FS = 2.5e6
@@ -134,7 +160,19 @@ KERNELS = {
                replaces="navlab_dpe_sdr_tpu/ops/pallas_track.py:50"),
     "K4": dict(name="track_chunk", route="cuda", source=TRACK_SRC,
                replaces="navlab_dpe_sdr_tpu/ops/pallas_track.py:181"),
+    "K4 coherent": dict(name="track_chunk_coherent", route="cuda",
+                        source=TRACK_SRC,
+                        replaces="navlab_dpe_sdr_tpu/ops/pallas_track.py:181"),
+    "K4 batch_k": dict(name="track_chunk_batched", route="cuda",
+                       source=TRACK_SRC,
+                       replaces="navlab_dpe_sdr_tpu/ops/pallas_track.py:181"),
+    "K3 windows": dict(name="correlate_windows", route="cuda",
+                       source=TRACK_SRC,
+                       replaces="navlab_dpe_sdr_tpu/ops/pallas_track.py:50"),
 }
+WEAK_REF = pathlib.Path(__file__).resolve().parent / "tools" / \
+    "weak_start_reference.json"
+FCAID = F_CA / F_L1
 
 
 def log(msg: str) -> None:
@@ -363,10 +401,10 @@ def compare_scores(args, got, want, kw) -> float:
     return float(np.abs(best_k - best_p).max())
 
 
-def make_capture(seconds: float):
+def make_capture(seconds: float, cn0_dbhz: float = 47.0):
     """int16 I/Q capture of the seeded 8-PRN scenario, synthesized in 1 s
     pieces (each piece's noise is seeded by its first sample)."""
-    sim, hand, arr = make_scenario(nav_data=True, cn0_dbhz=47.0)
+    sim, hand, arr = make_scenario(nav_data=True, cn0_dbhz=cn0_dbhz)
     n = int(round(seconds * FS))
     samples = np.empty(n, DTYPE_IQ16)
     step = int(FS)
@@ -503,30 +541,14 @@ def tracker_inputs(samples, hand, dev):
     return rx.state, raw, rx.code_table
 
 
-def check_tracker(st0, raw, code_table, card):
-    """Phase 7: K4 against its plain version on one 2000 ms chunk from the
-    acquisition result; dict(err: max |float log diff|, ms, plain_ms,
-    device_ms, bound)."""
-    fcaid = F_CA / F_L1
-    n_chan = code_table.shape[0]
-
-    def kernel(clocks=None):
-        return tracking.track_chunk_packed(st0, raw, code_table, FS, fcaid,
-                                           clocks=clocks)
-
-    _, lfk, lik = kernel()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, lfp, lip = tracking.track_chunk_plain(st0, raw, code_table, FS, fcaid)
-    torch.cuda.synchronize()
-    p_ms = (time.perf_counter() - t0) * 1e3
-    lf_p, li_p = lfp.cpu().numpy(), lip.cpu().numpy()
-    k_ms = cuda_ms(kernel, 5)
-    lf_k, li_k = lfk.cpu().numpy(), lik.cpu().numpy()
-    np.testing.assert_array_equal(li_k, li_p)           # cp, ncp, lock
-    rows = {k: i for i, k in enumerate(tracking.LOG_F_ROWS)}
-    sg = [rows["sign0"], rows["sign1"]]
-    np.testing.assert_array_equal(lf_k[5:, sg], lf_p[5:, sg])
+def compare_logs(lf_k, li_k, lf_p, li_p, rows):
+    """K4's limits (phase 7) between a kernel's and a plain log: ints
+    equal, signs equal after update 5, rc within 1e-3 chips, fi within
+    0.1 Hz, prompt within 1e-3 of each channel's peak. Returns (verdict,
+    max |float diff|)."""
+    np.testing.assert_array_equal(li_k, li_p)
+    n = len(tracking.LOG_F_BASE)
+    np.testing.assert_array_equal(lf_k[5:, n:], lf_p[5:, n:])
     drc = np.abs(lf_k[:, rows["rc"]] - lf_p[:, rows["rc"]])
     drc = float(np.minimum(drc, 1023.0 - drc).max())
     dfi = float(np.abs(lf_k[:, rows["fi"]] - lf_p[:, rows["fi"]]).max())
@@ -537,10 +559,40 @@ def check_tracker(st0, raw, code_table, card):
         dpr = max(dpr, float((np.abs(lf_k[:, r] - lf_p[:, r]) / peak).max()))
     assert drc < 1e-3 and dfi < 0.1 and dpr < 1e-3, (drc, dfi, dpr)
     err = float(np.abs(lf_k - lf_p).max())
-    equal = bool(np.array_equal(lf_k, lf_p))
-    margins = "bit-equal" if equal else (
-        f"within limits: rc {drc:.2e} chips (1e-3), fi {dfi:.2e} Hz (0.1), "
-        f"prompt {dpr:.2e} of peak (1e-3), cp/ncp/lock and signs equal")
+    if np.array_equal(lf_k, lf_p):
+        return "bit-equal", err
+    return (f"within limits: rc {drc:.2e} chips, fi {dfi:.2e} Hz, prompt "
+            f"{dpr:.2e} of peak", err)
+
+
+def track_bound(steps, s, raw, code_table, lf, li):
+    n_chan = code_table.shape[0]
+    return bound(steps * s * n_chan * OPS_PER_SAMPLE_CHANNEL,
+                 tensor_bytes(raw, code_table, lf, li)
+                 + 2 * n_chan * (16 + 5 + 40) * 4)
+
+
+def check_tracker(st0, raw, code_table, card):
+    """Phase 7: K4 against its plain version on one 2000 ms chunk from the
+    acquisition result; dict(err: max |float log diff|, ms, plain_ms,
+    device_ms, bound)."""
+    n_chan = code_table.shape[0]
+
+    def kernel(clocks=None):
+        return tracking.track_chunk_packed(st0, raw, code_table, FS, FCAID,
+                                           clocks=clocks)
+
+    _, lfk, lik = kernel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, lfp, lip = tracking.track_chunk_plain(st0, raw, code_table, FS, FCAID)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    lf_p, li_p = lfp.cpu().numpy(), lip.cpu().numpy()
+    k_ms = cuda_ms(kernel, 5)
+    rows = {k: i for i, k in enumerate(tracking.LOG_F_ROWS)}
+    margins, err = compare_logs(lfk.cpu().numpy(), lik.cpu().numpy(), lf_p,
+                                li_p, rows)
     log(f"K4 track_chunk: {TRACK_MS} ms x {n_chan} channels from "
         f"acquisition: logs {margins} (max|float diff| {err:.3e}); kernel "
         f"{k_ms:.3f} ms per chunk ({TRACK_MS / k_ms:.1f}x real time), plain "
@@ -562,9 +614,7 @@ def check_tracker(st0, raw, code_table, card):
     return dict(
         err=err, ms=k_ms, plain_ms=p_ms,
         device_ms=kernel_device_ms(kernel, 3, "track_chunk_kernel"),
-        bound=bound(steps * s * n_chan * OPS_PER_SAMPLE_CHANNEL,
-                    tensor_bytes(raw, code_table, lfk, lik)
-                    + 2 * n_chan * (16 + 5 + 40) * 4))
+        bound=track_bound(steps, s, raw, code_table, lfk, lik))
 
 
 def check_surface(grid, widths, dev, card):
@@ -703,7 +753,7 @@ def check_cold_start(samples, hand, arr, grid, dev, card):
         f"{med:.2f} m p95 {float(np.percentile(err, 95)):.2f} m, wall "
         f"{wall:.3f} s ({50 * T / wall:.2f}x real time) [{card}]")
     device_record("one per-block step", drx.step, "score_kernel", card)
-    return counts, rx.mcount
+    return counts, rx.mcount, rx
 
 
 def sum_bound(args, got, manifold, interp="quadratic"):
@@ -1061,6 +1111,260 @@ def check_refined(samples, hand, arr, grid, dev, card):
     return launches
 
 
+def check_coherent(st0, samples, code_table, card):
+    """Phase 14: K4's coherent mode against its plain version from the
+    acquisition state at m = 2, 8, 10 (200 updates each) and at m = 4 on
+    the coherent cold start's own chunk (2000 ms, 500 updates). Returns the
+    K4 coherent entry (m = 4, the path's shape)."""
+    dev = code_table.device
+    out, errs = {}, []
+    for m in (2, 4, 8, 10):
+        n_upd = TRACK_MS // m if m == 4 else 200
+        raw = torch.from_numpy(samples[:n_upd * m * 2500].view(np.int16)
+                               .reshape(n_upd, m * 2500, 2).copy()).to(dev)
+        loops = tracking.cadence_loops(m)
+
+        def kernel():
+            return tracking.track_chunk_packed(st0, raw, code_table, FS,
+                                               FCAID, loops, coh_ms=m)
+
+        _, lfk, lik = kernel()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lfp, lip = tracking.track_chunk_plain(st0, raw, code_table, FS,
+                                                 FCAID, loops, m)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        rows = {k: i for i, k in enumerate(tracking.log_f_rows(m))}
+        verdict, err = compare_logs(lfk.cpu().numpy(), lik.cpu().numpy(),
+                                    lfp.cpu().numpy(), lip.cpu().numpy(),
+                                    rows)
+        errs.append(err)
+        k_ms = cuda_ms(kernel, 5)
+        log(f"K4 coherent m={m}: {n_upd} updates ({n_upd * m} ms) x "
+            f"{code_table.shape[0]} channels from acquisition: logs "
+            f"{verdict} (max|float diff| {err:.3e}); kernel {k_ms:.3f} ms "
+            f"({n_upd * m / k_ms:.1f}x real time, "
+            f"{k_ms / n_upd * 1e3:.2f} us an update), plain {p_ms:.1f} ms "
+            f"[{card}]")
+        if m == 4:
+            out = dict(ms=k_ms, plain_ms=p_ms, device_ms=kernel_device_ms(
+                kernel, 3, "track_window_kernel"),
+                bound=track_bound(n_upd, m * 2500, raw, code_table, lfk,
+                                  lik))
+    out["err"] = max(errs)
+    return out
+
+
+def check_batched(st0, samples, hand, code_table, card):
+    """Phase 15: K4's batch_k = 4 schedule against its plain version on the
+    path's 2000 ms chunk, then the receiver's batch_k path. Returns the K4
+    batch_k entry."""
+    dev = code_table.device
+    n = TRACK_MS
+    raw = torch.from_numpy(samples[:n * 2500].view(np.int16)
+                           .reshape(n, 2500, 2).copy()).to(dev)
+
+    def kernel():
+        return tracking.track_chunk_packed(st0, raw, code_table, FS, FCAID,
+                                           batch_k=4)
+
+    _, lfk, lik = kernel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, lfp, lip = tracking.track_chunk_batched_plain(st0, raw, code_table,
+                                                     FS, FCAID, batch_k=4)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    rows = {k: i for i, k in enumerate(tracking.LOG_F_ROWS)}
+    verdict, err = compare_logs(lfk.cpu().numpy(), lik.cpu().numpy(),
+                                lfp.cpu().numpy(), lip.cpu().numpy(), rows)
+    k_ms = cuda_ms(kernel, 5)
+    d_ms = kernel_device_ms(kernel, 3, "track_window_kernel")
+    log(f"K4 batch_k=4: {n} steps x {code_table.shape[0]} channels from "
+        f"acquisition: logs {verdict} (max|float diff| {err:.3e}); kernel "
+        f"{k_ms:.3f} ms ({n / k_ms:.1f}x real time), plain {p_ms:.1f} ms "
+        f"[{card}]")
+
+    rx = ScalarReceiver(SampleFile(samples=samples, fs=FS), hand.prn_list,
+                        device=dev)
+    rx.state = st0
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rx.track(TRACK_MS, batch_k=4)
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()["track_chunk_batched"]
+    assert launches == 1 and rx.mcount == TRACK_MS, (launches, rx.mcount)
+    lock = np.array([rx.channels[p].col("lock")[-1] for p in hand.prn_list])
+    assert (lock == 1).all(), lock
+    log(f"batch_k path: ScalarReceiver.track({TRACK_MS}, batch_k=4) from "
+        f"acquisition: {launches} launch, 8/8 channels in lock at the end, "
+        f"wall {wall:.3f} s ({TRACK_MS * 1e-3 / wall:.1f}x real time) "
+        f"[{card}]")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, device_ms=d_ms,
+                launches=launches,
+                bound=track_bound(n, 2500, raw, code_table, lfk, lik))
+
+
+def check_windows(samples, hand, dev, card):
+    """Phase 16: K3's windows mode against its plain version, 20 windows x
+    8 channels at the handoff phases. Returns the K3 windows entry."""
+    w = 20
+    tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)
+                           ).to(dev)
+    raw = torch.from_numpy(samples[:w * 2500].view(np.int16)
+                           .reshape(w, 2500, 2).copy()).to(dev)
+    args = [torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in
+            (hand.rc, np.asarray(hand.fc) - F_CA, hand.ri, hand.fi)]
+
+    def kernel():
+        return track.correlate_windows_cuda(raw, *args, tab, FS)
+
+    def plain():
+        return tracking.track_open_loop_plain(*args, raw, tab, FS)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert torch.equal(got, want), err
+    k_ms, p_ms = cuda_ms(kernel, 100), cuda_ms(plain, 3)
+    d_ms = kernel_device_ms(kernel, 20, "correlate_window_kernel")
+    c = tab.shape[0]
+    bnd = bound(w * c * (2500 * OPS_PER_SAMPLE_CHANNEL + 60),
+                tensor_bytes(raw, tab, *args, got)
+                + 2500 * 4)                              # the time table
+    log(f"K3 windows mode: {w} windows x {c} channels, bit-equal to the "
+        f"plain recurrence and combine; wrapper {k_ms:.4f} ms, kernel's own "
+        f"{fmt_ms(d_ms)}, plain {p_ms:.3f} ms, bound "
+        f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}) [{card}]")
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, device_ms=d_ms, bound=bnd)
+
+
+def check_coherent_cold_start(samples, hand, arr, dev, card):
+    """Phase 17: acquire -> track(36 000, coh_ms=4) -> LNAV -> PVT. Returns
+    K4 coherent launches."""
+    prns = list(hand.prn_list)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rx = ScalarReceiver(SampleFile(samples=samples, fs=FS), prns,
+                        loops=tracking.cadence_loops(4), device=dev)
+    res = rx.acquire(verbose=False)
+    t1 = time.perf_counter()
+    rx.track(36_000, coh_ms=4)
+    t2 = time.perf_counter()
+    good = rx.decode_ephemerides(verbose=False)
+    _, _, x_ecef, _, _ = rx.nav_solution()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    assert all(r.found for r in res), "acquisition"
+    assert sorted(good) == sorted(prns), good
+    for e in arr.ephs:
+        dec = rx.channels[e.prn].ephemeris
+        assert abs(dec.sqrt_A - e.sqrt_A) < 1e-3, e.prn
+        assert abs(dec.M_0 - e.M_0) < 1e-8, e.prn
+    pvt_m = float(np.linalg.norm(x_ecef[:3] - hand.x_ecef[:3]))
+    assert pvt_m < 15.0, pvt_m
+    assert counts["track_chunk_coherent"] == 18, counts
+    assert counts["track_chunk"] == 0 and rx.mcount == 9000, counts
+    rtfs = sorted(n * 1e-3 / w for n, w in rx.chunk_walls)
+    log(f"coherent cold start (coh_ms=4, Bn_carr 12 Hz + FLL 3 Hz): 8/8 "
+        f"acquired, 8/8 ephemerides, scalar PVT {pvt_m:.2f} m; TTFF wall "
+        f"{wall:.3f} s (acquire {t1 - t0:.3f} s, track {t2 - t1:.3f} s) for "
+        f"36.0 s of signal; {rx.mcount} updates in {len(rtfs)} chunks, "
+        f"real-time factor per chunk median {float(np.median(rtfs)):.1f}x "
+        f"[min {rtfs[0]:.1f}, max {rtfs[-1]:.1f}]; launches {counts} "
+        f"[{card}]")
+    return counts["track_chunk_coherent"]
+
+
+def check_weak_start(dev, card):
+    """Phase 18: deep acquisition and coherent tracking at 27 dB-Hz, held
+    to the JAX package's run of the same sequence on the CPU. Returns K4
+    coherent launches."""
+    ref = json.loads(WEAK_REF.read_text())
+    samples, hand, _ = make_capture(ref["seconds"], ref["cn0_dbhz"])
+    assert hashlib.sha256(samples.tobytes()).hexdigest() == ref["sha256"], \
+        "the weak capture differs from the reference's"
+    m = ref["coh_ms"]
+    rx = ScalarReceiver(SampleFile(samples=samples, fs=FS), hand.prn_list,
+                        loops=tracking.cadence_loops(m), device=dev)
+    rx.acquire(deep_ms=ref["deep_ms"], n_coh_ms=ref["n_coh_ms"],
+               verbose=False)                          # warms the shapes
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = rx.acquire(deep_ms=ref["deep_ms"], n_coh_ms=ref["n_coh_ms"],
+                     verbose=False)
+    t1 = time.perf_counter()
+    rx.track(ref["track_ms"], coh_ms=m)
+    t2 = time.perf_counter()
+    launches = _build.launch_counts()["track_chunk_coherent"]
+    assert launches == 1, launches
+    n_per = int(FS * 1e-3) * ref["n_coh_ms"]
+    bin_hz = FS / (8 * (1 << n_per.bit_length()))
+    worst = dict(fi_acq=0.0, fi=0.0, lock=0, cp=0)
+    for r in res:
+        want = ref["prns"][str(r.prn)]
+        ch = rx.channels[r.prn]
+        assert r.found == want["found"] and r.rc == want["rc"], (r, want)
+        worst["fi_acq"] = max(worst["fi_acq"], abs(r.fi - want["fi_acq"]))
+        worst["fi"] = max(worst["fi"], float(np.abs(
+            ch.col("fi") - np.array(want["fi"])).max()))
+        worst["lock"] += int((ch.col("lock") != np.array(want["lock"])).sum())
+        worst["cp"] += int(ch.col("cp")[-1] != want["cp_end"])
+    n_found = sum(r.found for r in res)
+    n_lock = sum(int(rx.channels[r.prn].col("lock")[-1]) for r in res)
+    log(f"weak start at {ref['cn0_dbhz']:.0f} dB-Hz: deep acquisition "
+        f"({ref['deep_ms']} ms, {ref['n_coh_ms']} ms coherent, "
+        f"{len(deep_dopplers(ref['n_coh_ms']))} Dopplers) {n_found}/8 found, "
+        f"found/rc equal to the JAX package's, fi within "
+        f"{worst['fi_acq']:.2f} Hz (one bin {bin_hz:.2f} Hz), {t1 - t0:.3f} "
+        f"s; track({ref['track_ms']}, coh_ms={m}) {t2 - t1:.3f} s, "
+        f"{n_lock}/8 in lock at the end: against the JAX run (op by op) fi "
+        f"within {worst['fi']:.2e} Hz over all {rx.mcount} updates (limit "
+        f"0.1), lock flags differing in {worst['lock']} updates, final cp "
+        f"differing in {worst['cp']} channels; {launches} K4 launch "
+        f"[{card}]")
+    assert worst["fi_acq"] <= bin_hz * 1.001, worst
+    assert worst["fi"] < 0.1 and worst["lock"] == 0 and worst["cp"] == 0, \
+        worst
+    return launches
+
+
+def check_vector(samples, hand, arr, rx_cold, dev, card):
+    """Phase 19: 50 vector epochs from the truth handoff and from
+    from_scalar after the cold start. Returns K3 windows-mode launches."""
+    launches = 0
+    for name, make in (
+            ("from the truth handoff", lambda: VectorReceiver(
+                SampleFile(samples=samples, fs=FS), hand.prn_list,
+                copy.deepcopy(arr), hand.x_ecef, hand.rx_time, cp=hand.cp,
+                rc=hand.rc, fc=hand.fc, fi=hand.fi, ri=hand.ri, device=dev)),
+            ("from_scalar after the cold start",
+             lambda: VectorReceiver.from_scalar(rx_cold))):
+        vt = make()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        fixes = vt.run(50)
+        wall = time.perf_counter() - t0
+        n = _build.launch_counts()["correlate_windows"]
+        assert n == 50, n
+        launches += n
+        err = fix_errors(fixes, hand.x_ecef)
+        assert np.isfinite(err).all()
+        med = float(np.median(err))
+        assert med < 20.0, (name, med)
+        log(f"vector tracking {name}: 50 epochs of 20 ms, {n} K3 "
+            f"windows-mode launches, error median {med:.2f} m (limit 20) "
+            f"max {float(err.max()):.2f} m, wall {wall:.3f} s "
+            f"({50 / wall:.1f} epochs/s, {50 * 0.02 / wall:.2f}x real time) "
+            f"[{card}]")
+    return launches
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1149,9 +1453,12 @@ def main() -> int:
     del raw_dev, rx
 
     k3 = check_correlator(dev, card)
-    k4 = check_tracker(*tracker_inputs(samples, hand, dev), card)
+    st0, raw0, table0 = tracker_inputs(samples, hand, dev)
+    k4 = check_tracker(st0, raw0, table0, card)
+    del raw0
     k2 = check_surface(grid, widths, dev, card)
-    counts, k4_steps = check_cold_start(samples, hand, arr, grid, dev, card)
+    counts, k4_steps, rx_cold = check_cold_start(samples, hand, arr, grid,
+                                                 dev, card)
 
     k1_by_path = {"batched": k1_launches}
     k1_by_path["integrated"] = check_integrated(samples, hand, arr, grid,
@@ -1161,15 +1468,27 @@ def main() -> int:
                                           card)
     assert all(n > 0 for n in k1_by_path.values()), k1_by_path
 
-    # no single PyTorch call computes any of the four functions: library_ms
-    # is null throughout
+    k4c = check_coherent(st0, samples, table0, card)
+    k4b = check_batched(st0, samples, hand, table0, card)
+    k3w = check_windows(samples, hand, dev, card)
+    k4c_by_path = {"coherent cold start": check_coherent_cold_start(
+        samples, hand, arr, dev, card)}
+    k4c_by_path["weak start"] = check_weak_start(dev, card)
+    k3w_launches = check_vector(samples, hand, arr, rx_cold, dev, card)
+
+    # no single PyTorch call computes any of these functions: library_ms is
+    # null throughout
     rows = [("K1", sum(k1_by_path.values()), k1),
             ("K2", counts["score_surface"], k2),
             ("K3", counts["correlate_window"], k3),
-            ("K4", counts["track_chunk"], k4)]
+            ("K4", counts["track_chunk"], k4),
+            ("K4 coherent", sum(k4c_by_path.values()), k4c),
+            ("K4 batch_k", k4b.pop("launches"), k4b),
+            ("K3 windows", k3w_launches, k3w)]
     kernels = [dict(KERNELS[k], launches=n, max_abs_err=r["err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], **r["bound"], library_ms=None,
                     device_ms=r["device_ms"]) for k, n, r in rows]
+    kernels[4]["launches_by_path"] = k4c_by_path
     kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"],
                       launches_by_path=k1_by_path, **k1_sum)
     for k in kernels:

@@ -203,6 +203,16 @@ class SampleFile:
             self.seek(self.S_skip)
 
 
+def read_windows_raw(rf, n: int) -> np.ndarray:
+    """The next n windows of `rf` as raw I/Q [n, S, 2] (int16 where the file
+    holds int16 I/Q): one read_chunk_raw slice, or n read_block_raw reads
+    where the source has no bulk read or the window config forbids it."""
+    try:
+        return rf.read_chunk_raw(n).reshape(n, rf.S, 2)
+    except (AttributeError, ValueError):
+        return np.stack([rf.read_block_raw() for _ in range(n)])
+
+
 def write_iq16(path: str, iq: np.ndarray) -> None:
     """Write a complex array as interleaved int16 I/Q."""
     out = np.empty(iq.shape[0], dtype=DTYPE_IQ16)

@@ -21,8 +21,9 @@ runs stage their samples through `_RawPrefetcher`.
 
 The receiver takes the JAX package's numpy objects (Handoff, Grid,
 EphArray), so a JAX receiver's `save_handoff()` starts a port receiver
-that continues the same run. engine="fft" and a mesh raise
-NotImplementedError naming their ROADMAP Queue 1 item.
+that continues the same run. engine="fft" (ROADMAP Queue 1 item 8, the FFT
+DPE engine) and a mesh (item 11) raise NotImplementedError naming their
+item.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import torch
 from ..constants import C, F_CA, F_L1, L_CA, T_CA
 from ..device import resolve_device
 from ..io.handoff import Handoff
-from ..io.rawfile import SampleFile
+from ..io.rawfile import SampleFile, read_windows_raw
 from ..io.synth import white_noise_iq16
 from ..libgnss import frames, naveng, satpos
 from ..libgnss.cacode import ca_table
@@ -213,13 +214,6 @@ class _RawPrefetcher:
         # queued + the one being consumed + the one being filled
         ring = [None] * (depth + 2)      # (pinned buffer, upload event)
 
-        def read(n):
-            try:
-                # one bulk slice per batch
-                return rawfile.read_chunk_raw(n).reshape(n, rawfile.S, -1)
-            except (AttributeError, ValueError):
-                return np.stack([rawfile.read_block_raw() for _ in range(n)])
-
         def stage(k, blocks):
             if not cuda:
                 return torch.from_numpy(np.ascontiguousarray(blocks)), None
@@ -245,7 +239,7 @@ class _RawPrefetcher:
                 for k, n in enumerate(sizes):
                     if self._closed:
                         return
-                    staged = stage(k, read(n))
+                    staged = stage(k, read_windows_raw(rawfile, n))
                     while not self._closed:     # bounded put: exit on close
                         try:
                             self._q.put(staged, timeout=0.2)
@@ -357,6 +351,7 @@ class DPEReceiver:
 
         self.mc = 0
         self.fixes: list[DPEFix] = []
+        # one bool row [C] per fix in every mode: the flip decision
         self.flip_log: list[np.ndarray] = []
         self._sat_cache: SatStateCache | None = None
 
@@ -673,7 +668,7 @@ class DPEReceiver:
             np.savez(f"{self.cfg.dump_scores_to}/scores_{self.mc:06d}.npz",
                      pos=pos_scores.cpu().numpy(),
                      vel=vel_scores.cpu().numpy())
-        self.flip_log.append(flip_used.cpu().numpy())
+        self.flip_log.append(flip_used.cpu().numpy().astype(bool))
         fix = DPEFix(mc=self.mc, rx_time=self.rx_time,
                      rx_time_a=self.rx_time_a, x_ecef=self.ekf.x.copy(),
                      pos_score=pos_peak, vel_score=vel_peak)
@@ -1012,7 +1007,7 @@ class DPEReceiver:
                 code_mag, carr_mag, fpk[7], fpk[8], fpk[9], fpk[10],
                 fpk[3:6].T, dp4, dv4, r_e2n)
         self.ekf.measurement_update(z, R=r_meas)
-        self.flip_log.append(flip_row)
+        self.flip_log.append(np.asarray(flip_row) != 0)
         fix = DPEFix(mc=mc, rx_time=rx_time,
                      rx_time_a=rx_time - self.ekf.x[3] / C,
                      x_ecef=self.ekf.x.copy(),
@@ -1114,7 +1109,7 @@ class DPEReceiver:
                                       fpk[9], fpk[10], los_enu, dp, dv,
                                       r_e2n)
         self.ekf.measurement_update(z, R=r_meas)
-        self.flip_log.append(flip_row)
+        self.flip_log.append(np.asarray(flip_row) != 0)
         fix = DPEFix(mc=mc, rx_time=rx_time,
                      rx_time_a=rx_time - self.ekf.x[3] / C,
                      x_ecef=self.ekf.x.copy(),
@@ -1219,7 +1214,7 @@ class DPEReceiver:
                 z[3] += self.grid.dt_m[pa_i]
                 z[4:7] += r_e2n.T @ self.grid.dv_enu[va_i]
                 z[7] += self.grid.dtdot[va_i]
-                self.flip_log.append(flip_last)
+                self.flip_log.append(flip_last != 0)
                 self.fixes.append(DPEFix(
                     mc=mc, rx_time=rx_time,
                     rx_time_a=rx_time - self.ekf.x[3] / C, x_ecef=z,

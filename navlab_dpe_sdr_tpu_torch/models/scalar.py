@@ -9,10 +9,12 @@ reads int16 chunks with `read_chunk_raw` and uploads chunk k+1 through
 pinned memory on a copy stream while chunk k's kernel runs; the log comes
 back as two packed fetches per chunk (floats and int32 counters).
 
-`acquire` runs the FFT engine ("fft"/"auto"); the all-real and deep
-engines, coherent tracking (coh_ms > 1) and batched windows (batch_k > 1)
-raise NotImplementedError naming their ROADMAP Queue 1 item. A JAX
-receiver's `save_state` checkpoint resumes here, and the other way round.
+`acquire` runs the FFT search, or with deep_ms > 0 the deep (weak-signal)
+search of ops/acquisition.acquire_deep; `track` runs 1 ms updates,
+coherent windows (coh_ms = 2..10) or the batch_k schedule, all on K4 on
+the card. engine="real" (the all-real TPU search) is not ported by design
+(ROADMAP "Not to port"). A JAX receiver's `save_state` checkpoint resumes
+here, and the other way round.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from ..constants import L_CA, T_CA
 from ..device import resolve_device
 from ..io.handoff import Handoff, write_handoff
-from ..io.rawfile import SampleFile
+from ..io.rawfile import SampleFile, read_windows_raw
 from ..libgnss import dataparser, naveng
 from ..libgnss.cacode import ca_table
 from ..libgnss.ephemeris import ALL_FIELDS, EphArray, Ephemeris
@@ -82,12 +84,20 @@ class ScalarReceiver:
     def acquire(self, T: float = 0.01, verbose: bool = True,
                 engine: str = "auto", deep_ms: int = 0, n_coh_ms: int = 10):
         """Best-of-two-blocks acquisition (reference receiver.py:452-520)
-        with the FFT engine."""
-        if deep_ms or engine not in ("auto", "fft"):
+        with the FFT engine; deep_ms > 0 searches ONE deep_ms-long capture
+        with n_coh_ms coherent folds summed noncoherently across segments
+        (e.g. deep_ms=400, n_coh_ms=10 acquires ~10 dB below the nominal
+        search floor)."""
+        if engine == "real":
             raise NotImplementedError(
-                f"acquisition engine={engine!r} deep_ms={deep_ms} is not "
-                f"ported yet: ROADMAP Queue 1 item 8 (deep acquisition and "
-                f"the all-real engine)")
+                "engine='real' (the all-real TPU acquisition engine, "
+                "ops/acquisition_real) is not ported by design: ROADMAP "
+                "'Not to port'; engine='fft' searches the same grid, and "
+                "deep_ms > 0 runs the deep search on torch.fft")
+        if engine not in ("auto", "fft"):
+            raise ValueError(f"unknown acquisition engine {engine!r}")
+        if deep_ms:
+            return self._acquire_deep(int(deep_ms), int(n_coh_ms), verbose)
         rf = self.rawfile
         start_pos = rf.sample_pos
         rf.set_block(T, T, verbose=False)
@@ -120,31 +130,64 @@ class ScalarReceiver:
                                         device=self.device)
         return results
 
+    def _acquire_deep(self, deep_ms: int, n_coh_ms: int, verbose: bool):
+        """The deep search over the next deep_ms of the file (the JAX
+        receiver's deep branch); the file stays where it was."""
+        rf = self.rawfile
+        start_pos = rf.sample_pos
+        rf.set_block(deep_ms * 1e-3, deep_ms * 1e-3, verbose=False)
+        block = rf.read_block().astype(np.complex64)
+        rf.seek(start_pos, whence=0)
+        rf.set_block(T_CA, T_CA, verbose=False)
+        results = acq_ops.acquire_deep(block, self.prn_list, rf.fs, rf.fcaid,
+                                       n_coh_ms=n_coh_ms, device=self.device)
+        if verbose:
+            for r in results:
+                print(f"PRN {r.prn:2d} found={r.found} rc={r.rc:8.2f} "
+                      f"fi={r.fi:8.1f} cppm={r.cppm:5.2f} "
+                      f"(deep {deep_ms} ms / {n_coh_ms} ms coh)")
+        self.state = trk_ops.init_state(
+            rc=[r.rc for r in results], ri=[r.ri for r in results],
+            fc=[r.fc for r in results], fi=[r.fi for r in results],
+            device=self.device)
+        return results
+
     # -- tracking ----------------------------------------------------------
 
     def track(self, n_ms: int, chunk_ms: int = 2000, coh_ms: int = 1,
               batch_k: int = 1):
-        """Track n_ms of data in device chunks, appending measurement logs
-        (1 ms cadence)."""
+        """Track n_ms of data in device chunks, appending measurement logs.
+
+        coh_ms > 1 is coherent predetection integration: one loop update
+        (and one log row) per coh_ms ms; `mcount` and the log rows then
+        count updates, coh_ms ms apart (self.coh_ms records the cadence),
+        while cp stays the exact count of code periods. batch_k > 1 (1 ms
+        cadence only) is the batch_k schedule (ops/tracking.
+        track_chunk_batched). n_ms must be a multiple of either."""
         if self.state is None:
             raise RuntimeError("acquire() (or load_state) first")
-        if coh_ms != 1 or batch_k != 1:
-            raise NotImplementedError(
-                f"coh_ms={coh_ms}, batch_k={batch_k} is not ported yet: "
-                f"{trk_ops.UNPORTED_ITEM}")
+        m = trk_ops.check_coh_ms(coh_ms)
+        kb = int(batch_k)
+        if kb < 1:
+            raise ValueError(f"batch_k must be >= 1, got {kb}")
+        if kb > 1 and m > 1:
+            raise ValueError("batch_k applies to the 1 ms cadence only")
+        step_ms = m if m > 1 else kb
+        if n_ms % step_ms:
+            raise ValueError(f"n_ms={n_ms} is not a multiple of "
+                             f"{'coh_ms' if m > 1 else 'batch_k'}={step_ms}")
+        chunk_ms = max(int(chunk_ms) - int(chunk_ms) % step_ms, step_ms)
+        self.coh_ms = m
         rf = self.rawfile
         rf.set_block(T_CA, T_CA, verbose=False)
         s = rf.S
-        chunk_ms = max(1, int(chunk_ms))
+        sw = s * m                        # samples per update window
 
         def stage(n):
-            """(n, first sample, device tensor [n, S, 2], ready event):
+            """(n, first sample, device tensor [n, S m, 2], ready event):
             read n windows as int16 and queue their upload."""
             start = rf.sample_pos
-            try:
-                host = rf.read_chunk_raw(n).reshape(n, s, 2)
-            except (AttributeError, ValueError):
-                host = np.stack([rf.read_block_raw() for _ in range(n)])
+            host = read_windows_raw(rf, n * m).reshape(n, sw, 2)
             t = torch.from_numpy(np.ascontiguousarray(host))
             if self._copy_stream is None:
                 return n, start, t, None
@@ -155,38 +198,41 @@ class ScalarReceiver:
             return n, start, dev_t, ready
 
         done = 0
-        nxt = stage(min(chunk_ms, n_ms))
+        nxt = stage(min(chunk_ms, n_ms) // m)
         while nxt is not None:
             t0 = time.perf_counter()
             n, start_samp, raw_dev, ready = nxt
-            done += n
+            done += n * m
             if ready is not None:
                 cur = torch.cuda.current_stream(self.device)
                 cur.wait_event(ready)
                 raw_dev.record_stream(cur)
             self.state, logf, logi = trk_ops.track_chunk_packed(
                 self.state, raw_dev, self.code_table, rf.fs, rf.fcaid,
-                self.loops)
+                self.loops, coh_ms=m, batch_k=kb)
             # the next chunk's read and upload overlap this chunk's kernel
-            nxt = stage(min(chunk_ms, n_ms - done)) if done < n_ms else None
+            nxt = (stage(min(chunk_ms, n_ms - done) // m) if done < n_ms
+                   else None)
             self._absorb_log(logf, logi)
-            self._m_samp.extend(start_samp + (np.arange(n) + 1) * s)
+            self._m_samp.extend(start_samp + (np.arange(n) + 1) * sw)
             self.mcount += n
             # host wall per chunk, the log fetch included (it waits for the
-            # kernel): the tracking real-time factor is n ms / this
-            self.chunk_walls.append((n, time.perf_counter() - t0))
+            # kernel): the tracking real-time factor is n m ms / this
+            self.chunk_walls.append((n * m, time.perf_counter() - t0))
 
     def _absorb_log(self, logf, logi):
-        """Append one chunk's packed log (logf [steps, 16, C], logi
-        [steps, 3, C]: two device->host fetches) and expand the nav-bit
-        signs of completed code periods into each channel's cp_sign."""
+        """Append one chunk's packed log (logf [steps, 15 + m, C], logi
+        [steps, 3, C]: two device->host fetches) and expand the m + 1
+        nav-bit signs of each update (one per code period the window
+        touches; the first ncp of them completed) into each channel's
+        cp_sign, in period order."""
         packed = logf.cpu().numpy()
         ints = logi.cpu().numpy()
-        arrs = {k: packed[:, i] for i, k in enumerate(trk_ops.LOG_F_ROWS)}
+        arrs = {k: packed[:, i] for i, k in enumerate(trk_ops.LOG_F_BASE)}
         arrs.update({k: ints[:, i] for i, k in enumerate(trk_ops.LOG_I_ROWS)})
         arrs["lock"] = arrs["lock"].astype(np.float32)
         ncp = ints[:, 1]                                   # [steps, C]
-        signs = np.stack([arrs["sign0"], arrs["sign1"]], axis=2)
+        signs = np.moveaxis(packed[:, len(trk_ops.LOG_F_BASE):], 1, 2)
         kmax = signs.shape[2]
         k_arange = np.arange(kmax)[None, :]
         for ci, prn in enumerate(self.prn_list):

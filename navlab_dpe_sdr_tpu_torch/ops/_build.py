@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-Each `ops/csrc/<name>.cu` exposes a plain C interface. At first use it is
-compiled with nvcc for Hopper (sm_90a) into a shared library under
-`navlab_dpe_sdr_tpu_torch/build/` (listed in .gitignore) and loaded with
-ctypes. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt, never served stale. Nothing is
-compiled when a module is imported.
+Each `ops/csrc/<name>.cu` (package data: it ships with an installed
+package) exposes a plain C interface. At first use it is compiled with nvcc
+for Hopper (sm_90a) into a shared library and loaded with ctypes. The
+library goes to `navlab_dpe_sdr_tpu_torch/build/` (listed in .gitignore)
+when the package directory is writable, and otherwise to a per-user cache
+directory ($XDG_CACHE_HOME, else ~/.cache, under
+navlab_dpe_sdr_tpu_torch/build). The library's file name carries a hash of
+the source and the flags, so an edited source is rebuilt, never served
+stale. Nothing is compiled when a module is imported.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+BUILD_DIR = PACKAGE_DIR / "build"        # in a checkout (.gitignore)
 
 # -fmad=false keeps each scored point's f32 arithmetic identical, op for
 # op, to the plain PyTorch version it is held against (ops/score.py).
@@ -29,9 +33,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
-# Kernel launches since the last reset, keyed by kernel name
-# ("score_argmax", "score_surface", "correlate_window", "track_chunk").
+# Kernel launches since the last reset, keyed by kernel and mode: K1
+# "score_argmax", K2 "score_surface", K3 "correlate_window" (one window) and
+# "correlate_windows" (the windows mode), K4 "track_chunk" (m = 1),
+# "track_chunk_coherent" (m > 1) and "track_chunk_batched" (batch_k > 1).
 # Each wrapper adds one right after its kernel launches, and nowhere else.
+KERNEL_MODES = ("score_argmax", "score_surface", "correlate_window",
+                "correlate_windows", "track_chunk", "track_chunk_coherent",
+                "track_chunk_batched")
 _launches: dict[str, int] = {}
 
 
@@ -40,9 +49,8 @@ def count_launch(kernel: str) -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """{kernel name: launches since the last reset} (0 for none)."""
-    return {k: _launches.get(k, 0) for k in (
-        "score_argmax", "score_surface", "correlate_window", "track_chunk")}
+    """{kernel mode: launches since the last reset} (0 for none)."""
+    return {k: _launches.get(k, 0) for k in KERNEL_MODES}
 
 
 def reset_launch_counts() -> None:
@@ -67,15 +75,27 @@ def nvcc_path() -> str:
                        "first use")
 
 
+def build_dir() -> Path:
+    """Where the libraries go: `build/` beside the package's modules when
+    the package directory is writable (a checkout), else the per-user cache
+    (an installed package)."""
+    if os.access(PACKAGE_DIR, os.W_OK):
+        return BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "navlab_dpe_sdr_tpu_torch" / "build"
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu (if not already built) -> the library path."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out_dir = build_dir()
+    out = out_dir / f"lib{name}_{digest}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                          capture_output=True, text=True)

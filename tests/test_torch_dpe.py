@@ -207,6 +207,9 @@ def test_run_batched_ephemeris_cutover_matches_jax(scenario):
 
 
 def test_unported_configs_raise(scenario):
+    """engine="fft" (the FFT DPE engine) and a mesh raise naming their
+    ROADMAP item; the all-real acquisition engine is not ported by design;
+    coherent windows stop at 10 ms."""
     from navlab_dpe_sdr_tpu_torch.models import scalar as tscalar
     from navlab_dpe_sdr_tpu_torch.ops import tracking as ttrk
 
@@ -221,13 +224,10 @@ def test_unported_configs_raise(scenario):
                                  hand.prn_list, device="cpu")
     srx.state = ttrk.init_state(rc=hand.rc, ri=hand.ri, fc=hand.fc,
                                 fi=hand.fi, device="cpu")
-    for call in (lambda: srx.acquire(engine="real", verbose=False),
-                 lambda: srx.acquire(deep_ms=400, verbose=False),
-                 lambda: srx.track(20, coh_ms=4),
-                 lambda: srx.track(20, batch_k=4),
-                 lambda: ttrk.track_open_loop()):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            call()
+    with pytest.raises(NotImplementedError, match="Not to port"):
+        srx.acquire(engine="real", verbose=False)
+    with pytest.raises(ValueError, match="coh_ms must be in 1..10"):
+        srx.track(22, coh_ms=11)
 
 
 def test_device_capture_bounds_are_checked(scenario):

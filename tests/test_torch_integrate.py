@@ -381,6 +381,29 @@ def test_run_per_block_modes_match_jax(scenario, cfg):
                                    rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("mode", ["step", "batched", "refined", "integrated",
+                                  "coast"])
+def test_flip_log_rows_are_bool_in_every_mode(scenario, mode):
+    """One bool row [C] per fix, the flip decision, whichever mode wrote
+    it (the device's bool in `step`, the packed f32 rows of the batched,
+    refined and integrated modes); the values are the JAX receiver's."""
+    samples = scenario[0]
+    runs = {
+        "step": lambda rx, pkg: rx.run(3),
+        "batched": lambda rx, pkg: rx.run_batched(
+            6, lookahead=3, raw_blocks_dev=_capture(samples, pkg)),
+        "refined": lambda rx, pkg: rx.run_batched(
+            6, lookahead=3, raw_blocks_dev=_capture(samples, pkg)),
+        "integrated": lambda rx, pkg: rx.run_integrated(2, 3),
+        "coast": lambda rx, pkg: rx.run_integrated(2, 3, feedback=False)}
+    cfg = dict(refine="newton") if mode == "refined" else {}
+    (jrx, _), (trx, _) = _both(scenario, runs[mode], **cfg)
+    assert len(trx.flip_log) == len(jrx.flip_log) > 0
+    for a, b in zip(jrx.flip_log, trx.flip_log):
+        assert b.dtype == np.bool_ and b.shape == (8,), (b.dtype, b.shape)
+        np.testing.assert_array_equal(b, np.asarray(a) != 0)
+
+
 def test_noise_envelope_matches_jax(scenario):
     (_, je), (_, te) = _both(
         scenario, lambda rx, pkg: rx.noise_envelope(blocks_per_fix=4,

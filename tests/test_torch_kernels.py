@@ -1,6 +1,8 @@
 """The cold-start slice's CUDA kernels against their plain PyTorch versions
-on the card: K3 (correlate_window), K4 (track_chunk), K2 (score_surface),
-and the receivers that run them. Marked `cuda`; they skip without a card.
+on the card: K3 (correlate_window, and its windows mode), K4 (track_chunk:
+1 ms, coherent windows of m code periods, the batch_k schedule), K2
+(score_surface), and the receivers that run them. Marked `cuda`; they skip
+without a card.
 
 The kernels do the plain versions' f32 operations in the same order (sums
 included: the plain sums follow the kernel's threads per channel,
@@ -25,6 +27,7 @@ from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_table
 from navlab_dpe_sdr_tpu_torch.models.grid import spread_grid, uniform_grid
 from navlab_dpe_sdr_tpu_torch.models import dpe as tdpe
 from navlab_dpe_sdr_tpu_torch.models import scalar as tscalar
+from navlab_dpe_sdr_tpu_torch.models import vector as tvector
 from navlab_dpe_sdr_tpu_torch.ops import acquisition as tacq
 from navlab_dpe_sdr_tpu_torch.ops import _build, score, track, tracking
 
@@ -119,6 +122,126 @@ def test_track_chunk_clocks_do_not_change_the_logs(capture, dev):
                                               clocks=clocks)
     assert torch.equal(lf, lfc) and torch.equal(li, lic)
     assert bool((clocks > 0).all())
+
+
+@pytest.mark.parametrize("m,dtype", [(2, torch.int16), (4, torch.int16),
+                                     (8, torch.int16), (10, torch.int16),
+                                     (4, torch.float32), (10, torch.float32)])
+def test_coherent_track_kernel_equals_plain(capture, m, dtype, dev):
+    """Coherent windows of m code periods (m + 2 segments: 6m + 12 sums in
+    up to four groups; at m = 10 and f32 the ring holds exactly one
+    window): logs, signs and carry bit-equal to the plain tracker's."""
+    samples, hand, _ = capture
+    n_upd = 40 if m < 8 else 20
+    tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
+    raw = torch.from_numpy(samples[:n_upd * m * S].view(np.int16).reshape(
+        n_upd, m * S, 2).copy()).to(dev).to(dtype)
+    st0 = _seeded_state(hand, dev)
+    loops = tracking.cadence_loops(m)
+    before = _build.launch_counts()
+    sk, lfk, lik = tracking.track_chunk_packed(st0, raw, tab, FS, FCAID,
+                                               loops, coh_ms=m)
+    after = _build.launch_counts()
+    assert after["track_chunk_coherent"] == before["track_chunk_coherent"] + 1
+    assert after["track_chunk"] == before["track_chunk"]
+    assert lfk.shape == (n_upd, 15 + m, len(hand.prn_list))
+    sp, lfp, lip = tracking.track_chunk_plain(st0, raw, tab, FS, FCAID,
+                                              loops, coh_ms=m)
+    assert torch.equal(lik, lip) and torch.equal(lfk, lfp)
+    for k in tracking.TrackState._fields:
+        assert torch.equal(getattr(sk, k), getattr(sp, k)), k
+
+
+@pytest.mark.parametrize("skew", [0, 2])
+def test_batched_track_kernel_equals_plain(capture, skew, dev):
+    """The batch_k = 4 schedule: windows correlated at the batch-start
+    rates, 1 ms updates, the frozen-rate carry; skew = 2 staged by the
+    4-byte copies."""
+    samples, hand, _ = capture
+    tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
+    flat = torch.from_numpy(samples[:201 * S].view(np.int16).copy()).to(dev)
+    raw = flat[2 * skew:2 * skew + 200 * S * 2].view(200, S, 2)
+    st0 = _seeded_state(hand, dev)
+    before = _build.launch_counts()["track_chunk_batched"]
+    sk, lfk, lik = tracking.track_chunk_packed(st0, raw, tab, FS, FCAID,
+                                               batch_k=4)
+    assert _build.launch_counts()["track_chunk_batched"] == before + 1
+    sp, lfp, lip = tracking.track_chunk_batched_plain(st0, raw, tab, FS,
+                                                      FCAID, batch_k=4)
+    assert torch.equal(lik, lip) and torch.equal(lfk, lfp)
+    for k in tracking.TrackState._fields:
+        assert torch.equal(getattr(sk, k), getattr(sp, k)), k
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+def test_open_loop_kernel_equals_plain(capture, dtype, dev):
+    """K3's windows mode: 20 windows x 8 channels in one launch, bit-equal
+    to the plain recurrence and polarity combine."""
+    samples, hand, _ = capture
+    tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
+    raw = torch.from_numpy(samples[:20 * S].view(np.int16).reshape(
+        20, S, 2).copy()).to(dev).to(dtype)
+    args = [torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in
+            (hand.rc, np.asarray(hand.fc) - F_CA, hand.ri, hand.fi)]
+    before = _build.launch_counts()["correlate_windows"]
+    got = tracking.track_open_loop(*args, raw, tab, FS)
+    assert _build.launch_counts()["correlate_windows"] == before + 1
+    want = tracking.track_open_loop_plain(*args, raw, tab, FS)
+    for g, w in zip(got, (want[:, :, 0], want[:, :, 1], want[:, :, 2])):
+        assert torch.equal(g, w)
+
+
+def test_scalar_receiver_coherent_on_card_equals_plain(capture, dev):
+    samples, hand, _ = capture
+    rx = tscalar.ScalarReceiver(SampleFile(samples=samples.copy(), fs=FS),
+                                hand.prn_list, loops=tracking.cadence_loops(4),
+                                device=dev)
+    rx.state = st0 = _seeded_state(hand, dev)
+    rx.track(400, chunk_ms=160, coh_ms=4)
+    raw = torch.from_numpy(samples[:400 * S].view(np.int16)
+                           .reshape(100, 4 * S, 2).copy()).to(dev)
+    _, logf, logi = tracking.track_chunk_plain(st0, raw, rx.code_table, FS,
+                                               FCAID, tracking.cadence_loops(4), 4)
+    rows = {k: i for i, k in enumerate(tracking.log_f_rows(4))}
+    for ci, prn in enumerate(hand.prn_list):
+        ch = rx.channels[prn]
+        np.testing.assert_array_equal(ch.col("cp"),
+                                      logi[:, 0, ci].cpu().numpy())
+        for k in ("iP", "qP", "rc", "fi"):
+            np.testing.assert_array_equal(
+                ch.col(k), logf[:, rows[k], ci].cpu().numpy(), err_msg=k)
+
+
+def test_vector_receiver_on_card_matches_cpu(capture, dev):
+    """Ten 20 ms epochs: one K3 windows-mode launch each; the fixes within
+    0.01 m of the CPU receiver's (the card's and the CPU's cos/sin round
+    differently)."""
+    samples, hand, arr = capture
+    runs = []
+    for device in ("cpu", dev):
+        rx = tvector.VectorReceiver(
+            SampleFile(samples=samples.copy(), fs=FS), hand.prn_list,
+            copy.deepcopy(arr), hand.x_ecef, hand.rx_time, cp=hand.cp,
+            rc=hand.rc, fc=hand.fc, fi=hand.fi, ri=hand.ri, device=device)
+        before = _build.launch_counts()["correlate_windows"]
+        rx.run(10)
+        launched = _build.launch_counts()["correlate_windows"] - before
+        assert launched == (10 if rx.device.type == "cuda" else 0)
+        runs.append(rx)
+    for a, b in zip(*(r.fixes for r in runs)):
+        assert np.linalg.norm(a.x_ecef[:3] - b.x_ecef[:3]) < 0.01
+
+
+def test_deep_acquire_on_card_matches_cpu(capture, dev):
+    samples, hand, _ = capture
+    iq = (samples["i"][:250000] + 1j * samples["q"][:250000]).astype(
+        np.complex64)
+    cpu = tacq.acquire_deep(iq, hand.prn_list, FS, FCAID, device="cpu")
+    card = tacq.acquire_deep(iq, hand.prn_list, FS, FCAID, device=dev)
+    bin_hz = FS / (8 * (1 << (25000).bit_length()))
+    for a, b in zip(cpu, card):
+        assert (a.found, a.rc) == (b.found, b.rc)
+        assert abs(a.fi - b.fi) <= bin_hz * 1.001
 
 
 @pytest.mark.parametrize("interp,l_power", [("quadratic", 1),

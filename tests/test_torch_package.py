@@ -117,3 +117,41 @@ def test_build_names_sources_in_the_repo():
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.parent == _build.CSRC.parent.parent
+
+
+def test_build_dir_falls_back_to_the_user_cache(monkeypatch, tmp_path):
+    """An installed package whose directory is not writable builds into
+    $XDG_CACHE_HOME/navlab_dpe_sdr_tpu_torch/build, from the sources
+    shipped as package data (pyproject.toml)."""
+    import os
+    import tomllib
+    from pathlib import Path
+
+    real_access = os.access
+    monkeypatch.setattr(_build.os, "access", lambda p, mode: (
+        False if Path(p) == _build.PACKAGE_DIR and mode == os.W_OK
+        else real_access(p, mode)))
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    want = tmp_path / "navlab_dpe_sdr_tpu_torch" / "build"
+    assert _build.build_dir() == want
+    # a stand-in compiler that writes the library nvcc would
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    for name in ("score_argmax", "track_chunk"):
+        lib = _build.build(name)
+        assert lib.parent == want and lib.is_file(), lib
+        assert lib.name.startswith(f"lib{name}_")
+    monkeypatch.undo()
+    assert _build.build_dir() == _build.BUILD_DIR
+
+    with open(Path(__file__).resolve().parent.parent / "pyproject.toml",
+              "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    globs = data["navlab_dpe_sdr_tpu_torch"]
+    shipped = {p for g in globs for p in _build.PACKAGE_DIR.glob(g)}
+    assert {p.resolve() for p in _build.CSRC.glob("*.cu")} == {
+        p.resolve() for p in shipped}
+    assert len(shipped) == 2

@@ -178,17 +178,26 @@ def test_short_chain_into_dpe_matches_jax(capture):
 
 
 def test_unported_scalar_modes_raise(capture):
+    """What the receiver still refuses: the all-real acquisition engine
+    (not ported by design), more than 10 ms a coherent window, batch_k
+    with coherent windows, spans that are no multiple of the update, and
+    tracking before acquisition."""
     samples, hand, _ = capture
     rx = _receiver(tscalar, samples, hand, seeded=True)
     for call in (lambda: rx.acquire(engine="real", verbose=False),
-                 lambda: rx.acquire(deep_ms=400, verbose=False)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 8"):
+                 lambda: rx.acquire(engine="real", deep_ms=400,
+                                    verbose=False)):
+        with pytest.raises(NotImplementedError, match="Not to port"):
             call()
-    for kw in (dict(coh_ms=4), dict(batch_k=4)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 13"):
-            rx.track(8, **kw)
+    with pytest.raises(ValueError, match="coh_ms must be in 1..10"):
+        rx.track(22, coh_ms=11)
+    with pytest.raises(ValueError, match="1 ms cadence only"):
+        rx.track(8, coh_ms=4, batch_k=2)
+    with pytest.raises(ValueError, match="not a multiple of coh_ms"):
+        rx.track(10, coh_ms=4)
+    with pytest.raises(ValueError, match="not a multiple of batch_k"):
+        rx.track(10, batch_k=4)
+    assert rx.mcount == 0
     with pytest.raises(RuntimeError, match="acquire"):
         _receiver(tscalar, samples, hand, seeded=False).track(10)
 

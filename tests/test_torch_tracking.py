@@ -116,11 +116,15 @@ def test_correlate_window_matches_pallas_interpret():
     assert rel < 0.05, rel
 
 
-def _tail_inputs(seed, c=8):
-    """Random segment sums, ncp and a mid-run carry (rings filled)."""
+def _tail_inputs(seed, c=8, m=1):
+    """Random segment sums [C, 3, m + 2, 2], ncp in {m-1, m, m+1} and a
+    mid-run carry (rings filled, lock counters about the m ms thresholds);
+    at m > 1 channel 0's sums are zero (every flip hypothesis ties)."""
     rng = np.random.default_rng(seed)
-    sums = (rng.standard_normal((c, 3, 3, 2)) * 3000.0).astype(np.float32)
-    ncp = rng.integers(0, 3, c).astype(np.int32)
+    sums = (rng.standard_normal((c, 3, m + 2, 2)) * 3000.0).astype(np.float32)
+    if m > 1:
+        sums[0] = 0.0
+    ncp = rng.integers(m - 1, m + 2, c).astype(np.int32)
     st = jt.init_state(**_random_state(seed, c))
     f = {k: np.asarray(v) for k, v in st._asdict().items()}
     for k in ("p_a_re", "p_a_im", "prev_p_re", "prev_p_im"):
@@ -129,8 +133,11 @@ def _tail_inputs(seed, c=8):
         f[k] = (rng.standard_normal(c) * 0.1).astype(np.float32)
     f["lock_i"] = (rng.random(c) * 4000).astype(np.float32)
     f["lock_q"] = (rng.random(c) * 2000).astype(np.float32)
-    f["lockcount"] = rng.integers(230, 250, c).astype(np.int32)
-    f["losscount"] = rng.integers(45, 55, c).astype(np.int32)
+    lock_th, loss_th = max(1, round(240 / m)), max(1, round(50 / m))
+    f["lockcount"] = rng.integers(lock_th - 10, lock_th + 10, c).astype(
+        np.int32)
+    f["losscount"] = rng.integers(max(0, loss_th - 5), loss_th + 5, c).astype(
+        np.int32)
     f["lock"] = rng.integers(0, 2, c).astype(np.int32)
     f["snr_z"] = (rng.random((c, 20)) * 1e7).astype(np.float32)
     f["snr_v"] = (rng.random((c, 20)) * 1e12).astype(np.float32)
@@ -189,21 +196,27 @@ def test_loop_tail_matches_jax(order, boxcar, fll):
         _close(getattr(jst2, k), getattr(tst2, k).numpy(), k)
 
 
-def _check_free_run(jlog, tlog, fi_tol=1.0, prompt_tol=0.02):
-    """The free-running tolerances (module docstring); either log may be
-    the JAX or the port's."""
+def _check_free_run(jlog, tlog, fi_tol=1.0, prompt_tol=0.02,
+                    rows=slice(None), sign_from=5):
+    """The free-running tolerances (module docstring) over log rows
+    `rows`, signs from update `sign_from` on (None: not compared); either
+    log may be the JAX or the port's."""
     for k in ("cp", "ncp", "lock"):
-        np.testing.assert_array_equal(np.asarray(getattr(jlog, k)),
-                                      np.asarray(getattr(tlog, k)), err_msg=k)
-    np.testing.assert_array_equal(np.asarray(jlog.signs)[5:],
-                                  np.asarray(tlog.signs)[5:])
-    drc = np.abs(np.asarray(jlog.rc, np.float64) - np.asarray(tlog.rc))
+        np.testing.assert_array_equal(np.asarray(getattr(jlog, k))[rows],
+                                      np.asarray(getattr(tlog, k))[rows],
+                                      err_msg=k)
+    if sign_from is not None:
+        np.testing.assert_array_equal(
+            np.asarray(jlog.signs)[rows][sign_from:],
+            np.asarray(tlog.signs)[rows][sign_from:])
+    drc = np.abs(np.asarray(jlog.rc, np.float64)[rows]
+                 - np.asarray(tlog.rc)[rows])
     drc = np.minimum(drc, 1023.0 - drc)
     assert drc.max() < 1e-3, drc.max()
-    dfi = np.abs(np.asarray(jlog.fi) - np.asarray(tlog.fi))
+    dfi = np.abs(np.asarray(jlog.fi)[rows] - np.asarray(tlog.fi)[rows])
     assert dfi.max() < fi_tol, dfi.max()
-    pj = np.hypot(np.asarray(jlog.iP), np.asarray(jlog.qP))
-    pt = np.hypot(np.asarray(tlog.iP), np.asarray(tlog.qP))
+    pj = np.hypot(np.asarray(jlog.iP), np.asarray(jlog.qP))[rows]
+    pt = np.hypot(np.asarray(tlog.iP), np.asarray(tlog.qP))[rows]
     rel = np.abs(pj - pt) / pj.max(axis=0)
     assert rel.max() < prompt_tol, rel.max(axis=0)
 
@@ -326,17 +339,28 @@ def test_packed_log_and_state_layouts():
 
 
 def test_unported_tracking_modes_raise():
+    """What the tracker still refuses: windows of more than 10 code periods
+    (two nav-bit boundaries), batch_k with coherent windows, ragged batches
+    and windows, and devices other than cpu/cuda."""
     st = tt.init_state(**_random_state(5, 2), device="cpu")
     raw = torch.zeros((4, S, 2), dtype=torch.int16)
     tab = _t(ca_table([1, 2]).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        tt.track_chunk(st, raw, tab, FS, FCAID, coh_ms=2)
-    for fn in (tt.track_chunk_batched, tt.track_open_loop):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 13"):
-            fn(st, raw, tab, FS, FCAID)
+    for m in (0, 11):
+        with pytest.raises(ValueError, match="coh_ms must be in 1..10"):
+            tt.track_chunk(st, torch.zeros((4, m * S or S, 2)), tab, FS,
+                           FCAID, coh_ms=m)
+    with pytest.raises(ValueError, match="1 ms cadence only"):
+        tt.track_chunk_packed(st, torch.zeros((4, 2 * S, 2)), tab, FS, FCAID,
+                              coh_ms=2, batch_k=2)
+    with pytest.raises(ValueError, match="not divisible by batch_k"):
+        tt.track_chunk_batched(st, raw, tab, FS, FCAID, batch_k=3)
+    with pytest.raises(ValueError, match="whole code periods"):
+        tt.track_chunk(st, torch.zeros((4, S + 1, 2)), tab, FS, FCAID,
+                       coh_ms=2)
     meta = torch.zeros((4, S, 2), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         tt.track_chunk(st, meta, tab, FS, FCAID)
     with pytest.raises(ValueError, match="cpu or cuda"):
         ttk.correlate_window(meta[0], st.rc, st.dfc, st.ri, st.fi, tab, FS)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tt.track_open_loop(st.rc, st.dfc, st.ri, st.fi, meta, tab, FS)
