@@ -81,7 +81,24 @@ Phases, one line or more each (any failure raises and exits non-zero):
    tools/weak_start_reference.py);
 19. VectorReceiver for 50 epochs from the truth handoff and from
    from_scalar after phase 9's cold start: median error under 20 m,
-   epochs per second, one K3 windows-mode launch an epoch.
+   epochs per second, one K3 windows-mode launch an epoch;
+20. the FFT engine, DPEConfig(engine="fft"): one block on the card against
+   the CPU (argmaxes and flips equal, correlations and surfaces within
+   1e-5 of their peak, the flip decision's closest call), run_batched and
+   run_integrated refused, 50 timed per-block steps from the truth handoff
+   (median under 15 m), one profiled step;
+21. the receiver fleet: two receivers over the capture and the capture
+   started 7 ms later, acquire -> track(34 000) in parallel -> 8/8
+   ephemerides -> align (offsets ~[7, 0], one 1 ms K4 launch a millisecond
+   of offset) -> run_dpe(200, lookahead=50) in parallel, the same run with
+   parallel=False twice and in parallel again: offsets, logs and fixes
+   bit-equal; TTFF per receiver, walls, the aggregate real-time factor;
+22. the live fleet: ReceiverFleet.from_live over two paced SimulatedRadios
+   (1.9 s, seeded ephemerides, run_dpe(5)), its live_stats();
+23. the Monte-Carlo harness at full width: perturbation_sweep (8 runs x 50
+   blocks, the 50-80 m band), spacing_sweep (3 spacings x 50 blocks),
+   cn0_sweep ([45, 30] dB-Hz, 32 blocks, 8 a fix), weak_sweep (27 dB-Hz,
+   128 blocks); the convergence summaries and walls.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 The line before the last is the kernels' JSON record (launches on the
@@ -96,11 +113,13 @@ no result. Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import hashlib
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -109,6 +128,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from navlab_dpe_sdr_tpu_torch.constants import F_CA, F_L1
+from navlab_dpe_sdr_tpu_torch.io.frontend import (MultiSource,
+                                                  RadioSyncConfig,
+                                                  SimulatedRadio)
 from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16, SampleFile
 from navlab_dpe_sdr_tpu_torch.io.scenario import make_scenario
 from navlab_dpe_sdr_tpu_torch.io.synth import release_workspace
@@ -116,8 +138,10 @@ from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_table
 from navlab_dpe_sdr_tpu_torch.libgnss import frames
 from navlab_dpe_sdr_tpu_torch.models.grid import (_mesh4, dense_grid,
                                                   spread_grid)
+from navlab_dpe_sdr_tpu_torch.models import montecarlo
 from navlab_dpe_sdr_tpu_torch.models.dpe import (DPEConfig, DPEReceiver,
                                                  device_state)
+from navlab_dpe_sdr_tpu_torch.models.fleet import ReceiverFleet
 from navlab_dpe_sdr_tpu_torch.models.scalar import ScalarReceiver
 from navlab_dpe_sdr_tpu_torch.models.vector import VectorReceiver
 from navlab_dpe_sdr_tpu_torch.ops import _build, score, track, tracking
@@ -133,6 +157,11 @@ N_BLOCKS = 50          # blocks per dispatch on the main path (lookahead)
 T = 0.02               # seconds per block
 CAPTURE_S = 40.0       # the LNAV wait needs >= 36 s of signal
 TRACK_MS = 2000        # one K4 chunk
+# the fleet: 34 s tracked (8/8 ephemerides decode by 32 s) + the 7 ms
+# alignment + 200 DPE blocks fit the 40 s capture, also for the receiver
+# that starts 7 ms into it
+FLEET_TRACK_MS = 34_000
+FLEET_DPE_BLOCKS = 200
 SCORE_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/score_argmax.cu"
 TRACK_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/track_chunk.cu"
 # Published peaks of one H100 SXM (dense, at the 700 W limit): f32 outside
@@ -275,7 +304,7 @@ def device_record(what: str, fn, kernel: str, card: str) -> None:
         f"timed segments): {launches} kernel launches, device busy "
         f"{busy:.3f} ms of {wall:.3f} ms of profiled wall (share "
         f"{busy / wall:.3f}), of which {kernel} {own:.4f} ms in {n_own} "
-        f"launch(es) [{card}]")
+        f"launch(es) ({own / busy:.3f} of device busy) [{card}]")
 
 
 def fmt_ms(ms) -> str:
@@ -1365,6 +1394,380 @@ def check_vector(samples, hand, arr, rx_cold, dev, card):
     return launches
 
 
+def flip_decisions(args):
+    """The FFT engine's flip decision |corr_f[0]| > |corr[0]| taken again in
+    complex128 from one step's inputs, and how far it is from a tie
+    (|(|flip| - |no flip|)| / max; inf where the block holds no nav-bit
+    boundary). At lag 0 the correlation is sum_t repl(t) bb(t), the flipped
+    one the same with the tail past idx_next negated."""
+    raw, cf, m_int, m_frac, idx_next, fi, ri, t = args[:8]
+    ang = (fi.double()[:, None] * t.double()[None, :]
+           + ri.double()[:, None]) * (-2.0 * np.pi)
+    bb = raw.to(torch.complex128)[None, :] * torch.exp(1j * ang)
+    repl = torch.fft.ifft(cf * dpe_ops._shift_phase(raw.shape[0], m_int,
+                                                    m_frac)).real.double()
+    tail = (torch.arange(raw.shape[0], device=raw.device)[None, :]
+            >= idx_next.long()[:, None])
+    head_sum = (repl * bb * ~tail).sum(-1)
+    tail_sum = (repl * bb * tail).sum(-1)
+    nf, fl = (head_sum + tail_sum).abs(), (head_sum - tail_sum).abs()
+    margin = (fl - nf).abs() / torch.maximum(fl, nf)
+    boundary = idx_next.long() < raw.shape[0]
+    return fl > nf, torch.where(boundary, margin, torch.inf)
+
+
+def check_fft_engine(samples, hand, arr, grid, dev, card):
+    """Phase 20: DPEConfig(engine="fft"), the per-block FFT engine (cuFFT
+    correlation, K2 on the score windows): the refusals of the batched and
+    integrated modes; one block on the card against the same block on the
+    CPU; 50 timed steps from the truth handoff, each step's flip decisions
+    held to the same decision taken in complex128, with the closest call
+    reported; one profiled step. Returns K2's launches."""
+    rx = DPEReceiver(SampleFile(samples=samples, fs=FS), copy.deepcopy(hand),
+                     grid=grid, eph=copy.deepcopy(arr), device=dev,
+                     config=DPEConfig(engine="fft", ekf_mode="alpha",
+                                      ekf_alpha=0.3))
+    for call in (lambda: rx.run_batched(N_BLOCKS, lookahead=N_BLOCKS),
+                 lambda: rx.run_integrated(1, 8)):
+        try:
+            call()
+        except ValueError as e:
+            assert "engine='real' only" in str(e), e
+        else:
+            raise AssertionError("the FFT engine ran a batch mode")
+    assert rx.mc == 0
+
+    # every step's device inputs and outputs are kept (references only)
+    seen = []
+    inner = dpe_ops.dpe_device_step
+
+    def step(*a, **kw):
+        out = inner(*a, **kw)
+        seen.append((a, kw, out))
+        return out
+
+    dpe_ops.dpe_device_step = step
+    try:
+        rx.step()
+        # block 1 again on the CPU: correlations, surfaces, argmaxes, flips
+        a, kw, got = seen[0]
+        cpu = [x.cpu() if isinstance(x, torch.Tensor) else
+               type(x)(*(y.cpu() for y in x)) if isinstance(x, tuple) else x
+               for x in a]
+        sc = [dpe_ops.batch_correlate(*ar, kw["carr_fftpts"])
+              for ar in (a[:8], cpu[:8])]
+        want = inner(*cpu, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(sc[0].flip_used.cpu(), sc[1].flip_used)
+        rel = {}
+        for name, g, w in (("code_corr", sc[0].code_corr, sc[1].code_corr),
+                           ("carr_fft", sc[0].carr_fft, sc[1].carr_fft),
+                           ("pos surface", got[0], want[0]),
+                           ("vel surface", got[2], want[2])):
+            rel[name] = float((g.cpu() - w).abs().max() / w.abs().max())
+            assert rel[name] < 1e-5, (name, rel[name])
+        assert int(got[1]) == int(want[1]) and int(got[3]) == int(want[3])
+        assert torch.equal(got[4].cpu(), want[4])
+        log(f"FFT engine, one block card against CPU: argmaxes and flips "
+            f"equal (flips {got[4].cpu().int().tolist()}), "
+            + ", ".join(f"{k} rel {v:.2e}" for k, v in rel.items())
+            + f" (limit 1e-5, of the CPU's peak) [{card}]")
+        del sc, want, got, cpu
+
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rx.run(50)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_k2 = _build.launch_counts()["score_surface"]
+    finally:
+        dpe_ops.dpe_device_step = inner
+    assert n_k2 == 100, n_k2
+    err = fix_errors(rx.fixes[1:], hand.x_ecef)
+    assert len(err) == 50 and np.isfinite(err).all()
+    med, p95 = float(np.median(err)), float(np.percentile(err, 95))
+    assert med < 15.0, med
+    closest, differ, n_bound = np.inf, 0, 0
+    for a, _, out in seen:
+        f64, margin = flip_decisions(a)
+        bound = torch.isfinite(margin)
+        n_bound += int(bound.sum())
+        differ += int((f64 != out[4])[bound].sum())
+        closest = min(closest, float(margin.min()))
+    del seen
+    log(f"FFT engine (engine='fft', ekf alpha): 50 per-block steps from the "
+        f"truth handoff, {n_k2} K2 launches, error median {med:.2f} m p95 "
+        f"{p95:.2f} m, wall {wall:.3f} s ({50 * T / wall:.2f}x real time); "
+        f"flip decisions over the 51 blocks: {n_bound} channel-blocks with a "
+        f"nav-bit boundary, {differ} differing from the decision in "
+        f"complex128, the closest call {closest:.2e} of the larger lag-0 "
+        f"magnitude [{card}]")
+    assert differ == 0, differ
+    device_record("one FFT-engine step", rx.step, "score_kernel", card)
+    return n_k2
+
+
+def seeded_ephemerides(arr, cp_shift):
+    """{prn: ephemeris} with its cp anchor moved into a receiver's own cp
+    frame (the scenario's anchors assume cp = 1000 at scenario sample 0)."""
+    out = {}
+    for e in arr.ephs:
+        e2 = copy.deepcopy(e)
+        e2.cp_timestamp += cp_shift
+        out[e2.prn] = e2
+    return out
+
+
+def align_chunks_vs_plain(calls):
+    """Phase 21's hold of K4 at align's shape: each chain of successive
+    launches that align made ([1, S, 2] chunks, one window each: fewer than
+    the ring's slots, the state carried from launch to launch) is run again
+    through the plain tracker, chained from the same first state on the
+    same raw chunks. Every chunk's logs and every carried TrackState must
+    equal the kernel's bit for bit. Returns (chains, chunks, chunk shape)."""
+    chains, st = 0, None
+    for cont, st_in, raw, args, kw, (st_k, lf_k, li_k) in calls:
+        assert raw.shape[0] == 1 and kw.get("coh_ms", 1) == 1 \
+            and kw.get("batch_k", 1) == 1, (tuple(raw.shape), kw)
+        if not cont:
+            chains, st = chains + 1, st_in
+        st, lf_p, li_p = tracking.track_chunk_plain(st, raw, *args)
+        assert torch.equal(lf_k, lf_p) and torch.equal(li_k, li_p), chains
+        for k in tracking.TrackState._fields:
+            assert torch.equal(getattr(st_k, k), getattr(st, k)), (chains, k)
+    return chains, len(calls), list(calls[0][2].shape)
+
+
+def fleet_pass(samples, hand, dev, parallel, record_align=False):
+    """Phase 21, one pass: two receivers (the capture, and the capture
+    started 7 ms later) through acquire -> track -> LNAV -> align ->
+    batched DPE, the launches of each stage counted from 0. Returns the
+    fleet, its DPE receivers, offsets, launches, walls and each DPE
+    receiver's first-fix time (from the start of the pass); with
+    record_align, also align's K4 calls (inputs and outputs) for
+    `align_chunks_vs_plain`."""
+    prns = list(hand.prn_list)
+    shift = int(0.007 * FS)
+    first_fix = {}
+    inner = DPEReceiver._drain_batch
+    inner_track = tracking.track_chunk_packed
+    calls, last = [], [None]
+
+    def track_chunk_packed(state, raw, *args, **kw):
+        st_in = tracking.TrackState(*(t.clone() for t in state))
+        out = inner_track(state, raw, *args, **kw)
+        calls.append((state is last[0], st_in, raw.clone(), args, kw, out))
+        last[0] = out[0]
+        return out
+
+    def drain(self, *a, **kw):
+        out = inner(self, *a, **kw)
+        first_fix.setdefault(id(self), time.perf_counter())
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet = ReceiverFleet([SampleFile(samples=samples, fs=FS),
+                           SampleFile(samples=samples[shift:], fs=FS)],
+                          prns, device=dev)
+    fleet.acquire()
+    _build.reset_launch_counts()
+    fleet.track(FLEET_TRACK_MS, parallel=parallel)
+    k4_track = _build.launch_counts()["track_chunk"]
+    good = fleet.decode_ephemerides()
+    assert all(sorted(g) == sorted(prns) for g in good), good
+    _build.reset_launch_counts()
+    if record_align:
+        tracking.track_chunk_packed = track_chunk_packed
+    try:
+        offsets = fleet.align()
+    finally:
+        tracking.track_chunk_packed = inner_track
+    k4_align = _build.launch_counts()["track_chunk"]
+    t_align = time.perf_counter() - t0
+    DPEReceiver._drain_batch = drain
+    try:
+        _build.reset_launch_counts()
+        dpes = fleet.run_dpe(FLEET_DPE_BLOCKS, grid=spread_grid(),
+                             lookahead=N_BLOCKS, parallel=parallel)
+        torch.cuda.synchronize()
+        k1 = _build.launch_counts()["score_argmax"]
+    finally:
+        DPEReceiver._drain_batch = inner
+    wall = time.perf_counter() - t0
+    return dict(fleet=fleet, dpes=dpes, offsets=offsets, wall=wall,
+                t_align=t_align, k4_track=k4_track, k4_align=k4_align,
+                k1=k1, ttff=[first_fix[id(d)] - t0 for d in dpes],
+                align_calls=calls)
+
+
+def check_fleet(samples, hand, dev, card):
+    """Phase 21: the receiver fleet four times, parallel, sequential
+    (parallel=False), sequential, parallel (so neither side runs first
+    only): offsets, tracking logs and fixes bit-equal across all four;
+    the first run's align chunks held to the plain tracker
+    (`align_chunks_vs_plain`). Returns launches by kernel (the first
+    run's)."""
+    runs = [(p, fleet_pass(samples, hand, dev, p, record_align=i == 0))
+            for i, p in enumerate((True, False, False, True))]
+    par = runs[0][1]
+    assert abs(int(par["offsets"][0]) - 7) <= 1 and par["offsets"][1] <= 1
+    n_chains, n_chunks, shape = align_chunks_vs_plain(par.pop("align_calls"))
+    assert n_chunks == par["k4_align"] == int(par["offsets"].sum()), \
+        (n_chunks, par["k4_align"], par["offsets"])
+    for _, other in runs[1:]:
+        np.testing.assert_array_equal(par["offsets"], other["offsets"])
+        for a, b in zip(par["fleet"].receivers, other["fleet"].receivers):
+            for prn in a.prn_list:
+                for k in ("rc", "fi", "iP", "qP", "cp", "lock"):
+                    assert np.array_equal(a.channels[prn].col(k),
+                                          b.channels[prn].col(k)), (prn, k)
+        for a, b in zip(par["dpes"], other["dpes"]):
+            assert len(a.fixes) == len(b.fixes) == FLEET_DPE_BLOCKS
+            for fa, fb in zip(a.fixes, b.fixes):
+                assert np.array_equal(fa.x_ecef, fb.x_ecef), fa.mc
+                assert (fa.pos_score, fa.vel_score) == (fb.pos_score,
+                                                        fb.vel_score)
+    meds = []
+    for label, d in zip(par["fleet"].labels, par["dpes"]):
+        err = fix_errors(d.fixes, hand.x_ecef)
+        assert np.isfinite(err).all()
+        meds.append(float(np.median(err)))
+        assert meds[-1] < 15.0, (label, meds[-1])
+    signal_s = sum((FLEET_TRACK_MS + int(off)) * 1e-3
+                   + FLEET_DPE_BLOCKS * T for off in par["offsets"])
+    assert par["k1"] == 2 * 2 * FLEET_DPE_BLOCKS // N_BLOCKS, par["k1"]
+    log(f"fleet: 2 receivers (the capture, and the capture 7 ms later), "
+        f"8/8 ephemerides decoded on both after track({FLEET_TRACK_MS}), "
+        f"align offsets {par['offsets'].tolist()} ms ({par['k4_align']} "
+        f"1 ms K4 launches, data dependent; their {n_chunks} {shape} chunks"
+        f" in {n_chains} chain(s) == the plain tracker chained from "
+        f"the same state, logs and carried TrackState bit for bit), "
+        f"run_dpe({FLEET_DPE_BLOCKS}, "
+        f"lookahead={N_BLOCKS}) error medians "
+        + " / ".join(f"{m:.2f}" for m in meds)
+        + f" m; parallel runs == sequential runs bit for bit (offsets, "
+        f"logs, fixes); launches K4 {par['k4_track']} (track) + "
+        f"{par['k4_align']} (align), K1 {par['k1']} [{card}]")
+    for parallel, r in runs:
+        name = "parallel" if parallel else "sequential"
+        log(f"fleet, {name}: wall {r['wall']:.3f} s ({r['t_align']:.3f} s "
+            f"to aligned), TTFF per receiver "
+            + " / ".join(f"{t:.3f}" for t in r["ttff"])
+            + f" s, aggregate {signal_s:.2f} s of signal over both "
+            f"receivers, {signal_s / r['wall']:.1f}x real time [{card}]")
+    return dict(k4=par["k4_track"], k4_align=par["k4_align"], k1=par["k1"])
+
+
+def check_live_fleet(samples, hand, arr, dev, card):
+    """Phase 22: ReceiverFleet.from_live over two paced SimulatedRadios (the
+    first 1.9 s of the capture, the second radio 7 ms late) on one
+    MultiSource clock, seeded ephemerides, acquire -> track(1400) -> align
+    -> run_dpe(5). Returns launches by kernel."""
+    n = int(1.9 * FS)
+    srcs = [SimulatedRadio(samples[:n], fs=FS, block_samples=2500),
+            SimulatedRadio(samples[:n], fs=FS, block_samples=2500,
+                           start_byte=int(0.007 * FS) * 4)]
+    multi = MultiSource(srcs, RadioSyncConfig(setup_time_s=0.05))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    fleet = ReceiverFleet.from_live(multi, hand.prn_list, fs=FS,
+                                    max_seconds=2.0, timeout_s=60.0,
+                                    device=dev)
+    try:
+        fleet.acquire()
+        fleet.track(1400, parallel=True)
+        fleet.mark_phase("track")
+        for rx, cp_shift in zip(fleet.receivers, (-1000.0, -1007.0)):
+            rx.set_ephemerides(seeded_ephemerides(arr, cp_shift))
+        offsets = fleet.align()
+        fleet.mark_phase("align")
+        dpes = fleet.run_dpe(5, grid=spread_grid(), parallel=True)
+        fleet.mark_phase("dpe")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        stats = fleet.live_stats()
+    finally:
+        multi.close()
+    assert abs(int(offsets[0]) - 7) <= 1 and offsets[1] <= 1, offsets
+    meds = [np.median(np.stack([f.x_ecef[:3] for f in d.fixes]), 0)
+            for d in dpes]
+    spread = float(np.linalg.norm(meds[1] - meds[0]))
+    errs = [float(np.linalg.norm(d.fixes[-1].x_ecef[:3] - hand.x_ecef[:3]))
+            for d in dpes]
+    assert spread < 25.0 and max(errs) < 40.0, (spread, errs)
+    assert all(s["delivered_s"] > 0.5 for s in stats), stats
+    log(f"live fleet: 2 paced radios, 1.9 s, offsets {offsets.tolist()} ms, "
+        f"last fixes {errs[0]:.2f} / {errs[1]:.2f} m from truth, median "
+        f"spread {spread:.2f} m, wall {wall:.3f} s; launches K4 "
+        f"{counts['track_chunk']}, K2 {counts['score_surface']}; "
+        f"live_stats {json.dumps(stats)} [{card}]")
+    return dict(k4=counts["track_chunk"], k2=counts["score_surface"])
+
+
+def check_montecarlo(samples, hand, dev, card):
+    """Phase 23: the Monte-Carlo harness at the receiver's full width, cut
+    in runs and blocks: perturbation_sweep (8 runs x 50 blocks, the
+    reference's 50-80 m band), spacing_sweep (3 spacings), cn0_sweep
+    ([45, 30] dB-Hz, 32 blocks, 8 a fix), weak_sweep (one level, 128
+    blocks). Returns launches by kernel over all four."""
+    counts = dict(score_argmax=0, score_surface=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = pathlib.Path(tmp) / "capture.dat"
+        samples[:S * 60].tofile(cap)
+        sweeps = (
+            ("perturbation_sweep(runs=8, blocks=50)",
+             lambda: montecarlo.perturbation_sweep(
+                 str(cap), copy.deepcopy(hand), runs=8, blocks=50, seed=1,
+                 fs=FS, verbose=False, out_dir=str(pathlib.Path(tmp) / "mc"),
+                 device=dev)),
+            ("spacing_sweep([7.0, 8.5, 10.0], blocks=50)",
+             lambda: montecarlo.spacing_sweep(
+                 str(cap), copy.deepcopy(hand), [7.0, 8.5, 10.0], blocks=50,
+                 fs=FS, verbose=False, device=dev)),
+            ("cn0_sweep([45, 30], blocks=32, blocks_per_fix=8)",
+             lambda: montecarlo.cn0_sweep([45.0, 30.0], blocks=32,
+                                          blocks_per_fix=8, verbose=False,
+                                          device=dev)),
+            ("weak_sweep([27], blocks=128, blocks_per_fix=16)",
+             lambda: montecarlo.weak_sweep([27.0], blocks=128,
+                                           blocks_per_fix=16, verbose=False,
+                                           device=dev)))
+        for name, sweep in sweeps:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = sweep()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _build.launch_counts()
+            for k in counts:
+                counts[k] += got[k]
+            if name.startswith(("perturbation", "spacing")):
+                assert all(np.isfinite(r.errs).all() and len(r.errs) == 50
+                           for r in res)
+                summary = montecarlo.convergence_summary(res)
+                text = montecarlo.format_summary(summary).replace(
+                    "\n", "; ")
+                rows = " ".join(",".join(map(str, r.row())) for r in res)
+                log(f"Monte-Carlo {name}: {text}; rows {rows}; wall "
+                    f"{wall:.3f} s ({wall / len(res):.3f} s a run); launches "
+                    f"K2 {got['score_surface']}, K1 {got['score_argmax']} "
+                    f"[{card}]")
+            else:
+                log(f"Monte-Carlo {name}: "
+                    + "; ".join(json.dumps(dataclasses.asdict(p))
+                                for p in res)
+                    + f"; wall {wall:.3f} s; launches K2 "
+                    f"{got['score_surface']}, K1 {got['score_argmax']} "
+                    f"[{card}]")
+    assert counts["score_surface"] > 0 and counts["score_argmax"] > 0
+    return counts
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1476,18 +1879,36 @@ def main() -> int:
     k4c_by_path["weak start"] = check_weak_start(dev, card)
     k3w_launches = check_vector(samples, hand, arr, rx_cold, dev, card)
 
+    k2_by_path = {"cold start": counts["score_surface"]}
+    k4_by_path = {"cold start": counts["track_chunk"]}
+    k2_by_path["fft engine"] = check_fft_engine(samples, hand, arr, grid,
+                                                dev, card)
+    fl = check_fleet(samples, hand, dev, card)
+    k1_by_path["fleet"] = fl["k1"]
+    k4_by_path["fleet"], k4_by_path["align"] = fl["k4"], fl["k4_align"]
+    live = check_live_fleet(samples, hand, arr, dev, card)
+    k2_by_path["live fleet"], k4_by_path["live fleet"] = live["k2"], \
+        live["k4"]
+    mc = check_montecarlo(samples, hand, dev, card)
+    k1_by_path["montecarlo"] = mc["score_argmax"]
+    k2_by_path["montecarlo"] = mc["score_surface"]
+    for by_path in (k1_by_path, k2_by_path, k4_by_path):
+        assert all(n > 0 for n in by_path.values()), by_path
+
     # no single PyTorch call computes any of these functions: library_ms is
     # null throughout
     rows = [("K1", sum(k1_by_path.values()), k1),
-            ("K2", counts["score_surface"], k2),
+            ("K2", sum(k2_by_path.values()), k2),
             ("K3", counts["correlate_window"], k3),
-            ("K4", counts["track_chunk"], k4),
+            ("K4", sum(k4_by_path.values()), k4),
             ("K4 coherent", sum(k4c_by_path.values()), k4c),
             ("K4 batch_k", k4b.pop("launches"), k4b),
             ("K3 windows", k3w_launches, k3w)]
     kernels = [dict(KERNELS[k], launches=n, max_abs_err=r["err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], **r["bound"], library_ms=None,
                     device_ms=r["device_ms"]) for k, n, r in rows]
+    kernels[1]["launches_by_path"] = k2_by_path
+    kernels[3]["launches_by_path"] = k4_by_path
     kernels[4]["launches_by_path"] = k4c_by_path
     kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"],
                       launches_by_path=k1_by_path, **k1_sum)

@@ -19,11 +19,13 @@ from the block-summed scorer (ops/dpe_real.dpe_scan_integrate),
 state against the whole pass (ops/dpe_real.score_joint_argmax). File-mode
 runs stage their samples through `_RawPrefetcher`.
 
-The receiver takes the JAX package's numpy objects (Handoff, Grid,
-EphArray), so a JAX receiver's `save_handoff()` starts a port receiver
-that continues the same run. engine="fft" (ROADMAP Queue 1 item 8, the FFT
-DPE engine) and a mesh (item 11) raise NotImplementedError naming their
-item.
+engine="fft" runs `step`/`run` through the FFT engine instead
+(ops/dpe.dpe_device_step: cuFFT correlation of the whole block, then K2 on
+the score windows), the per-block cross-validation oracle; as in the JAX
+receiver the batched and integrated modes refuse it. The receiver takes the
+JAX package's numpy objects (Handoff, Grid, EphArray), so a JAX receiver's
+`save_handoff()` starts a port receiver that continues the same run. A mesh
+(ROADMAP Queue 1 item 11) raises NotImplementedError naming its item.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from __future__ import annotations
 import functools
 import queue
 import threading
+import warnings
 from collections import deque
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -94,7 +97,7 @@ class DPEConfig:
     use_argmax: bool = True          # False = score-weighted mean
     interp: str = "quadratic"        # "linear" = exact reference parity,
                                      # "sinc" = whole-window reconstruction
-    engine: str = "real"             # "fft" = full-FFT oracle (not ported)
+    engine: str = "real"             # "fft" = full-FFT per-block oracle
     doppler_sign: float = 1.0
     use_sat_cache: bool = True       # Hermite-interpolated satellite states
     refine: str | None = None        # "newton": continuous sub-grid ML
@@ -112,8 +115,8 @@ class DPEConfig:
 
 
 def _check_config(cfg: DPEConfig) -> None:
-    """The JAX constructor's refusals, then what the port does not run —
-    never a fallback."""
+    """The JAX constructor's refusals and its warning, then what the port
+    does not run — never a fallback."""
     if cfg.engine == "fft" and cfg.refine:
         raise ValueError(
             "refine needs the score windows of engine='real'; the FFT "
@@ -124,15 +127,17 @@ def _check_config(cfg: DPEConfig) -> None:
             "refine polishes the grid argmax; the score-weighted-mean "
             "estimator (use_argmax=False) has no lattice point to "
             "polish — pick one")
-    unported = [
-        (cfg.engine != "real", f"engine={cfg.engine!r}",
-         "item 8 (FFT engine)"),
-        (cfg.mesh is not None, "mesh", "item 11 (mesh)"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP Queue 1 {item}")
+    if cfg.engine == "fft" and cfg.ekf_mode == "full":
+        warnings.warn(
+            "engine='fft' provides no score windows: the full EKF runs "
+            "with its static default R instead of the adaptive "
+            "score-curvature R (use engine='real' for adaptive R)",
+            stacklevel=3)
+    if cfg.mesh is not None:
+        raise NotImplementedError(
+            "mesh is not ported yet: ROADMAP Queue 1 item 11 (mesh)")
+    if cfg.engine not in ("real", "fft"):
+        raise ValueError(f"engine={cfg.engine!r}: 'real' or 'fft'")
     if cfg.interp not in dpe_real_ops.INTERP_MODES:
         raise ValueError(f"interp={cfg.interp!r}: one of "
                          f"{dpe_real_ops.INTERP_MODES}")
@@ -346,8 +351,14 @@ class DPEReceiver:
         if self.S % self.period:
             raise ValueError(f"block of {self.S} samples is not a whole "
                              f"number of {self.period}-sample code periods")
-        self._dev = device_state(self.grid, ca_table(self.prn_list),
-                                 self.S, rawfile.fs, self.device)
+        chips = ca_table(self.prn_list)
+        self._dev = device_state(self.grid, chips, self.S, rawfile.fs,
+                                 self.device)
+        if self.cfg.engine == "fft":
+            # FFT of each channel's nominal code replica: per-block replicas
+            # are frequency-domain fractional shifts of it
+            self._code_fft0 = torch.from_numpy(dpe_ops.nominal_code_fft(
+                chips, rawfile.fs, self.S)).to(self.device)
 
         self.mc = 0
         self.fixes: list[DPEFix] = []
@@ -588,11 +599,16 @@ class DPEReceiver:
         vel_start = np.clip(np.round(vel_idx_c).astype(np.int64)
                             - self.carr_win // 2, 0,
                             self.carr_fftpts - self.carr_win).astype(np.int32)
-        rc_mid = np.mod(rc_snap + dfc_snap * (self.cfg.T / 2.0), L_CA)
+        fft = self.cfg.engine == "fft"
+        if fft:     # the replica shift, split into int + f32 parts
+            m_int, shift0 = dpe_ops.replica_shift_parts(
+                rc_snap, dfc_snap, self.rawfile.fs, self.cfg.T, self.S)
+        else:       # the mid-block code phase
+            shift0 = np.mod(rc_snap + dfc_snap * (self.cfg.T / 2.0), L_CA)
 
         # 5. one packed upload, the fused device step (K2 for the scores)
         fpk = np.stack([
-            rc_mid, fi_corr, ri_corr,
+            shift0, fi_corr, ri_corr,
             los_enu[:, 0], los_enu[:, 1], los_enu[:, 2], r0,
             pos_idx_c - pos_start, pos_coef,
             vel_idx_c - vel_start, vel_coef]).astype(np.float32)
@@ -605,14 +621,25 @@ class DPEReceiver:
             vel_center=fp[9], vel_coef=fp[10])
         d = self._dev
         rawf = raw.float()
-        (pos_scores, pos_arg, vel_scores, vel_arg, flip_used, code_mag,
-         carr_mag) = dpe_real_ops.dpe_device_step_real(
-            rawf[:, 0], rawf[:, 1], d.chips, fp[0], ip[0], fp[1], fp[2],
-            d.time_idc, ip[1], ip[2], params, d.d_enu, d.dt_m, d.dv_enu,
-            d.dtdot, carr_fftpts=self.carr_fftpts, period=self.period,
-            n_periods=self.S // self.period, l_power=self.cfg.l_power,
-            interp=self.cfg.interp, code_win=self.code_win,
-            carr_win=self.carr_win)
+        code_mag = carr_mag = None
+        if fft:
+            (pos_scores, pos_arg, vel_scores, vel_arg,
+             flip_used) = dpe_ops.dpe_device_step(
+                torch.complex(rawf[:, 0], rawf[:, 1]), self._code_fft0,
+                dpe_real_ops.to_device(m_int, self.device), fp[0], ip[0],
+                fp[1], fp[2], d.time_idc, ip[1], ip[2], params, d.d_enu,
+                d.dt_m, d.dv_enu, d.dtdot, carr_fftpts=self.carr_fftpts,
+                l_power=self.cfg.l_power, interp=self.cfg.interp,
+                code_win=self.code_win, carr_win=self.carr_win)
+        else:
+            (pos_scores, pos_arg, vel_scores, vel_arg, flip_used, code_mag,
+             carr_mag) = dpe_real_ops.dpe_device_step_real(
+                rawf[:, 0], rawf[:, 1], d.chips, fp[0], ip[0], fp[1], fp[2],
+                d.time_idc, ip[1], ip[2], params, d.d_enu, d.dt_m, d.dv_enu,
+                d.dtdot, carr_fftpts=self.carr_fftpts, period=self.period,
+                n_periods=self.S // self.period, l_power=self.cfg.l_power,
+                interp=self.cfg.interp, code_win=self.code_win,
+                carr_win=self.carr_win)
 
         if self.cfg.use_argmax:
             pa, va = int(pos_arg), int(vel_arg)
@@ -649,9 +676,10 @@ class DPEReceiver:
         z[7] += dtdot
 
         # EKF measurement update (full mode: adaptive R from the score
-        # surface curvature)
+        # surface curvature; the FFT engine returns no windows, so its full
+        # EKF keeps the static R)
         r_meas = None
-        if self.cfg.ekf_mode == "full":
+        if self.cfg.ekf_mode == "full" and code_mag is not None:
             r_meas = self._adaptive_r(
                 code_mag.cpu().numpy(), carr_mag.cpu().numpy(),
                 pos_idx_c - pos_start, pos_coef,
@@ -1137,6 +1165,11 @@ class DPEReceiver:
         steer with — feeding it back corrupts the window centers and the
         run never recovers; coasting keeps the windows centered for the
         full-pass survey solve (weak-signal mode)."""
+        if self.cfg.engine != "real":
+            raise ValueError(
+                "integrated mode runs on engine='real' only; engine='fft' "
+                "is the per-block cross-validation oracle (see "
+                "DPEConfig.engine)")
         self._check_batch_mode(raw_blocks_dev, start_block,
                                n_batches * blocks_per_fix)
         prefetch = (_RawPrefetcher(self.rawfile,
@@ -1509,6 +1542,11 @@ class DPEReceiver:
         manifold scoring, one fix per group. Requires lookahead and
         n_blocks to be multiples of group_k.
         """
+        if self.cfg.engine != "real":
+            raise ValueError(
+                "batched mode runs on engine='real' only; engine='fft' is "
+                "the per-block cross-validation oracle (see "
+                "DPEConfig.engine)")
         if group_k > 1 and (lookahead % group_k or n_blocks % group_k):
             raise ValueError(
                 f"group_k={group_k} must divide lookahead={lookahead} "

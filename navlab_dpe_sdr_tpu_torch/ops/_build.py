@@ -37,24 +37,30 @@ _libs: dict[str, ctypes.CDLL] = {}
 # "score_argmax", K2 "score_surface", K3 "correlate_window" (one window) and
 # "correlate_windows" (the windows mode), K4 "track_chunk" (m = 1),
 # "track_chunk_coherent" (m > 1) and "track_chunk_batched" (batch_k > 1).
-# Each wrapper adds one right after its kernel launches, and nowhere else.
+# Each wrapper adds one right after its kernel launches, and nowhere else;
+# receivers of a fleet launch from threads of their own, so the count is
+# kept under a lock.
 KERNEL_MODES = ("score_argmax", "score_surface", "correlate_window",
                 "correlate_windows", "track_chunk", "track_chunk_coherent",
                 "track_chunk_batched")
 _launches: dict[str, int] = {}
+_count_lock = threading.Lock()
 
 
 def count_launch(kernel: str) -> None:
-    _launches[kernel] = _launches.get(kernel, 0) + 1
+    with _count_lock:
+        _launches[kernel] = _launches.get(kernel, 0) + 1
 
 
 def launch_counts() -> dict[str, int]:
     """{kernel mode: launches since the last reset} (0 for none)."""
-    return {k: _launches.get(k, 0) for k in KERNEL_MODES}
+    with _count_lock:
+        return {k: _launches.get(k, 0) for k in KERNEL_MODES}
 
 
 def reset_launch_counts() -> None:
-    _launches.clear()
+    with _count_lock:
+        _launches.clear()
 
 
 def nvcc_path() -> str:
@@ -106,11 +112,14 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first call."""
+def load(name: str, bind) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built on first call;
+    `bind(lib)` (its ctypes signatures) runs once, before any caller sees
+    the library, so threads launching at once never find it half bound."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
+            bind(lib)
             _libs[name] = lib
         return lib

@@ -352,7 +352,10 @@ def unpack_params(pk):
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on `device`; to a CUDA device as an
     asynchronous copy from pinned memory on the current stream."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:   # a memmap window of a capture file
+        arr = arr.copy()
+    t = torch.from_numpy(arr)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -227,26 +228,29 @@ MODE_SUM_ARGMAX, MODE_SUM_WEIGHTED = 3, 4
 # Per (device, stream): the kernel's reduction scratch, an int64 tensor of
 # zeros (packed maxima [cap] u64, then tickets [cap] u32). Each launch leaves
 # it zero for the next one on the same stream; it is dropped when a launch
-# is refused.
+# is refused. Threads (a fleet's receivers) take and replace entries under
+# _scratch_lock; launches that share an entry are ordered by their stream.
 _scratch: dict[tuple[int, int], torch.Tensor] = {}
+_scratch_lock = threading.Lock()
 _sm_count: dict[int, int] = {}
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.score_launch.argtypes = [p] * 7 + [i] * 17 + [p] * 9
+    lib.score_launch.restype = ctypes.c_int
+    lib.score_tiles.argtypes = [i] * 8
+    lib.score_tiles.restype = ctypes.c_int
+    lib.score_shared_bytes.argtypes = [i] * 4
+    lib.score_shared_bytes.restype = ctypes.c_longlong
+    lib.score_max_shared.argtypes = []
+    lib.score_max_shared.restype = ctypes.c_int
+    lib.score_error_string.argtypes = [i]
+    lib.score_error_string.restype = ctypes.c_char_p
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("score_argmax")
-    if lib.score_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.score_launch.argtypes = [p] * 7 + [i] * 17 + [p] * 9
-        lib.score_launch.restype = ctypes.c_int
-        lib.score_tiles.argtypes = [i] * 8
-        lib.score_tiles.restype = ctypes.c_int
-        lib.score_shared_bytes.argtypes = [i] * 4
-        lib.score_shared_bytes.restype = ctypes.c_longlong
-        lib.score_max_shared.argtypes = []
-        lib.score_max_shared.restype = ctypes.c_int
-        lib.score_error_string.argtypes = [i]
-        lib.score_error_string.restype = ctypes.c_char_p
-    return lib
+    return _build.load("score_argmax", _bind)
 
 
 @functools.lru_cache(maxsize=None)
@@ -323,10 +327,11 @@ def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
     def launch():
         stream = torch.cuda.current_stream(idx).cuda_stream
         key = (idx, stream)
-        scratch = _scratch.get(key)
-        if scratch is None or scratch.numel() < 2 * slots:
-            scratch = _scratch[key] = torch.zeros(
-                2 * max(slots, 64), dtype=torch.int64, device=dev)
+        with _scratch_lock:
+            scratch = _scratch.get(key)
+            if scratch is None or scratch.numel() < 2 * slots:
+                scratch = _scratch[key] = torch.zeros(
+                    2 * max(slots, 64), dtype=torch.int64, device=dev)
         return key, lib.score_launch(
             ptr(win_mag), ptr(los_enu), ptr(centers), ptr(coefs), ptr(r0),
             ptr(off3), ptr(off1), *strides, n, c, w, g,
@@ -342,7 +347,8 @@ def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
         with torch.cuda.device(idx):
             key, rc = launch()
     if rc != 0:
-        _scratch.pop(key, None)
+        with _scratch_lock:
+            _scratch.pop(key, None)
         msg = lib.score_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} "
                            f"(cudaError {rc})")

@@ -300,38 +300,37 @@ def track_chunk_cuda(stf, sti, rings, raw, code_table, fs: float,
     return stf_out, sti_out, rings_out, logf, logi
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.correlate_window_launch.argtypes = [p, i, p, p, p, i, i, i, f, p, p]
+    lib.correlate_window_launch.restype = i
+    lib.track_chunk_launch.argtypes = ([p, i] + [p] * 10 + [i, i, i]
+                                       + [TrackParams, p, p])
+    lib.track_chunk_launch.restype = i
+    for fn, args in ((lib.track_max_samples, [i]),
+                     (lib.track_ring_depth, [i, i]),
+                     (lib.track_window_depth, [i, i]),
+                     (lib.track_params_size, []), (lib.track_threads, []),
+                     (lib.track_cluster, []),
+                     (lib.track_clock_words, [])):
+        fn.argtypes, fn.restype = args, i
+    lib.track_error_string.argtypes = [i]
+    lib.track_error_string.restype = ctypes.c_char_p
+    if lib.track_params_size() != ctypes.sizeof(TrackParams):
+        raise RuntimeError("TrackParams layout differs between the "
+                           "kernel and its binding")
+    if lib.track_clock_words() != N_CLOCKS:
+        raise RuntimeError("clock buffer layout differs between the "
+                           "kernel and its binding")
+    if lib.track_threads() != KERNEL_THREADS:
+        # the plain sums follow the kernel's thread count (_kernel_order_sum)
+        raise RuntimeError(f"kernel sums over {lib.track_threads()} "
+                           f"threads per channel, plain sum order "
+                           f"assumes {KERNEL_THREADS}")
+
+
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("track_chunk")
-    if lib.track_chunk_launch.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.correlate_window_launch.argtypes = [p, i, p, p, p, i, i, i, f, p,
-                                                p]
-        lib.correlate_window_launch.restype = i
-        lib.track_chunk_launch.argtypes = ([p, i] + [p] * 10 + [i, i, i]
-                                           + [TrackParams, p, p])
-        lib.track_chunk_launch.restype = i
-        for fn, args in ((lib.track_max_samples, [i]),
-                         (lib.track_ring_depth, [i, i]),
-                         (lib.track_window_depth, [i, i]),
-                         (lib.track_params_size, []), (lib.track_threads, []),
-                         (lib.track_cluster, []),
-                         (lib.track_clock_words, [])):
-            fn.argtypes, fn.restype = args, i
-        lib.track_error_string.argtypes = [i]
-        lib.track_error_string.restype = ctypes.c_char_p
-        if lib.track_params_size() != ctypes.sizeof(TrackParams):
-            raise RuntimeError("TrackParams layout differs between the "
-                               "kernel and its binding")
-        if lib.track_clock_words() != N_CLOCKS:
-            raise RuntimeError("clock buffer layout differs between the "
-                               "kernel and its binding")
-        if lib.track_threads() != KERNEL_THREADS:
-            # the plain sums follow the kernel's thread count
-            # (_kernel_order_sum)
-            raise RuntimeError(f"kernel sums over {lib.track_threads()} "
-                               f"threads per channel, plain sum order "
-                               f"assumes {KERNEL_THREADS}")
-    return lib
+    return _build.load("track_chunk", _bind)
 
 
 def kernel_design() -> dict:

@@ -207,14 +207,14 @@ def test_run_batched_ephemeris_cutover_matches_jax(scenario):
 
 
 def test_unported_configs_raise(scenario):
-    """engine="fft" (the FFT DPE engine) and a mesh raise naming their
-    ROADMAP item; the all-real acquisition engine is not ported by design;
-    coherent windows stop at 10 ms."""
+    """A mesh raises naming its ROADMAP item (engine="fft" is ported:
+    tests/test_torch_fft_engine.py); the all-real acquisition engine is
+    not ported by design; coherent windows stop at 10 ms."""
     from navlab_dpe_sdr_tpu_torch.models import scalar as tscalar
     from navlab_dpe_sdr_tpu_torch.ops import tracking as ttrk
 
     samples, hand, arr, grid, _ = scenario
-    for cfg in (dict(engine="fft"), dict(mesh=object())):
+    for cfg in (dict(mesh=object()), dict(engine="fft", mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             tmodel.DPEReceiver(SampleFile(samples=samples, fs=FS),
                                copy.deepcopy(hand), grid=grid,

@@ -1,8 +1,10 @@
 """The port's own host layers (constants, io/*, libgnss/*, models/ekf,
-models/grid) against the JAX package's modules of the same names.
+models/grid, runtime/nativelib) against the JAX package's modules of the
+same names.
 
-They are copies of float64 numpy code, so the tolerance is 0: the same
-seeded inputs go through both and the results must be `np.array_equal`.
+They are copies of float64 numpy and plain host code, so the tolerance
+is 0: the same seeded inputs go through both and the results must be
+`np.array_equal`.
 One parametrised case per copied module, then a handoff file written by
 each package and read by the other, and the JAX package's scenario objects
 carried into the port's classes by their plain fields.
@@ -327,6 +329,235 @@ def case_handoff(tmp_path):
     same(hand_fields(ref.read_handoff(pa)), hand_fields(port.read_handoff(pb)))
 
 
+def _iq(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(-2048, 2048, (n, 2)).astype(np.int16)
+
+
+def case_frontend(tmp_path):
+    """tests/test_frontend.py's contracts, in both packages side by side:
+    the rotating recorder (file names from one fixed clock, contents), the
+    simulated radio (content, EOF, loop, pacing, file-backed start byte),
+    open_source's file / sim / tcp / soapy variants, the record pump,
+    MultiSource lockstep delivery, and LiveSampleFile's chunk reads and
+    phase marks."""
+    import os
+    import time
+
+    ref, port = both("io.frontend")
+    data = _iq(500 * 12)
+    names = []
+    for mod in (ref, port):
+        d = tmp_path / f"rec_{mod.__name__.split('.')[0]}"
+        rec = mod.RotatingRecorder(str(d), fs=1e6, usrp_index=3,
+                                   rotate_s=0.002,
+                                   clock=lambda: time.gmtime(86400))
+        with rec:
+            for k in range(12):
+                rec.write(data[k * 500:(k + 1) * 500])
+        names.append([os.path.basename(f) for f in rec.files])
+        back = np.concatenate([np.fromfile(f, np.int16).reshape(-1, 2)
+                               for f in rec.files])
+        same(back, data)
+    assert names[0] == names[1] and len(names[1]) == 3
+    assert names[1][0] == "19700102_000000_usrp3_1000KHz.dat"
+
+    data = _iq(4000)
+    for kw in (dict(), dict(loop=True)):
+        srcs = [m.SimulatedRadio(data, fs=1e6, block_samples=1500,
+                                 realtime=False, **kw) for m in (ref, port)]
+        for _ in range(4):
+            same(*(s.next_block() for s in srcs))
+    t0 = time.perf_counter()
+    src = port.SimulatedRadio(data, fs=100e3, block_samples=1000)
+    for _ in range(4):
+        assert src.next_block() is not None
+    assert time.perf_counter() - t0 >= 0.75 * 4 * 1000 / 100e3
+    path = tmp_path / "cap.dat"
+    data.tofile(path)
+    same(*(m.SimulatedRadio(str(path), fs=1e6, block_samples=1000,
+                            realtime=False, start_byte=4000).next_block()
+           for m in (ref, port)))
+
+    for m in (ref, port):
+        with m.open_source(str(path), fs=1e6, block_samples=1000) as src:
+            assert isinstance(src, m.FileSource)
+            same(src.next_block(), data[:1000])
+        with m.open_source(f"sim://{path}", fs=1e6,
+                           block_samples=1000) as src:
+            assert isinstance(src, m.SimulatedRadio)
+            same(src.next_block(), data[:1000])
+        net = importlib.import_module(
+            m.__name__.replace("frontend", "netsource"))
+        srv = net.FileReplayServer(str(path))
+        with m.open_source(f"tcp://127.0.0.1:{srv.port}", fs=1e6,
+                           block_samples=1000) as src:
+            assert type(src).__module__.startswith(
+                m.__name__.split(".")[0])
+            same(np.asarray(src.next_block()), data[:1000])
+        srv.join()
+        with pytest.raises(RuntimeError, match="SoapySDR"):
+            m.open_source("soapy://driver=rtlsdr", fs=1e6,
+                          block_samples=1000)
+
+    pumped = []
+    for m in (ref, port):
+        src = m.SimulatedRadio(_iq(20000, seed=3), fs=1e6, block_samples=2000,
+                               realtime=False, loop=True)
+        rec = m.RotatingRecorder(str(tmp_path / f"pump_{len(pumped)}"),
+                                 fs=1e6, rotate_s=0.004)
+        with src, rec:
+            n = m.record(src, rec, seconds=0.016)
+        pumped.append((n, len(rec.files), b"".join(
+            open(f, "rb").read() for f in rec.files)))
+    assert pumped[0] == pumped[1] and pumped[1][:2] == (8, 4)
+
+    got = []
+    for m in (ref, port):
+        multi = m.MultiSource(
+            [m.SimulatedRadio(data, fs=1e6, block_samples=1000,
+                              realtime=False, start_byte=b)
+             for b in (0, 400)], m.RadioSyncConfig(setup_time_s=0.0))
+        with multi:
+            got.append([multi.next_blocks() for _ in range(4)])
+    assert got[0][-1] is None and got[1][-1] is None
+    same(got[0][:3], got[1][:3])
+
+    raw = importlib.import_module(f"{PORT}.io.rawfile")
+    s16 = np.zeros(25000 * 8, raw.DTYPE_IQ16)
+    s16["i"] = _iq(25000 * 8, seed=4)[:, 0]
+    chunks, snaps = [], []
+    for m in (ref, port):
+        rf = m.LiveSampleFile(
+            m.SimulatedRadio(s16.copy(), fs=2.5e6, block_samples=2500,
+                             realtime=False),
+            fs=2.5e6, max_seconds=0.2, timeout_s=10.0, miss_budget_s=0.005)
+        try:
+            chunks.append(rf.read_chunk_raw(10))
+            rf.phase_mark("p1")
+            assert rf.lag_misses == 0 and rf.lag_max_s == 0.0
+            time.sleep(0.05)
+            chunks.append(rf.read_block_raw())
+            snaps.append(rf.phase_mark("p2"))
+            assert set(rf.phases) == {"p1", "p2"}
+        finally:
+            rf.close()
+    same(chunks[0], chunks[2])
+    same(chunks[1], chunks[3])
+    assert all(s["lag_misses"] >= 1 for s in snaps)
+    assert issubclass(port.LiveSampleFile, raw.SampleFile)
+
+
+def case_netsource(tmp_path):
+    """The pure-Python TCP reader over each package's file replay server,
+    and the paced server's rate (tests/test_runtime.py:223)."""
+    import socket
+    import time
+
+    ref, port = both("io.netsource")
+    data = _iq(3000, seed=6)
+    path = tmp_path / "cap.dat"
+    data.tofile(path)
+    got = []
+    for m in (ref, port):
+        srv = m.FileReplayServer(str(path))
+        with m.TcpSampleSource("127.0.0.1", srv.port, 1000,
+                               timeout_s=5.0, start_byte=400) as src:
+            got.append([src.next_block() for _ in range(3)])
+        srv.join()
+    assert got[0][-1] is None and got[1][-1] is None
+    same(got[0][:2], got[1][:2])
+    same(got[1][0], data[100:1100])
+
+    fs = 500_000.0
+    paced = tmp_path / "paced.bin"
+    paced.write_bytes(b"\x11" * int(fs * 4 * 2))
+    srv = port.PacedReplayServer(str(paced), fs=fs)
+    n = 0
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", srv.port)) as c:
+        c.settimeout(2.0)
+        while time.perf_counter() - t0 < 0.4:
+            n += len(c.recv(65536))
+    rate = n / (time.perf_counter() - t0)
+    assert 0.75 * fs * 4 < rate < 1.25 * fs * 4, rate
+
+
+def case_runtime_nativelib(tmp_path):
+    """tests/test_runtime.py's native cases in both packages: the sample
+    stream (blocks, EOF, start byte, a TCP socket with a skipped
+    preamble), the async logger (CSV and binary) and the port logger
+    (complex interleave). The port's library is built from its own copied
+    sources into its own build directory."""
+    import socket
+    import threading
+
+    ref, port = both("runtime.nativelib")
+    assert port.library_path().parent == importlib.import_module(
+        f"{PORT}.ops._build").build_dir()
+    s = 1000
+    data = np.arange(10 * s * 2, dtype=np.int16)
+    path = tmp_path / "cap.dat"
+    data.tofile(path)
+    for start in (0, 3 * s * 4):
+        got = []
+        for m in (ref, port):
+            with m.SampleStream(str(path), block_samples=s, n_buffers=4,
+                                start_byte=start) as st:
+                got.append([st.next_block() for _ in range(11 - start // (
+                    s * 4))])
+        assert got[0][-1] is None and got[1][-1] is None
+        same(got[0][:-1], got[1][:-1])
+    same(got[1][0], data[3 * s * 2:4 * s * 2].reshape(s, 2))
+
+    rows = np.random.default_rng(0).standard_normal((50, 6))
+    texts = []
+    for m in (ref, port):
+        for binary in (False, True):
+            p = tmp_path / f"log_{m.__name__.split('.')[0]}_{binary}"
+            with m.AsyncLogger(str(p), n_cols=6, depth=8,
+                               binary=binary) as lg:
+                for r in rows:
+                    lg.write(r)
+            texts.append(p.read_bytes())
+        p = tmp_path / f"port_{m.__name__.split('.')[0]}.csv"
+        state = {"v": np.array([1 + 2j, 3 - 4j])}
+        with m.PortLogger(str(p), lambda: state["v"]) as pl:
+            pl.step()
+            state["v"] = np.array([5 + 6j, 7 + 8j])
+            pl.step()
+        texts.append(p.read_bytes())
+    assert texts[:3] == texts[3:]
+    np.testing.assert_allclose(np.loadtxt(tmp_path / "log_navlab_dpe_sdr_"
+                                          "tpu_torch_False", delimiter=","),
+                               rows, rtol=1e-10)
+    same(np.frombuffer(texts[4], np.float64).reshape(50, 6), rows)
+    same(np.loadtxt(tmp_path / "port_navlab_dpe_sdr_tpu_torch.csv",
+                    delimiter=","), np.array([[1., 2, 3, -4], [5, 6, 7, 8]]))
+
+    blocks = (np.arange(4 * 250 * 2, dtype=np.int16).reshape(4, 250, 2))
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+
+    def serve():
+        conn, _ = srv.accept()
+        conn.sendall(b"\x55" * 24 + blocks.tobytes())
+        conn.close()
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    with port.SampleStream(f"tcp://127.0.0.1:{srv.getsockname()[1]}",
+                           block_samples=250, start_byte=24,
+                           timeout_s=5.0) as st:
+        for k in range(4):
+            same(st.next_block(), blocks[k])
+        assert st.next_block() is None
+    t.join(timeout=2.0)
+    assert not t.is_alive()
+    srv.close()
+
+
 CASES = {
     "constants": case_constants, "io.handoff": case_handoff,
     "io.rawfile": case_rawfile, "io.scenario": case_scenario,
@@ -337,6 +568,8 @@ CASES = {
     "libgnss.naveng": case_naveng, "libgnss.satcache": case_satcache,
     "libgnss.satpos": case_satpos, "libgnss.tropo": case_tropo,
     "models.ekf": case_ekf, "models.grid": case_grid,
+    "io.frontend": case_frontend, "io.netsource": case_netsource,
+    "runtime.nativelib": case_runtime_nativelib,
 }
 
 
@@ -359,7 +592,7 @@ def test_every_copied_module_has_a_case():
         m.name[len(PORT) + 1:] for m in pkgutil.walk_packages(
             port.__path__, PORT + ".")
         if not m.ispkg and m.name.split(".")[1] in ("constants", "io",
-                                                    "libgnss")
+                                                    "libgnss", "runtime")
         or m.name in (f"{PORT}.models.ekf", f"{PORT}.models.grid"))
     assert held == sorted(CASES)
 

@@ -550,9 +550,15 @@ def test_constructor_refusals_match_jax(scenario):
             build(pkg, refine="newton", use_argmax=False)
         with pytest.raises(ValueError, match="score windows"):
             build(pkg, refine="newton", engine="fft")
-    for cfg in (dict(engine="fft"), dict(engine="fft", ekf_mode="full"),
-                dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            build(tmodel, **cfg)
+        # the FFT engine: per-block only, and the full EKF keeps static R
+        with pytest.warns(UserWarning, match="static default R"):
+            build(pkg, engine="fft", ekf_mode="full")
+        rx = build(pkg, engine="fft")
+        with pytest.raises(ValueError, match="batched mode runs on"):
+            rx.run_batched(4, lookahead=4)
+        with pytest.raises(ValueError, match="integrated mode runs on"):
+            rx.run_integrated(1, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        build(tmodel, mesh=object())
     with pytest.raises(ValueError, match="interp"):
         build(tmodel, interp="cubic")

@@ -107,6 +107,30 @@ def test_track_chunk_kernel_equals_plain(capture, skew, dev):
         assert torch.equal(getattr(sk, k), getattr(sp, k)), k
 
 
+def test_track_chunk_one_window_chunks_equal_plain(capture, dev):
+    """A fleet's align tracks its catch-up milliseconds one [1, S, 2] chunk
+    a launch: fewer windows than the ring's slots, the state carried from
+    launch to launch. Seven such chunks after 100 tracked ms, kernel chain
+    against plain chain, bit for bit at every chunk."""
+    samples, hand, _ = capture
+    tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
+    raw = torch.from_numpy(samples[:107 * S].view(np.int16)
+                           .reshape(107, S, 2).copy()).to(dev)
+    sk, _, _ = tracking.track_chunk_packed(_seeded_state(hand, dev),
+                                           raw[:100], tab, FS, FCAID)
+    sp = sk
+    before = _build.launch_counts()["track_chunk"]
+    for k in range(100, 107):
+        sk, lfk, lik = tracking.track_chunk_packed(sk, raw[k:k + 1], tab,
+                                                   FS, FCAID)
+        sp, lfp, lip = tracking.track_chunk_plain(sp, raw[k:k + 1], tab,
+                                                  FS, FCAID)
+        assert torch.equal(lik, lip) and torch.equal(lfk, lfp), k
+        for f in tracking.TrackState._fields:
+            assert torch.equal(getattr(sk, f), getattr(sp, f)), (k, f)
+    assert _build.launch_counts()["track_chunk"] == before + 7
+
+
 def test_track_chunk_clocks_do_not_change_the_logs(capture, dev):
     """The measuring instantiation (clock64() sums) logs what the path's
     does, and fills every word of its buffer."""

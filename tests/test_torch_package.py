@@ -26,13 +26,15 @@ HOST_LAYERS = ("constants", "io.handoff", "io.rawfile", "io.scenario",
                "io.synth", "libgnss.cacode", "libgnss.dataparser",
                "libgnss.ephemeris", "libgnss.frames", "libgnss.iono",
                "libgnss.lnav", "libgnss.naveng", "libgnss.satcache",
-               "libgnss.satpos", "libgnss.tropo", "models.ekf", "models.grid")
+               "libgnss.satpos", "libgnss.tropo", "models.ekf", "models.grid",
+               "io.frontend", "io.netsource", "runtime.nativelib")
 
 
 def test_port_modules_listed():
     for name in ("device", "ops._build", "ops.dpe", "ops.dpe_real",
                  "ops.score", "models.dpe", "ops.acquisition", "ops.track",
-                 "ops.tracking", "models.scalar") + HOST_LAYERS:
+                 "ops.tracking", "models.scalar", "models.vector",
+                 "models.fleet", "models.montecarlo") + HOST_LAYERS:
         assert f"navlab_dpe_sdr_tpu_torch.{name}" in PORT_MODULES
 
 
@@ -151,7 +153,11 @@ def test_build_dir_falls_back_to_the_user_cache(monkeypatch, tmp_path):
               "rb") as f:
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
     globs = data["navlab_dpe_sdr_tpu_torch"]
-    shipped = {p for g in globs for p in _build.PACKAGE_DIR.glob(g)}
-    assert {p.resolve() for p in _build.CSRC.glob("*.cu")} == {
-        p.resolve() for p in shipped}
-    assert len(shipped) == 2
+    shipped = {p.resolve() for g in globs
+               for p in _build.PACKAGE_DIR.glob(g)}
+    # the kernels' sources and the native host runtime's copied sources
+    native = _build.PACKAGE_DIR / "runtime" / "native"
+    want = {p.resolve() for p in (*_build.CSRC.glob("*.cu"),
+                                  *native.glob("*.cpp"))}
+    assert shipped == want
+    assert len(shipped) == 4
