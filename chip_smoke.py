@@ -13,7 +13,8 @@ Phases, one line or more each (any failure raises and exits non-zero):
    390 625 points per manifold, code/carrier windows of the receiver),
    every case of manifold x l_power x interp x weighted, with both times
    (CUDA events around the wrapper, and the kernel's own time from
-   torch.profiler), and the grouped path's N=10;
+   torch.profiler), the grouped path's N=10 and the receiver's default
+   lookahead N=25 (the CLI's `live`), each a launch plan of its own;
 4. one fused dispatch on the card against the same dispatch on the CPU;
 5. the batched main path: DPEReceiver.run_batched on the first 10 s of a
    40 s synthetic capture held on the card as int16 [B, S, 2]: 100 warm-up
@@ -98,11 +99,29 @@ Phases, one line or more each (any failure raises and exits non-zero):
 23. the Monte-Carlo harness at full width: perturbation_sweep (8 runs x 50
    blocks, the 50-80 m band), spacing_sweep (3 spacings x 50 blocks),
    cn0_sweep ([45, 30] dB-Hz, 32 blocks, 8 a fix), weak_sweep (27 dB-Hz,
-   128 blocks); the convergence summaries and walls.
+   128 blocks); the convergence summaries and walls;
+24. the command line (navlab_dpe_sdr_tpu_torch/cli.py) through cli.main in
+   this process, on the capture written to a temporary file with its truth
+   handoff: acquire (8/8), track 34 s (8/8 ephemerides, scalar fix within
+   15 m, handoff and checkpoint), track 36 s with --coh-ms 4 and with
+   --batch-k 4 (the same limits), dpe batched from that handoff (lookahead
+   50, group_k 5, depth 4, 200 blocks: median within 15 m), per block with
+   the native streamer, the X_ECEF log and a profiler trace, integrated (8
+   blocks a fix), the batched and integrated CSVs each equal, to the CSV's
+   print precision, to the same receiver and mode driven through the
+   Python API, survey from the truth handoff as phase 12 (E and N
+   within 1.5 m), vt (50 epochs after a 34 s
+   pull-in), live over the simulated radio (no real-time miss), a live
+   fleet of two simulated radios warmed up and run to its decode-failed
+   branch (1 s), the console from a dofile; one "CLI ..." line each (wall,
+   signal, launches, error);
+   then `python -m navlab_dpe_sdr_tpu_torch dpe` in a fresh interpreter
+   (exit 0, iteration 1's time against the 1.5 s watchdog).
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 The line before the last is the kernels' JSON record (launches on the
-timed paths, error against the plain version, ms, plain ms, the roofline
+timed paths, and by path in launches_by_path, the CLI's included; error
+against the plain version, ms, plain ms, the roofline
 bound of the same work and what sets it, library_ms: null where no single
 PyTorch call computes the function, device_ms: the kernel's own time from
 torch.profiler, null if the profiler showed none); the last line is
@@ -112,11 +131,15 @@ no result. Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import hashlib
+import io
 import json
+import os
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -127,7 +150,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from navlab_dpe_sdr_tpu_torch import cli
 from navlab_dpe_sdr_tpu_torch.constants import F_CA, F_L1
+from navlab_dpe_sdr_tpu_torch.io.handoff import read_handoff, write_handoff
+from navlab_dpe_sdr_tpu_torch.io.printer import FixWriter
 from navlab_dpe_sdr_tpu_torch.io.frontend import (MultiSource,
                                                   RadioSyncConfig,
                                                   SimulatedRadio)
@@ -143,6 +169,7 @@ from navlab_dpe_sdr_tpu_torch.models.dpe import (DPEConfig, DPEReceiver,
                                                  device_state)
 from navlab_dpe_sdr_tpu_torch.models.fleet import ReceiverFleet
 from navlab_dpe_sdr_tpu_torch.models.scalar import ScalarReceiver
+from navlab_dpe_sdr_tpu_torch.runtime import flow
 from navlab_dpe_sdr_tpu_torch.models.vector import VectorReceiver
 from navlab_dpe_sdr_tpu_torch.ops import _build, score, track, tracking
 from navlab_dpe_sdr_tpu_torch.ops import dpe as dpe_ops
@@ -387,17 +414,24 @@ def check_scorer(grid, widths, dev):
                                "score_kernel")
         args10 = [None if a is None else a[:10].contiguous()
                   for a in args[:5]] + args[5:]
-        got = score.score_argmax(*args10)
-        want = score.score_argmax_plain(*args10)
-        max_err = max(max_err, compare_scores(
-            args10, got, want, dict(interp="quadratic", l_power=1,
-                                    weighted=False)))
+        # and N = 25: the receiver's default lookahead (the CLI's `live`),
+        # which has a launch plan of its own
+        args25 = [None if a is None else a[:25].contiguous()
+                  for a in args[:5]] + args[5:]
+        for a_n in (args10, args25):
+            got = score.score_argmax(*a_n)
+            want = score.score_argmax_plain(*a_n)
+            max_err = max(max_err, compare_scores(
+                a_n, got, want, dict(interp="quadratic", l_power=1,
+                                     weighted=False)))
         m10 = cuda_ms(lambda: score.score_argmax(*args10), 20)
         d10 = kernel_device_ms(lambda: score.score_argmax(*args10), 10,
                                "score_kernel")
+        m25 = cuda_ms(lambda: score.score_argmax(*args25), 20)
         log(f"scorer {manifold} W={widths[manifold]} quadratic l_power=1 "
             f"argmax: kernel's own time N=50 {fmt_ms(d50)}; N=10: kernel == "
-            f"plain, wrapper {m10:.4f} ms, kernel's own {fmt_ms(d10)}")
+            f"plain, wrapper {m10:.4f} ms, kernel's own {fmt_ms(d10)}; "
+            f"N=25: kernel == plain, wrapper {m25:.4f} ms")
         ms10 += m10
         dev_ms, dev_ms10 = add_ms(dev_ms, d50), add_ms(dev_ms10, d10)
     return dict(err=max_err,
@@ -1768,6 +1802,266 @@ def check_montecarlo(samples, hand, dev, card):
     return counts
 
 
+REPO = pathlib.Path(__file__).resolve().parent
+PRNS = "2,7,6,12,31,30,13,26"     # the scenario's eight
+CLI_TRACK_S = 34                  # as the fleet: 8/8 decode, 200 blocks fit
+
+
+def run_cli(argv, stdin_text=None):
+    """cli.main(argv) in this process, the launch counts set to 0 just
+    before it and read just after: (stdout, wall s, launches by key). What
+    it printed is shown if it raises."""
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    stdin = sys.stdin
+    try:
+        if stdin_text is not None:
+            sys.stdin = io.StringIO(stdin_text)
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(out.getvalue()[-6000:], flush=True)
+        raise
+    finally:
+        sys.stdin = stdin
+    return out.getvalue(), time.perf_counter() - t0, _build.launch_counts()
+
+
+def csv_errors(path, truth, col0, header):
+    """3-D errors [m] of the ECEF columns col0..col0+2 of a CSV."""
+    rows = np.loadtxt(path, delimiter=",", skiprows=int(header),
+                      usecols=(col0, col0 + 1, col0 + 2), ndmin=2)
+    return np.linalg.norm(rows - truth[:3], axis=1)
+
+
+def same_fixes_csv(cli_csv, api_csv) -> float:
+    """Two FixWriter CSVs: equal rows, counts and times equal, the numbers
+    equal to the print precision (one 1 mm step of %+15.3f, allowing the
+    rounding of values a hair apart). Returns the largest difference."""
+    a = np.loadtxt(cli_csv, delimiter=",", skiprows=1, ndmin=2)
+    b = np.loadtxt(api_csv, delimiter=",", skiprows=1, ndmin=2)
+    assert a.shape == b.shape and len(a), (a.shape, b.shape)
+    np.testing.assert_array_equal(a[:, :3], b[:, :3])
+    diff = float(np.abs(a[:, 3:] - b[:, 3:]).max())
+    assert diff <= 1.5e-3, diff
+    return diff
+
+
+def check_cli(samples, hand, dev, card):
+    """Phase 24: the command line, each subcommand through cli.main in this
+    process on the 40 s capture written to a temporary file with its truth
+    handoff: acquire; track to 8/8 ephemerides and a handoff, then 36 s
+    coherent (--coh-ms 4) and with --batch-k 4; dpe batched
+    (lookahead 50, group_k 5, depth 4), per block with the native streamer,
+    the X_ECEF log and a profiler trace, and integrated (8 a fix), the
+    batched and integrated CSVs held to the same receiver driven through
+    the Python API; survey; vt; live over the simulated radio; a live fleet
+    of two simulated radios to its decode-failed branch, its warm-up
+    included; the console from a dofile; then
+    `python -m navlab_dpe_sdr_tpu_torch dpe` in a fresh interpreter. The
+    per-block runs pass --watchdog 60 and print iteration 1's time
+    (FlowStats.first_s). Returns launches by kernel key, summed."""
+    truth = hand.x_ecef
+    r_e2n = frames.ecef_to_enu_matrix(truth[0:3])
+    dv = ["--device", str(torch.device(dev).type)]
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        cap, hand_csv, scal = tmp / "cap.dat", tmp / "truth.csv", \
+            tmp / "scalar.csv"
+        samples.tofile(cap)
+        write_handoff(str(hand_csv), hand)
+
+        def api_csv(name, run):
+            """The CLI's receiver and mode driven through the Python API on
+            the card and written by the same FixWriter, to hold the CLI's
+            CSV to: what differs is only the CLI's wiring."""
+            rx = DPEReceiver(SampleFile(str(cap)), read_handoff(str(scal)),
+                             grid=spread_grid(), config=DPEConfig(),
+                             device=dev)
+            run(rx)
+            with FixWriter(str(tmp / name), weekno=2008) as w:
+                for f in rx.fixes:
+                    w.write(f)
+            return tmp / name
+
+        def call(name, argv, signal_s, stdin_text=None):
+            text, wall, counts = run_cli(dv + argv, stdin_text)
+            for k, n in counts.items():
+                totals[k] = totals.get(k, 0) + n
+            shown = {k: n for k, n in counts.items() if n}
+            return text, wall, shown, (f"CLI {name}: wall {wall:.3f} s for "
+                                       f"{signal_s:.2f} s of signal, "
+                                       f"launches {json.dumps(shown)}")
+
+        text, wall, counts, line = call(
+            "acquire", ["acquire", str(cap), "--prns", PRNS], 0.01)
+        found = sum(ln.split()[1] == "True" for ln in text.splitlines()[1:])
+        assert found == 8, text
+        log(f"{line}, {found}/8 found [{card}]")
+
+        text, wall, counts, line = call(
+            "track", ["track", str(cap), "--prns", PRNS, "--seconds",
+                      str(CLI_TRACK_S), "--handoff", str(scal),
+                      "--checkpoint", str(tmp / "ck")], CLI_TRACK_S)
+        n_eph = text.count("complete=True")
+        err = float(np.linalg.norm(read_handoff(str(scal)).x_ecef[:3]
+                                   - truth[:3]))
+        assert n_eph == 8 and err < 15.0, (n_eph, err)
+        assert (tmp / "ck" / "receiver.mat").is_file()
+        log(f"{line}, {n_eph}/8 ephemerides, scalar fix {err:.2f} m from "
+            f"the truth (limit 15) [{card}]")
+
+        for mode, key in ((["--coh-ms", "4"], "track_chunk_coherent"),
+                          (["--batch-k", "4"], "track_chunk_batched")):
+            text, wall, counts, line = call(
+                "track " + " ".join(mode),
+                ["track", str(cap), "--prns", PRNS, "--seconds", "36", *mode],
+                36.0)
+            n_eph = text.count("complete=True")
+            x = np.array(re.search(r"fix: ECEF \[([^\]]*)\]", text).group(1)
+                         .split(), float)
+            err = float(np.linalg.norm(x - truth[:3]))
+            assert n_eph == 8 and err < 15.0 and counts.get(key, 0) > 0, \
+                (mode, n_eph, err, counts)
+            log(f"{line}, {n_eph}/8 ephemerides, scalar fix {err:.2f} m "
+                f"from the truth (limit 15) [{card}]")
+
+        text, wall, counts, line = call(
+            "dpe --batched", ["dpe", str(cap), "--handoff", str(scal),
+                              "--batched", "--lookahead", "50", "--group-k",
+                              "5", "--pipeline-depth", "4", "--blocks", "200",
+                              "--out", str(tmp / "fixes.csv")], 200 * T)
+        err = csv_errors(tmp / "fixes.csv", truth, 3, header=True)
+        med = float(np.median(err))
+        assert counts.get("score_argmax", 0) > 0 and len(err) == 40
+        assert np.isfinite(err).all() and med < 15.0, med
+        diff = same_fixes_csv(tmp / "fixes.csv", api_csv(
+            "fixes_api.csv", lambda rx: rx.run_batched(
+                200, lookahead=50, group_k=5, pipeline=True,
+                pipeline_depth=4)))
+        log(f"{line}, {len(err)} fixes in the CSV, error median {med:.2f} m "
+            f"p95 {float(np.percentile(err, 95)):.2f} m (limit 15); CSV == "
+            f"the Python API's run_batched on the card (max diff {diff:.1e}, "
+            f"limit 1.5e-3) [{card}]")
+
+        text, wall, counts, line = call(
+            "dpe (per block, native I/O)",
+            ["dpe", str(cap), "--handoff", str(scal), "--blocks", "50",
+             "--native-io", "--xecef-log", str(tmp / "x.csv"),
+             "--profile-dir", str(tmp / "prof"), "--watchdog", "60"], 50 * T)
+        err = csv_errors(tmp / "x.csv", truth, 1, header=False)
+        trace = (tmp / "prof" / "trace.json").read_bytes()
+        first = re.search(r"first iteration: (\S+) ms", text).group(1)
+        assert counts.get("score_surface", 0) > 0 and len(err) == 50
+        assert b"score_kernel" in trace and np.isfinite(err).all()
+        log(f"{line}, x.csv {len(err)} rows, error median "
+            f"{float(np.median(err)):.2f} m, profiler trace "
+            f"{len(trace) / 1e6:.1f} MB naming score_kernel "
+            f"{trace.count(b'score_kernel')} times, first iteration {first} "
+            f"ms (watchdog 60 s; the default is 1.5 s) [{card}]")
+
+        text, wall, counts, line = call(
+            "dpe --integrate 8", ["dpe", str(cap), "--handoff", str(scal),
+                                  "--integrate", "8", "--blocks", "200",
+                                  "--out", str(tmp / "integ.csv")], 200 * T)
+        err = csv_errors(tmp / "integ.csv", truth, 3, header=True)
+        med = float(np.median(err))
+        assert counts.get("score_argmax", 0) > 0 and len(err) == 25
+        assert med < 15.0, med
+        diff = same_fixes_csv(tmp / "integ.csv", api_csv(
+            "integ_api.csv", lambda rx: rx.run_integrated(
+                25, blocks_per_fix=8)))
+        log(f"{line}, 25 fixes, error median {med:.2f} m (limit 15); CSV == "
+            f"the Python API's run_integrated on the card (max diff "
+            f"{diff:.1e}, limit 1.5e-3) [{card}]")
+
+        text, wall, counts, line = call(
+            "survey", ["survey", str(cap), "--handoff", str(hand_csv),
+                       "--blocks", "200", "--batch", "50", "--json",
+                       str(tmp / "s.json")], 200 * T)
+        res = json.loads((tmp / "s.json").read_text())
+        enu = r_e2n @ (np.array(res["x_ecef"][:3]) - truth[:3])
+        assert res["n_batches"] == 4 and counts.get("score_argmax", 0) > 0
+        assert abs(enu[0]) < 1.5 and abs(enu[1]) < 1.5, enu
+        log(f"{line}, ENU error {enu[0]:.2f} / {enu[1]:.2f} / {enu[2]:.2f} m "
+            f"(limits E, N 1.5) [{card}]")
+
+        text, wall, counts, line = call(
+            "vt", ["vt", str(cap), "--prns", PRNS, "--pullin",
+                   str(CLI_TRACK_S), "--epochs", "50"], CLI_TRACK_S + 50 * T)
+        x = np.array(re.search(r"final fix: \[([^\]]*)\]", text).group(1)
+                     .split(), float)
+        err = float(np.linalg.norm(x - truth[:3]))
+        assert counts.get("correlate_windows", 0) == 50, counts
+        assert np.isfinite(err) and err < 20.0, err
+        log(f"{line}, last vector fix {err:.2f} m from the truth (limit 20) "
+            f"[{card}]")
+
+        text, wall, counts, line = call(
+            "live --source sim", ["live", str(cap), "--handoff", str(scal),
+                                  "--source", "sim", "--seconds", "2",
+                                  "--lookahead", "25", "--json",
+                                  str(tmp / "live.json")], 2.0)
+        rec = json.loads((tmp / "live.json").read_text())
+        if rec["rt_misses"]:
+            log(f"CLI live: {rec['rt_misses']} real-time misses [{card}]")
+        assert rec["rt_misses"] == 0 and rec["iterations"] == 4, rec
+        log(f"{line}, {rec['iterations']} iterations of {rec['lookahead']} "
+            f"blocks, {rec['rt_misses']} real-time misses, avg compute "
+            f"{rec['avg_compute_ms']} ms of a {rec['budget_ms']:.0f} ms "
+            f"budget (margin {rec['margin_x']}x), max "
+            f"{rec['max_compute_ms']} ms [{card}]")
+
+        text, wall, counts, line = call(
+            "fleet --live", ["fleet", str(cap), "--live", "--offsets-ms",
+                             "0,7", "--prns", PRNS, "--seconds", "1",
+                             "--dpe-blocks", "50", "--stats-out",
+                             str(tmp / "fleet.json")], 1.0)
+        stats = json.loads((tmp / "fleet.json").read_text())
+        assert stats["decode_failed"] and len(stats["sources"]) == 2, stats
+        assert counts.get("track_chunk", 0) > 0, counts
+        assert counts.get("score_argmax", 0) == 2, counts
+        log(f"{line}, two simulated radios on one clock warmed up (a "
+            f"25-block DPE dispatch included), 1 s decodes no ephemeris "
+            f"(the decode-failed branch), track-phase lag misses "
+            f"{[s['phases']['track']['lag_misses'] for s in stats['sources']]}"
+            f" [{card}]")
+
+        script = tmp / "flow.dofile"
+        script.write_text(f"newflow f {cap} {scal}\nsetparam f interp "
+                          f"linear\nstartflow f 5\nstatus\n")
+        text, wall, counts, line = call(
+            "console", ["console"], 5 * T,
+            stdin_text=f"dofile {script}\nquit\n")
+        assert "final fix" in text and "failed" not in text, text
+        assert counts.get("score_surface", 0) > 0
+        log(f"{line}, dofile newflow / setparam / startflow f 5 / status: "
+            f"{text.count('fixes=5')} flow with 5 fixes [{card}]")
+
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "navlab_dpe_sdr_tpu_torch", "dpe",
+             str(cap), "--handoff", str(scal), "--blocks", "20",
+             "--watchdog", "60"], capture_output=True, text=True, env=env,
+            cwd=REPO, timeout=300)
+        wall = time.perf_counter() - t0
+        if res.returncode or "final fix" not in res.stdout:
+            print(res.stdout[-3000:], res.stderr[-3000:], flush=True)
+        assert res.returncode == 0 and "final fix" in res.stdout
+        first = re.search(r"first iteration: (\S+) ms", res.stdout).group(1)
+        log(f"CLI python -m navlab_dpe_sdr_tpu_torch dpe --blocks 20 (a "
+            f"fresh interpreter): exit 0, wall {wall:.3f} s with start-up, "
+            f"first iteration {first} ms, "
+            + re.search(r"20 iterations: [^\n]*", res.stdout).group(0)
+            + f" [{card}]")
+    return totals
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1789,7 +2083,7 @@ def main() -> int:
                                   grid.dtdot, FS, CARR_FFTPTS)
     widths = {"pos": cw, "vel": vw}
     k1 = check_scorer(grid, widths, dev)
-    log(f"scorer: kernel == plain in all 16 cases and at N=10 (max|best "
+    log(f"scorer: kernel == plain in all 16 cases and at N=10, 25 (max|best "
         f"diff| {k1['err']:.3e}); per dispatch (pos W={cw} + vel W={vw}, "
         f"G={grid.n_pos}): N=50 wrapper {k1['ms']:.4f} ms, kernel's own "
         f"{fmt_ms(k1['device_ms'])}, plain {k1['plain_ms']:.4f} ms; N=10 "
@@ -1892,26 +2186,35 @@ def main() -> int:
     mc = check_montecarlo(samples, hand, dev, card)
     k1_by_path["montecarlo"] = mc["score_argmax"]
     k2_by_path["montecarlo"] = mc["score_surface"]
-    for by_path in (k1_by_path, k2_by_path, k4_by_path):
+    t0 = time.perf_counter()
+    cl = check_cli(samples, hand, dev, card)
+    log(f"CLI phase: wall {time.perf_counter() - t0:.3f} s [{card}]")
+    k1_by_path["cli"] = cl["score_argmax"]
+    k2_by_path["cli"] = cl["score_surface"]
+    k4_by_path["cli"] = cl["track_chunk"]
+    k4c_by_path["cli"] = cl["track_chunk_coherent"]
+    k3_by_path = {"cold start": counts["correlate_window"],
+                  "cli": cl["correlate_window"]}
+    k4b_by_path = {"track(2000, batch_k=4)": k4b.pop("launches"),
+                   "cli": cl["track_chunk_batched"]}
+    k3w_by_path = {"vector": k3w_launches, "cli": cl["correlate_windows"]}
+    for by_path in (k1_by_path, k2_by_path, k4_by_path, k4c_by_path,
+                    k4b_by_path, k3w_by_path):
         assert all(n > 0 for n in by_path.values()), by_path
 
     # no single PyTorch call computes any of these functions: library_ms is
     # null throughout
-    rows = [("K1", sum(k1_by_path.values()), k1),
-            ("K2", sum(k2_by_path.values()), k2),
-            ("K3", counts["correlate_window"], k3),
-            ("K4", sum(k4_by_path.values()), k4),
-            ("K4 coherent", sum(k4c_by_path.values()), k4c),
-            ("K4 batch_k", k4b.pop("launches"), k4b),
-            ("K3 windows", k3w_launches, k3w)]
-    kernels = [dict(KERNELS[k], launches=n, max_abs_err=r["err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"], **r["bound"], library_ms=None,
-                    device_ms=r["device_ms"]) for k, n, r in rows]
-    kernels[1]["launches_by_path"] = k2_by_path
-    kernels[3]["launches_by_path"] = k4_by_path
-    kernels[4]["launches_by_path"] = k4c_by_path
+    rows = [("K1", k1_by_path, k1), ("K2", k2_by_path, k2),
+            ("K3", k3_by_path, k3), ("K4", k4_by_path, k4),
+            ("K4 coherent", k4c_by_path, k4c),
+            ("K4 batch_k", k4b_by_path, k4b),
+            ("K3 windows", k3w_by_path, k3w)]
+    kernels = [dict(KERNELS[k], launches=sum(by_path.values()),
+                    max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                    **r["bound"], library_ms=None, device_ms=r["device_ms"],
+                    launches_by_path=by_path) for k, by_path, r in rows]
     kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"],
-                      launches_by_path=k1_by_path, **k1_sum)
+                      **k1_sum)
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of "
             f"{k['bound_ms']:.5f} ms ({k['bound_by']}; "

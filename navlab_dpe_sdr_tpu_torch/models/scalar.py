@@ -89,11 +89,7 @@ class ScalarReceiver:
         (e.g. deep_ms=400, n_coh_ms=10 acquires ~10 dB below the nominal
         search floor)."""
         if engine == "real":
-            raise NotImplementedError(
-                "engine='real' (the all-real TPU acquisition engine, "
-                "ops/acquisition_real) is not ported by design: ROADMAP "
-                "'Not to port'; engine='fft' searches the same grid, and "
-                "deep_ms > 0 runs the deep search on torch.fft")
+            raise NotImplementedError(acq_ops.REAL_ENGINE_REFUSAL)
         if engine not in ("auto", "fft"):
             raise ValueError(f"unknown acquisition engine {engine!r}")
         if deep_ms:

@@ -31,6 +31,12 @@ from ..device import resolve_device
 # Doppler search grids (reference correlator.py:13-14)
 DOPPLER_COHERENT = np.arange(-62, 63) * 100.0      # 125 bins x 100 Hz
 DOPPLER_NONCOHERENT = np.arange(-12, 13) * 500.0   # 25 bins x 500 Hz
+# what ScalarReceiver.acquire and the CLI's `acquire --engine real` raise
+REAL_ENGINE_REFUSAL = (
+    "engine='real' (the all-real TPU acquisition engine, "
+    "ops/acquisition_real) is not ported by design: ROADMAP "
+    "'Not to port'; engine='fft' searches the same grid, and "
+    "deep_ms > 0 runs the deep search on torch.fft")
 
 _TWO_PI = 2.0 * np.pi
 _TWO_PI32 = float(np.float32(_TWO_PI))

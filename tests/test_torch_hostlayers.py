@@ -1,6 +1,6 @@
 """The port's own host layers (constants, io/*, libgnss/*, models/ekf,
-models/grid, runtime/nativelib) against the JAX package's modules of the
-same names.
+models/grid, runtime/{nativelib,flow,profiling}) against the JAX package's
+modules of the same names.
 
 They are copies of float64 numpy and plain host code, so the tolerance
 is 0: the same seeded inputs go through both and the results must be
@@ -12,6 +12,7 @@ carried into the port's classes by their plain fields.
 
 import dataclasses
 import importlib
+import pathlib
 
 import numpy as np
 import pytest
@@ -558,6 +559,283 @@ def case_runtime_nativelib(tmp_path):
     srv.close()
 
 
+RINEX_HEADER = (
+    "     2.10           NAVIGATION DATA                         RINEX VERSION / TYPE\n"
+    "    0.1118D-07  0.2235D-07 -0.5960D-07 -0.1192D-06          ION ALPHA           \n"
+    "    0.1167D+06  0.1802D+06 -0.1311D+06 -0.4588D+06          ION BETA            \n"
+    "    0.133226763247D-14 0.107469588780D-12   233472     1860 DELTA-UTC: A0,A1,T,W\n"
+    "    18                                                      LEAP SECONDS        \n"
+    "                                                            END OF HEADER       \n")
+
+
+def write_rinex_nav(path, ephs, toe_shifts=(0.0,)):
+    """A RINEX 2.10 navigation file: the header of
+    tests/test_orbits_nav.py:102-114 and one record per ephemeris and shift
+    of t_oc/t_oe (seconds), every value in a D19.12 field."""
+    import datetime
+
+    def d19(v):
+        return f"{float(v):19.12E}".replace("E", "D")
+
+    lines = [RINEX_HEADER]
+    for shift in toe_shifts:
+        for e in ephs:
+            t = (datetime.datetime(1980, 1, 6) + datetime.timedelta(
+                weeks=int(e.weeknumber), seconds=float(e.t_oc) + shift))
+            sec = t.second + t.microsecond * 1e-6
+            lines.append(
+                f"{e.prn:2d} {t.year % 100:02d} {t.month:2d} {t.day:2d} "
+                f"{t.hour:2d} {t.minute:2d}{sec:5.1f}"
+                + "".join(map(d19, (e.a_f0, e.a_f1, e.a_f2))) + "\n")
+            rows = ((e.IODE, e.C_rs, e.delta_n, e.M_0),
+                    (e.C_uc, e.e, e.C_us, e.sqrt_A),
+                    (e.t_oe + shift, e.C_ic, e.OMEGA_0, e.C_is),
+                    (e.i_0, e.C_rc, e.omega, e.OMEGADOT),
+                    (e.IDOT, 1.0, e.weeknumber, 0.0),
+                    (e.accuracy, e.health, e.T_GD, e.IODC),
+                    (e.t_oc + shift, 4.0, 0.0, 0.0))
+            lines += ["   " + "".join(map(d19, r)) + "\n" for r in rows]
+    pathlib.Path(path).write_text("".join(lines))
+
+
+def case_rinex(tmp_path):
+    """A RINEX 2.10 file written from the scenario's ephemerides (two
+    issues per PRN, 2 h apart): header, records, closest-toe selection and
+    the per-PRN load of both packages equal, and equal to the scenario's
+    ephemerides to the D19.12 fields' 13 digits."""
+    (_, _, arr), _ = scenarios()
+    path = tmp_path / "scen.18n"
+    write_rinex_nav(path, arr.ephs, toe_shifts=(0.0, 7200.0))
+    ref, port = both("libgnss.rinex")
+    ha, hb = ref.read_header(str(path)), port.read_header(str(path))
+    same(dataclasses.asdict(ha), dataclasses.asdict(hb))
+    np.testing.assert_allclose(hb.ion_beta, [0.1167e6, 0.1802e6, -0.1311e6,
+                                             -0.4588e6])
+    assert hb.leap_seconds == 18 and hb.delta_utc[2:] == (233472, 1860)
+    ta, tb = ref.parse_rinex_nav(str(path)), port.parse_rinex_nav(str(path))
+    assert sorted(ta) == sorted(tb) == sorted(arr.prn.tolist())
+    for prn in ta:
+        assert len(ta[prn]) == len(tb[prn]) == 2
+        for a, b in zip(ta[prn], tb[prn]):
+            same(dataclasses.asdict(a), dataclasses.asdict(b))
+        same(dataclasses.asdict(ref.select_ephemeris(ta[prn], 352000.0)),
+             dataclasses.asdict(port.select_ephemeris(tb[prn], 352000.0)))
+        assert port.select_ephemeris(tb[prn], 352000.0).t_oe == 352800.0
+    for tow in (None, 352000.0):
+        la = ref.load_ephemerides(str(path), arr.prn, tow)
+        lb = port.load_ephemerides(str(path), arr.prn, tow)
+        same({k: dataclasses.asdict(v) for k, v in la.items()},
+             {k: dataclasses.asdict(v) for k, v in lb.items()})
+    for e in arr.ephs:
+        got = tb[e.prn][0]
+        for f in port.Ephemeris.__dataclass_fields__:
+            if f in ("tow_timestamp", "cp_timestamp", "complete"):
+                continue
+            np.testing.assert_allclose(getattr(got, f), getattr(e, f),
+                                       rtol=1e-12, atol=0, err_msg=f)
+    with pytest.raises(KeyError):
+        port.load_ephemerides(str(path), [32])
+
+
+def case_filters():
+    """tests/test_aux.py's filter cases (running average, integrators,
+    low-pass, streaming FIR, the vectorized ring) through both packages on
+    the same seeded streams: every output bit-equal."""
+    ref, port = both("libgnss.filters")
+    rng = np.random.default_rng(10)
+    xs = rng.standard_normal(40)
+    for name, args in (("RunningAverageFilter", (4, 1.0)),
+                       ("BoxcarIntegrator", (0.5,)),
+                       ("BilinearIntegrator", (0.5, 0.25)),
+                       ("LowPassFilter", (0.25,))):
+        fa, fb = getattr(ref, name)(*args), getattr(port, name)(*args)
+        same([fa.update(x) for x in xs], [fb.update(x) for x in xs])
+        fa.reset(k=0.1) if name != "RunningAverageFilter" else fa.reset(N=3)
+        fb.reset(k=0.1) if name != "RunningAverageFilter" else fb.reset(N=3)
+        same([fa.update(x) for x in xs[:9]], [fb.update(x) for x in xs[:9]])
+    b = ref.design_lowpass_fir(11, fs=10.0, f_cut=2.0)
+    same(b, port.design_lowpass_fir(11, fs=10.0, f_cut=2.0))
+    sig = rng.standard_normal(100)
+    fa, fb = ref.FIRfilter(b), port.FIRfilter(b)
+    for lo, hi in ((0, 30), (30, 55), (55, 100)):
+        same(fa.update(sig[lo:hi]), fb.update(sig[lo:hi]))
+    same(fa.b, fb.b)
+    sa = ref.running_average_init(3, average=0.0, shape=(2,))
+    sb = port.running_average_init(3, average=0.0, shape=(2,))
+    for x in rng.standard_normal((6, 2)):
+        sa, ya = ref.running_average_update(sa, x)
+        sb, yb = port.running_average_update(sb, x)
+        same(ya, yb)
+        same(tuple(sa), tuple(sb))
+    for fn in ("boxcar_update", "bilinear_update", "lowpass_update"):
+        same(getattr(ref, fn)(xs[:5], xs[5:10], 0.3),
+             getattr(port, fn)(xs[:5], xs[5:10], 0.3))
+
+
+class _Clock:
+    """A stand-in for the time module: perf_counter moves only when a step
+    says so, so two FlowRunners see the same iteration times."""
+
+    def __init__(self):
+        self.t = 100.0
+
+    def perf_counter(self):
+        return self.t
+
+
+def case_runtime_flow(monkeypatch):
+    """tests/test_runtime.py's flow-runner cases (stats and cap, watchdog,
+    end of stream) and the rest of the contract (warm-up grace, real-time
+    misses, source_fn, stop) through both packages on one scripted clock:
+    stats, summaries and errors equal; the port's first_s is iteration 1's
+    time."""
+    ref, port = both("runtime.flow")
+    dts = [0.5, 0.001, 0.003, 0.025, 0.002, 0.04, 0.001]
+
+    def drive(m, **kw):
+        clock = _Clock()
+        monkeypatch.setattr(m, "time", clock)
+        calls = []
+        eof_after = kw.pop("eof_after", 99)
+
+        def step(*blk):
+            calls.append(blk)
+            if len(calls) > eof_after:
+                raise EOFError
+            clock.t += dts[len(calls) - 1]
+            return len(calls)
+
+        n = kw.pop("n", None)
+        stop_at = kw.pop("stop_at", None)
+        runner = m.FlowRunner(step, **kw)
+        got = []
+
+        def on_result(r):
+            got.append(r)
+            if r == stop_at:
+                runner.stop()
+
+        try:
+            stats = runner.run(n, on_result=on_result)
+            err = None
+        except m.WatchdogError as e:
+            stats, err = runner.stats, str(e)
+        return (stats, err, runner.realtime_misses, got, calls)
+
+    cases = (dict(watchdog_s=1.0, max_iterations=5, n=100),
+             dict(watchdog_s=0.01),                      # fires at once
+             dict(watchdog_s=0.01, warmup_iterations=1, n=6),
+             dict(watchdog_s=None, eof_after=3),
+             dict(watchdog_s=None, realtime_budget_s=0.02, n=7),
+             dict(watchdog_s=None, stop_at=4),
+             dict(watchdog_s=None, source=[7, 8, None]),
+             dict(watchdog_s=None, source=[7, 8]))      # then EOFError
+    for kw in cases:
+        outs = []
+        for m in (ref, port):
+            kw2 = dict(kw)
+            if "source" in kw2:           # a fresh source for each package
+                items = iter(kw2.pop("source"))
+
+                def source_fn(items=items):
+                    for x in items:
+                        return x
+                    raise EOFError
+
+                kw2["source_fn"] = source_fn
+            outs.append(drive(m, **kw2))
+        (sa, ea, ma, ga, ca), (sb, eb, mb, gb, cb) = outs
+        assert (ea is None) == (eb is None)
+        if ea is not None:
+            assert ea == eb and "watchdog" in eb
+        assert (sa.n, sa.total_s, sa.min_s, sorted(sa.top_max)) == (
+            sb.n, sb.total_s, sb.min_s, sorted(sb.top_max)), kw
+        assert sa.summary() == sb.summary()
+        assert (ma, ga, ca) == (mb, gb, cb)
+        assert sb.first_s == (dts[0] if sb.n else None)
+    assert [o[0].n for o in [drive(port, **dict(c)) for c in (
+        dict(watchdog_s=1.0, max_iterations=5, n=100),
+        dict(watchdog_s=None, eof_after=3))]] == [5, 3]
+    assert issubclass(port.WatchdogError, RuntimeError)
+
+
+def _seeded_fixes(n=6):
+    """Fix-like records (mc, rx_time_a, x_ecef) around the scenario's truth,
+    made from a seed."""
+    import types
+
+    (_, hand, _), _ = scenarios()
+    rng = np.random.default_rng(11)
+    return [types.SimpleNamespace(
+        mc=i + 1, rx_time=hand.rx_time + 0.02 * (i + 1),
+        rx_time_a=hand.rx_time + 0.02 * (i + 1) - 1e-7 * i,
+        x_ecef=hand.x_ecef + rng.standard_normal(8) * [5, 5, 5, 1, .3, .3,
+                                                       .3, .01],
+        pos_score=1e6, vel_score=1e6) for i in range(n)]
+
+
+def case_printer(tmp_path):
+    """The nav CSV: header, rows and the GPS -> UTC conversion of both
+    packages byte-equal (FixWriter, write_fix, gps_to_utc)."""
+    ref, port = both("io.printer")
+    fixes = _seeded_fixes()
+    texts = []
+    for m in (ref, port):
+        path = tmp_path / f"{m.__name__}.csv"
+        with m.FixWriter(str(path), weekno=2008) as w:
+            for f in fixes:
+                w.write(f)
+        texts.append(path.read_bytes())
+    assert texts[0] == texts[1] and texts[1].count(b"\n") == len(fixes) + 1
+    for tow in (0.0, 345720.02, 604799.999999):
+        assert ref.gps_to_utc(2008, tow) == port.gps_to_utc(2008, tow)
+    assert (ref.GPS_EPOCH, ref.GPS_UTC_LEAP_S) == (port.GPS_EPOCH,
+                                                  port.GPS_UTC_LEAP_S)
+
+
+def case_mapplot(tmp_path):
+    """The HTML track of both packages byte-equal, from LLA points, ECEF
+    states and fixes."""
+    ref, port = both("io.mapplot")
+    fixes = _seeded_fixes()
+    pages = []
+    for m in (ref, port):
+        for kind, kw in (("lla", dict(lla_points=[(40.1, -88.2, 200.0),
+                                                  (40.2, -88.3)])),
+                         ("ecef", dict(ecef_points=[f.x_ecef for f in fixes],
+                                       title="t", zoom=12))):
+            path = tmp_path / f"{m.__name__}_{kind}.html"
+            m.write_track_html(str(path), **kw)
+            pages.append(path.read_bytes())
+        path = tmp_path / f"{m.__name__}_fixes.html"
+        m.write_fixes_html(str(path), fixes, color="#ff0000")
+        pages.append(path.read_bytes())
+    assert pages[:3] == pages[3:]
+    assert b"-88.2" in pages[0]
+
+
+def case_runtime_profiling(monkeypatch):
+    """TmUsage, snapshot and vm_peak_kb read the same process counters in
+    both packages; Counters' rates on one scripted clock are equal."""
+    ref, port = both("runtime.profiling")
+    assert [f.name for f in dataclasses.fields(ref.UsageSnapshot)] == [
+        f.name for f in dataclasses.fields(port.UsageSnapshot)]
+    ka, kb = ref.TmUsage().elapsed(), port.TmUsage().elapsed()
+    assert sorted(ka) == sorted(kb)
+    assert kb["user_s"] >= 0 and kb["max_rss_kb"] > 1000
+    assert 0 < ref.vm_peak_kb() <= port.vm_peak_kb()
+    rates = []
+    for m in (ref, port):
+        clock = _Clock()
+        monkeypatch.setattr(m, "time", clock)
+        c = m.Counters(_t0=clock.perf_counter())
+        c.add_block(50000, 781250)
+        c.add_block(50000, 781250)
+        clock.t += 0.25
+        rates.append(c.rates())
+    same(rates[0], rates[1])
+    assert rates[1]["samples_per_s"] == 400000.0
+
 CASES = {
     "constants": case_constants, "io.handoff": case_handoff,
     "io.rawfile": case_rawfile, "io.scenario": case_scenario,
@@ -570,16 +848,19 @@ CASES = {
     "models.ekf": case_ekf, "models.grid": case_grid,
     "io.frontend": case_frontend, "io.netsource": case_netsource,
     "runtime.nativelib": case_runtime_nativelib,
+    "libgnss.rinex": case_rinex, "libgnss.filters": case_filters,
+    "runtime.flow": case_runtime_flow,
+    "runtime.profiling": case_runtime_profiling,
+    "io.printer": case_printer, "io.mapplot": case_mapplot,
 }
 
 
 @pytest.mark.parametrize("module", sorted(CASES))
-def test_host_layer_copy_is_bit_equal(module, tmp_path):
+def test_host_layer_copy_is_bit_equal(module, request):
     case = CASES[module]
-    if "tmp_path" in case.__code__.co_varnames[:case.__code__.co_argcount]:
-        case(tmp_path)
-    else:
-        case()
+    code = case.__code__
+    case(*(request.getfixturevalue(a)
+           for a in code.co_varnames[:code.co_argcount]))
 
 
 def test_every_copied_module_has_a_case():

@@ -27,14 +27,17 @@ HOST_LAYERS = ("constants", "io.handoff", "io.rawfile", "io.scenario",
                "libgnss.ephemeris", "libgnss.frames", "libgnss.iono",
                "libgnss.lnav", "libgnss.naveng", "libgnss.satcache",
                "libgnss.satpos", "libgnss.tropo", "models.ekf", "models.grid",
-               "io.frontend", "io.netsource", "runtime.nativelib")
+               "io.frontend", "io.netsource", "runtime.nativelib",
+               "io.printer", "io.mapplot", "libgnss.rinex", "libgnss.filters",
+               "runtime.flow", "runtime.profiling")
 
 
 def test_port_modules_listed():
     for name in ("device", "ops._build", "ops.dpe", "ops.dpe_real",
                  "ops.score", "models.dpe", "ops.acquisition", "ops.track",
                  "ops.tracking", "models.scalar", "models.vector",
-                 "models.fleet", "models.montecarlo") + HOST_LAYERS:
+                 "models.fleet", "models.montecarlo", "cli", "console",
+                 "__main__") + HOST_LAYERS:
         assert f"navlab_dpe_sdr_tpu_torch.{name}" in PORT_MODULES
 
 
@@ -62,9 +65,26 @@ def test_port_sources_name_no_module_of_the_jax_package():
     files = sorted(pathlib.Path(port.__path__[0]).rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 25
+    names = {str(f.relative_to(REPO)) for f in files}
+    for f in ("cli.py", "console.py", "__main__.py"):
+        assert f"navlab_dpe_sdr_tpu_torch/{f}" in names
     bad = [str(f.relative_to(REPO)) for f in files
            if pat.search(f.read_text())]
     assert not bad, bad
+
+
+def test_importing_main_runs_nothing():
+    """`import navlab_dpe_sdr_tpu_torch.__main__` (as the import test above
+    does) must not start the CLI: with an argv that would exit non-zero
+    (`bench`), the import returns and prints nothing."""
+    code = ("import sys\n"
+            "sys.argv = ['x', '--device', 'cpu', 'bench']\n"
+            "import navlab_dpe_sdr_tpu_torch.__main__ as m\n"
+            "print(m.main.__module__)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout == "navlab_dpe_sdr_tpu_torch.cli\n"
 
 
 def test_resolve_device():
