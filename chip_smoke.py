@@ -116,11 +116,40 @@ Phases, one line or more each (any failure raises and exits non-zero):
    branch (1 s), the console from a dofile; one "CLI ..." line each (wall,
    signal, launches, error);
    then `python -m navlab_dpe_sdr_tpu_torch dpe` in a fresh interpreter
-   (exit 0, iteration 1's time against the 1.5 s watchdog).
+   (exit 0, iteration 1's time against the 1.5 s watchdog);
+25. the mesh (navlab_dpe_sdr_tpu_torch/parallel), in child processes of
+   this script (`--mesh-child`; this process keeps no process group), on
+   phase 5's 12 s and truth handoff at full width: (a) NCCL at world size
+   1: phase 5's batched sequence, its fixes equal to phase 5's to the bit,
+   the collectives per dispatch; then `python -m
+   navlab_dpe_sdr_tpu_torch.parallel.launch --bench-only` (one rank: a
+   single-device reading, no scaling number); (b) two gloo ranks sharing
+   cuda:0 on grid=2: the batched sequence, run_integrated (25 fixes of 8),
+   20 per-block steps, 10 FFT-engine steps, a 4-batch survey, and on
+   chan=2 x grid=1 run_batched(50); every dispatch that splits blocks or
+   channels is held to the same call on one device with the same inputs
+   (windows rel < 1e-5, flips equal, argmaxes equal or a proven tie), and
+   each run's fixes equal on both ranks and equal one device's run (phase
+   5's for the batched sequence) to the bit (within 1e-6 with the
+   channels split) up to the first proven tie, and within one step of the
+   spread grid after it; rank 1's K1 slice against its plain version; per
+   run the wall, the collectives and their host ms, the launches by
+   kernel, the audit and every rank's last fix; (c) on one card, every
+   dispatch of the batched sequence, run_integrated and the survey
+   correlated whole and as 2, 3 and 4 grid ranks would share its blocks,
+   held as in (b): the window elements that differ and the argmaxes that
+   turn on a tie ("mesh ..." lines).
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
+
+    python3 chip_smoke.py --main-path
+
+runs phases 1, 2 and 5 alone, on a 12 s capture, with the port that lies
+beside this script: a copy of it in the root of another tree times that
+tree's main path, so two trees can be set side by side in one call.
 The line before the last is the kernels' JSON record (launches on the
-timed paths, and by path in launches_by_path, the CLI's included; error
+timed paths, and by path in launches_by_path, the CLI's and the mesh's
+included; error
 against the plain version, ms, plain ms, the roofline
 bound of the same work and what sets it, library_ms: null where no single
 PyTorch call computes the function, device_ms: the kernel's own time from
@@ -481,11 +510,12 @@ def make_capture(seconds: float, cn0_dbhz: float = 47.0):
     return samples, hand, arr
 
 
-def receiver(samples, hand, arr, grid, device):
+def receiver(samples, hand, arr, grid, device, mesh=None, **cfg):
     return DPEReceiver(SampleFile(samples=samples, fs=FS),
                        copy.deepcopy(hand), grid=grid,
                        eph=copy.deepcopy(arr),
-                       config=DPEConfig(ekf_mode="alpha", ekf_alpha=0.3),
+                       config=DPEConfig(ekf_mode="alpha", ekf_alpha=0.3,
+                                        mesh=mesh, **cfg),
                        device=device)
 
 
@@ -2063,43 +2093,543 @@ def check_cli(samples, hand, dev, card):
 
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
+# -- phase 25: the mesh -------------------------------------------------------
 
-    card = card_line()
-    log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
-        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    for name, (lib, sec) in build_all().items():
-        log(f"build: {name} -> {lib.name} in {sec:.2f} s")
-    log(f"tracking kernel: {track.kernel_design()}")
+MESH_RUNS = ("batched", "integrated", "per-block", "fft", "survey")
+# the runs whose dispatches split blocks (or channels) over ranks
+AUDITED = ("batched", "integrated", "survey", "chan split")
+MESH_TIMEOUT_S = 300
 
+
+def mesh_case(name, first, hand, arr, grid, dev, mesh):
+    """One receiver run of phase 25 on the first 12 s (phase 5's capture and
+    truth handoff), with `mesh` or on one device: (fixes [n, 8], extra
+    {name: array}, dispatches). "batched" is phase 5's sequence (100 warm-up
+    blocks, 200 per block, 200 in groups of 5; lookahead 50, depth 4)."""
+    raw_dev = torch.from_numpy(first.view(np.int16).reshape(-1, S, 2)).to(dev)
+    run = dict(lookahead=N_BLOCKS, raw_blocks_dev=raw_dev, pipeline=True,
+               pipeline_depth=4)
+    extra, dispatches = {}, 0
+    cfg = dict(engine="fft") if name == "fft" else {}
+    rx = receiver(first, hand, arr, grid, dev, mesh, **cfg)
+    if name == "batched":
+        for start, gk, n in ((0, 1, 50), (50, 5, 50), (100, 1, 200),
+                             (300, 5, 200)):
+            rx.run_batched(n, start_block=start, group_k=gk, **run)
+            dispatches += n // N_BLOCKS
+    elif name == "integrated":
+        rx.run_integrated(25, 8, raw_blocks_dev=raw_dev)
+        dispatches = 25
+    elif name == "per-block":
+        rx.run(20)
+        dispatches = 20
+    elif name == "fft":
+        rx.run(10)
+        dispatches = 10
+    elif name == "survey":
+        res = rx.run_survey(4, 50, raw_blocks_dev=raw_dev)
+        extra["survey"] = res.x_ecef
+        dispatches = 4 + 6
+    elif name == "chan split":
+        rx.run_batched(50, **run)
+        dispatches = 1
+    torch.cuda.synchronize()
+    return np.stack([f.x_ecef for f in rx.fixes]), extra, dispatches
+
+
+def scorer_windows(args, kw, groups, mesh=None, parts=1):
+    """The magnitude windows the scorer sees, the flips and the packed
+    parameters of their rows, for the arguments of a dpe_batch_blocks or
+    dpe_scan_integrate call: correlated on `mesh`, or, with parts > 1, as
+    that many grid ranks correlate them (each its `even_rows` share of the
+    blocks, on one card), the shares concatenated."""
+    raw, pk, chips, time_idc = args[:4]
+    fpk, ipk = dpe_real.unpack_params(dpe_real.to_device(pk, raw.device))
+    start, n = int(pk[0, dpe_real.START_ROW, 0]), kw["n_blocks"]
+    cplx = groups > 1 or kw.get("coherent", False)
+
+    def corr(lo, hi, m):
+        return dpe_real.batch_correlate(
+            raw, start + lo, fpk[lo:hi], ipk[lo:hi], chips, time_idc,
+            kw["carr_fftpts"], kw["period"], kw["n_periods"], hi - lo,
+            kw["code_win"], kw["carr_win"], complex_out=cplx, mesh=m)
+
+    if parts > 1:
+        shares = [corr(lo, hi, None) for lo, hi in score.even_rows(n, parts)]
+        out = type(shares[0])(*(torch.cat(f) for f in zip(*shares)))
+    else:
+        out = corr(0, n, mesh)
+        if mesh is not None:
+            out = dpe_real.gather_chan_out(mesh, out, chips.shape[0])
+    flips = out.flip_used
+    if cplx:
+        g = groups if groups > 1 else n
+        out = dpe_real.coherent_sum(dpe_real.RealBlockOutC(
+            *(x.reshape((-1, g) + x.shape[1:]) for x in out)))
+        fpk = fpk[g - 1::g]
+    return out, flips, fpk
+
+
+def hold_to_single(got, single, args, kw, idx_m, idx_s, peaks_m, peaks_s,
+                   block_sum):
+    """Windows, flips and argmaxes of a split correlation (`got`, from
+    scorer_windows) against one device's whole call (`single`): flips
+    equal, windows within rel 1e-5 (max |diff| over max |single|), peaks
+    within rtol 1e-5, and each argmax equal or a proven tie (the single
+    device's windows score both indices within 1e-6 of each other, summed
+    over blocks where the call sums them). Returns (rel, window elements
+    that differ, of how many, whether an argmax differed)."""
+    (wm, fm, _), (ws, fs, fpk) = got, single
+    assert torch.equal(fm, fs), "flips differ"
+    rel, n_diff, n_all = 0.0, 0, 0
+    for a, b in ((wm.code_mag, ws.code_mag), (wm.carr_mag, ws.carr_mag)):
+        rel = max(rel, ((a - b).abs().max() / b.abs().max()).item())
+        n_diff += int((a != b).sum())
+        n_all += b.numel()
+    assert rel < 1e-5, rel
+    np.testing.assert_allclose(peaks_m, peaks_s, rtol=1e-5)
+    d = args[4:8]
+    los = fpk[:, 3:6].transpose(1, 2)
+    tied = False
+    for j, (win, off3, off1, cen, coe, r0) in enumerate((
+            (ws.code_mag, d[0], d[1], fpk[:, 7], fpk[:, 8], fpk[:, 6]),
+            (ws.carr_mag, d[2], d[3], fpk[:, 9], fpk[:, 10], None))):
+        for n in np.nonzero(idx_m[j] != idx_s[j])[0]:
+            rows = slice(None) if block_sum else slice(n, n + 1)
+            at = [score.score_points(
+                win[rows], los[rows], cen[rows], coe[rows],
+                None if r0 is None else r0[rows], off3[i:i + 1],
+                off1[i:i + 1], kw["interp"], kw["l_power"]).sum().item()
+                for i in (int(idx_m[j][n]), int(idx_s[j][n]))]
+            assert abs(at[0] - at[1]) <= 1e-6 * abs(at[1]), (j, n, at)
+            tied = True
+    return rel, n_diff, n_all, tied
+
+
+class DispatchAudit:
+    """While entered, the receivers' dpe_batch_blocks and
+    dpe_scan_integrate calls go through `_batch` and `_integrate`, which
+    call the originals (`_orig`)."""
+
+    def __init__(self):
+        self._orig = (dpe_real.dpe_batch_blocks, dpe_real.dpe_scan_integrate)
+
+    def __enter__(self):
+        dpe_real.dpe_batch_blocks = self._batch
+        dpe_real.dpe_scan_integrate = self._integrate
+        return self
+
+    def __exit__(self, *exc):
+        dpe_real.dpe_batch_blocks, dpe_real.dpe_scan_integrate = self._orig
+
+
+class MeshAudit(DispatchAudit):
+    """Holds every dispatch that a mesh run makes through dpe_batch_blocks
+    and dpe_scan_integrate to the same call without the mesh, on the same
+    inputs (`hold_to_single`, on the windows the scorer sees: per block,
+    per coherent group, or summed coherently), while the run goes on with
+    the mesh's results. Records, per dispatch, the rows it returned and
+    whether an argmax differed."""
+
+    def __init__(self):
+        super().__init__()
+        self.rel, self.rows, self.tied = 0.0, [], []
+
+    def _check(self, args, kw, idx_m, idx_s, peaks_m, peaks_s, groups,
+               block_sum):
+        rel, _, _, tied = hold_to_single(
+            scorer_windows(args, kw, groups, mesh=kw["mesh"]),
+            scorer_windows(args, kw, groups), args, kw, idx_m, idx_s,
+            peaks_m, peaks_s, block_sum)
+        self.rel = max(self.rel, rel)
+        self.tied.append(tied)
+
+    def _batch(self, *args, **kw):
+        got = self._orig[0](*args, **dict(kw, return_windows=True))
+        if kw["mesh"] is not None:
+            want = self._orig[0](*args, **dict(kw, return_windows=True,
+                                              mesh=None))
+            g, w = got.cpu().numpy(), want.cpu().numpy()
+            self._check(args, kw, dpe_real.unpack_row_indices(g),
+                        dpe_real.unpack_row_indices(w), g[:, [1, 3]],
+                        w[:, [1, 3]], kw.get("group_k", 1), False)
+            self.rows.append(got.shape[0])
+        if not kw["return_windows"]:
+            c = args[2].shape[0]
+            got = got[:, :4 + c + (0 if kw["use_argmax"]
+                                   else dpe_real.WMEAN_COLS)]
+        return got
+
+    def _integrate(self, *args, **kw):
+        got = self._orig[1](*args, **kw)
+        if kw["mesh"] is not None:
+            want = self._orig[1](*args, **dict(kw, mesh=None))
+            g, w = got[0].cpu().numpy()[None], want[0].cpu().numpy()[None]
+            self._check(args, kw, dpe_real.unpack_row_indices(g),
+                        dpe_real.unpack_row_indices(w), g[:, [1, 3]],
+                        w[:, [1, 3]], 1, True)
+            self.rows.append(1)
+        return got
+
+    def summary(self) -> dict:
+        first = self.tied.index(True) if any(self.tied) else None
+        return dict(dispatches=len(self.rows), rel=self.rel,
+                    ties=int(sum(self.tied)),
+                    fixes_before_first_tie=(None if first is None
+                                            else sum(self.rows[:first])))
+
+
+SPLITS = (2, 3, 4)      # grid ranks whose block shares SplitAudit forms
+
+
+class SplitAudit(DispatchAudit):
+    """On one card, holds each dispatch that a single-device run makes
+    through dpe_batch_blocks and dpe_scan_integrate against the same blocks
+    correlated as 2, 3 and 4 grid ranks would (`scorer_windows` with
+    parts=; 50 blocks go 25/25, 17/17/16 and 13/13/12/12), each argmax
+    from K1 on the split windows against K1 on the whole call's
+    (`hold_to_single`). Records per split: dispatches, window elements
+    that differ and of how many, the worst rel, and the argmaxes that
+    differed (each a proven tie)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stats = {p: dict(dispatches=0, n_diff=0, n_all=0, rel=0.0,
+                              ties=0) for p in SPLITS}
+
+    @staticmethod
+    def _argmaxes(win, fpk, args, kw, block_sum):
+        """([pos idx], [vel idx]), [[pos peak, vel peak] per row] by K1."""
+        d = args[4:8]
+        los = fpk[:, 3:6].transpose(1, 2)
+        res = [score.score_argmax(w, los, cen, coe, r0, o3, o1,
+                                  interp=kw["interp"], l_power=kw["l_power"],
+                                  block_sum=block_sum)
+               for w, cen, coe, r0, o3, o1 in (
+                   (win.code_mag, fpk[:, 7], fpk[:, 8], fpk[:, 6], d[0],
+                    d[1]),
+                   (win.carr_mag, fpk[:, 9], fpk[:, 10], None, d[2], d[3]))]
+        idx = [np.atleast_1d(r[1].cpu().numpy()) for r in res]
+        peaks = np.stack([np.atleast_1d(r[0].cpu().numpy()) for r in res], 1)
+        return idx, peaks
+
+    def _audit(self, args, kw, groups, block_sum):
+        single = scorer_windows(args, kw, groups)
+        idx_s, peaks_s = self._argmaxes(single[0], single[2], args, kw,
+                                        block_sum)
+        for p in SPLITS:
+            got = scorer_windows(args, kw, groups, parts=p)
+            idx_m, peaks_m = self._argmaxes(got[0], got[2], args, kw,
+                                            block_sum)
+            rel, n_diff, n_all, tied = hold_to_single(
+                got, single, args, kw, idx_m, idx_s, peaks_m, peaks_s,
+                block_sum)
+            st = self.stats[p]
+            st["dispatches"] += 1
+            st["n_diff"] += n_diff
+            st["n_all"] += n_all
+            st["rel"] = max(st["rel"], rel)
+            st["ties"] += sum(int((a != b).sum())
+                              for a, b in zip(idx_m, idx_s))
+
+    def _batch(self, *args, **kw):
+        self._audit(args, kw, kw.get("group_k", 1), False)
+        return self._orig[0](*args, **kw)
+
+    def _integrate(self, *args, **kw):
+        self._audit(args, kw, 1, True)
+        return self._orig[1](*args, **kw)
+
+
+def mesh_child(spec_path: str) -> int:
+    """A rank of phase 25 (this script with --mesh-child SPEC): joins its
+    group (nccl at world size 1 through make_mesh, or gloo on cuda:0
+    through parallel/launch.init_distributed) and runs spec["runs"] on the
+    mesh, then for gloo the chan=2 x grid=1 mesh on 50 blocks; each run
+    whose dispatches split blocks or channels first under a MeshAudit,
+    then once more timed, with the launch counts and the mesh's collective
+    counters zeroed before it (its fixes equal to the audited run's). On
+    gloo rank 1, its K1 slice against the plain version. Writes <out>.npz
+    (fixes) and <out>.json (stats)."""
+    import pickle
+
+    import torch.distributed as dist
+    from navlab_dpe_sdr_tpu_torch.parallel import launch
+    from navlab_dpe_sdr_tpu_torch.parallel.mesh import make_mesh
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    dev = torch.device("cuda", 0)
+    first = np.load(spec["samples"])
+    with open(spec["handoff"], "rb") as f:
+        hand, arr = pickle.load(f)
     grid = spread_grid()
-    cw, vw = dpe_ops.auto_windows(grid.d_enu, grid.dt_m, grid.dv_enu,
-                                  grid.dtdot, FS, CARR_FFTPTS)
-    widths = {"pos": cw, "vel": vw}
-    k1 = check_scorer(grid, widths, dev)
-    log(f"scorer: kernel == plain in all 16 cases and at N=10, 25 (max|best "
-        f"diff| {k1['err']:.3e}); per dispatch (pos W={cw} + vel W={vw}, "
-        f"G={grid.n_pos}): N=50 wrapper {k1['ms']:.4f} ms, kernel's own "
-        f"{fmt_ms(k1['device_ms'])}, plain {k1['plain_ms']:.4f} ms; N=10 "
-        f"wrapper {k1['ms10']:.4f} ms, kernel's own "
-        f"{fmt_ms(k1['device_ms10'])} [{card}]")
-    k1_sum = check_block_sum(grid, widths, dev, card)
+    if spec["backend"] == "gloo":
+        launch.init_distributed(f"file://{spec['rdv']}", spec["world"],
+                                spec["rank"], device=dev, backend="gloo")
+    mesh = make_mesh(device=dev)
+    fixes, stats = {}, {"rank": dist.get_rank(), "backend": mesh.backend,
+                        "shape": mesh.shape, "runs": {}}
+    try:
+        cases = [(name, mesh) for name in spec["runs"]]
+        if spec["backend"] == "gloo":
+            cases.append(("chan split", make_mesh(n_chan=2, device=dev)))
+        for name, m in cases:
+            audit = None
+            if spec["audit"] and name in AUDITED:
+                with MeshAudit() as audit:
+                    audited = mesh_case(name, first, hand, arr, grid, dev, m)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            m.reset_stats()
+            t0 = time.perf_counter()
+            fx, extra, dispatches = mesh_case(name, first, hand, arr, grid,
+                                              dev, m)
+            wall = time.perf_counter() - t0
+            launched = {k: v for k, v in _build.launch_counts().items() if v}
+            if audit is not None:
+                np.testing.assert_array_equal(fx, audited[0])
+            fixes[name] = fx
+            for k, v in extra.items():
+                fixes[f"{name}.{k}"] = v
+            stats["runs"][name] = dict(
+                wall_s=wall, collectives=m.collectives,
+                collective_ms=m.collective_s * 1e3, dispatches=dispatches,
+                shape=m.shape, launches=launched,
+                audit=None if audit is None else audit.summary())
+        if spec["backend"] == "gloo" and dist.get_rank() == 1:
+            stats["k1_slice"] = k1_slice_vs_plain(grid, dev, mesh)
+        np.savez(spec["out"] + ".npz", **fixes)
+        pathlib.Path(spec["out"] + ".json").write_text(json.dumps(stats))
+    finally:
+        mesh.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
 
-    t0 = time.perf_counter()
-    samples, hand, arr = make_capture(CAPTURE_S)
-    log(f"capture: {CAPTURE_S:.0f} s synthesized in "
-        f"{time.perf_counter() - t0:.1f} s")
-    first = samples[:S * 600]        # 500 timed and warm-up blocks + 100
-    rel = check_dispatch(first, hand, arr, grid)
-    log(f"dispatch: card == cpu on 5 blocks (indices, flips equal; "
-        f"windows rel diff {rel:.2e})")
 
+def k1_slice_vs_plain(grid, dev, mesh):
+    """This rank's K1 call on its grid rows, as the mesh path makes it
+    (ops/dpe_real._score_rows), against score_argmax_plain on the same rows
+    with the rows' offset added (argmax equal or a tie, best rtol 1e-5)."""
+    cw, _ = dpe_ops.auto_windows(grid.d_enu, grid.dt_m, grid.dv_enu,
+                                 grid.dtdot, FS, CARR_FFTPTS)
+    args = scorer_inputs(np.random.default_rng(SEED), "pos", cw, grid, dev)
+    lo, hi = mesh.grid_rows(args[5].shape[0])
+    best, arg = dpe_real._score_rows(mesh, *args, "quadratic", 1, False,
+                                     False, False)
+    sliced = args[:5] + [args[5][lo:hi], args[6][lo:hi]]
+    want = score.score_argmax_plain(*sliced)
+    err = compare_scores(sliced, (best, arg - lo), want, dict(
+        interp="quadratic", l_power=1, weighted=False))
+    return dict(rows=[lo, hi], max_abs_err=err)
+
+
+def start_mesh_children(specs, tmp):
+    """Start this script with --mesh-child for each spec; wait for all by a
+    deadline (then kill them), require exit 0. Returns their (stats,
+    fixes)."""
+    procs = []
+    for i, spec in enumerate(specs):
+        path = tmp / f"spec{i}.json"
+        path.write_text(json.dumps(spec))
+        log_f = open(tmp / f"child{i}.log", "w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--mesh-child", str(path)], stdout=log_f,
+            stderr=subprocess.STDOUT, cwd=REPO), log_f))
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, log_f) in enumerate(procs):
+        log_f.seek(0)
+        text = log_f.read()
+        log_f.close()
+        assert p.returncode == 0, f"mesh child {i} exit {p.returncode}:\n" \
+                                  f"{text[-4000:]}"
+    return [(json.loads(pathlib.Path(sp["out"] + ".json").read_text()),
+             dict(np.load(sp["out"] + ".npz"))) for sp in specs]
+
+
+# After a proven tie the two runs may take neighbouring grid points and go
+# on from different states: one step of the spread grid's finest spacing
+# along each of its axes (5 m in E, N and U; 6 m of clock; 0.5 m/s in E, N
+# and U; 0.25 m/s of drift), as gaps of position, clock, velocity, drift.
+AFTER_TIE = np.array([5.0 * np.sqrt(3), 6.0, 0.5 * np.sqrt(3), 0.25])
+
+
+def fix_gaps(got, want):
+    """Per fix [n, 4]: |position diff| [m], |clock diff| [m], |velocity
+    diff| [m/s], |drift diff| [m/s] of two [n, 8] state sequences."""
+    d = got - want
+    return np.stack([np.linalg.norm(d[:, :3], axis=1), np.abs(d[:, 3]),
+                     np.linalg.norm(d[:, 4:7], axis=1), np.abs(d[:, 7])], 1)
+
+
+def same_fixes(got, want, audit, exact=True):
+    """The mesh run's fixes against one device's: equal (to the bit, or
+    within 1e-6 with the channels split) up to the first dispatch where an
+    argmax differed as a proven tie (MeshAudit), and every later fix
+    within AFTER_TIE of one device's. Returns (how many fixes came before
+    the first tie, the largest gaps after it [4] or None)."""
+    upto = len(want)
+    if audit is not None and audit["fixes_before_first_tie"] is not None:
+        upto = audit["fixes_before_first_tie"]
+    assert got.shape == want.shape, (got.shape, want.shape)
+    if exact:
+        np.testing.assert_array_equal(got[:upto], want[:upto])
+    else:
+        np.testing.assert_allclose(got[:upto], want[:upto], rtol=0,
+                                   atol=1e-6)
+    if upto == len(want):
+        return upto, None
+    after = fix_gaps(got[upto:], want[upto:]).max(axis=0)
+    assert (after <= AFTER_TIE).all(), (after, AFTER_TIE)
+    return upto, after
+
+
+def check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes):
+    """Phase 25: DPEConfig(mesh=...) at full width on phase 5's 12 s, in
+    child processes (this process keeps no process group): (a) NCCL at
+    world size 1, phase 5's batched sequence, its fixes equal to phase 5's
+    to the bit, then parallel/launch.py --bench-only; (b) two gloo ranks
+    sharing cuda:0 on grid=2: the batched sequence, run_integrated (25
+    fixes of 8), 20 per-block steps, 10 FFT-engine steps, a 4-batch survey
+    and, on chan=2 x grid=1, run_batched(50), every dispatch that splits
+    blocks or channels held to one device's on the same inputs
+    (MeshAudit), the fixes equal to one device's run (phase 5's for the
+    batched sequence) to the bit (within 1e-6 with the channels split) up
+    to the first proven tie and within AFTER_TIE after it, and equal on
+    both ranks; rank 1's K1 slice against its plain version; (c) first, on
+    one card and in this process, one device's batched sequence (equal to
+    phase 5's), run_integrated and survey, each dispatch also correlated as
+    2, 3 and 4 grid ranks share its blocks (SplitAudit). Returns {kernel:
+    launches} of the timed mesh runs (rank 0 of each launch)."""
+    import pickle
+
+    first = samples[:S * 600]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = pathlib.Path(tmp_s)
+        np.save(tmp / "first.npy", first)
+        with open(tmp / "hand.pkl", "wb") as f:
+            pickle.dump((hand, arr), f)
+        common = dict(samples=str(tmp / "first.npy"),
+                      handoff=str(tmp / "hand.pkl"))
+        t_phase = t0 = time.perf_counter()
+        with SplitAudit() as split:
+            again = mesh_case("batched", first, hand, arr, grid, dev, None)
+            refs = {name: mesh_case(name, first, hand, arr, grid, dev, None)
+                    for name in ("integrated", "survey")}
+        np.testing.assert_array_equal(again[0], phase5_fixes)
+        for p, st in split.stats.items():
+            shares = ["/".join(str(hi - lo) for lo, hi in score.even_rows(
+                n, p)) for n in (N_BLOCKS, 8)]
+            log(f"mesh (c) one card, the blocks split as {p} grid ranks "
+                f"take them ({shares[0]} of 50, {shares[1]} of an "
+                f"integrated fix's 8): {st['dispatches']} dispatches (the "
+                f"batched sequence, run_integrated, the survey) against the "
+                f"whole call: {st['n_diff']} of {st['n_all']} window "
+                f"elements differ, max rel {st['rel']:.3e}, flips equal, "
+                f"{st['ties']} argmaxes differ (each a proven tie); "
+                f"{time.perf_counter() - t0:.1f} s for all three splits "
+                f"[{card}]")
+        refs.update({name: mesh_case(name, first, hand, arr, grid, dev,
+                                     None)
+                     for name in ("per-block", "fft", "chan split")})
+        refs["batched"] = (phase5_fixes, {}, 0)
+
+        def report(label, name, st, fixes_by_rank, matched, after=None):
+            r = st["runs"][name]
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            last = [fx[name][-1][:3].tolist() for fx in fixes_by_rank]
+            tail = "" if after is None else (
+                " up to the first tie, the rest within "
+                + ", ".join(f"{v:.3f}" for v in after)
+                + " (position m, clock m, velocity m/s, drift m/s) of them")
+            au = r["audit"]
+            audit = "" if au is None else (
+                f"; audit of {au['dispatches']} dispatches against one "
+                f"device: windows rel {au['rel']:.3e}, {au['ties']} with a "
+                f"differing argmax (each a proven tie)")
+            log(f"mesh {label}, {name}: wall {r['wall_s']:.3f} s, "
+                f"{r['collectives']} collectives in {r['dispatches']} "
+                f"dispatches/steps ({r['collectives'] / r['dispatches']:.2f} "
+                f"a dispatch), {r['collective_ms']:.3f} ms of host clock in "
+                f"them, launches {r['launches']}; {matched} of "
+                f"{len(fixes_by_rank[0][name])} fixes equal to one device's"
+                f"{tail}{audit}; last fix on every rank {last} [{card}]")
+
+        (st_a, fx_a), = start_mesh_children([dict(
+            common, backend="nccl", rank=0, world=1, runs=["batched"],
+            audit=False, out=str(tmp / "nccl"))], tmp)
+        assert st_a["backend"] == "nccl", st_a
+        np.testing.assert_array_equal(fx_a["batched"], phase5_fixes)
+        assert st_a["runs"]["batched"]["collectives"] > 0
+        report("(a) nccl, world size 1", "batched", st_a, [fx_a],
+               len(phase5_fixes))
+
+        res = subprocess.run(
+            [sys.executable, "-m", "navlab_dpe_sdr_tpu_torch.parallel.launch",
+             "--coordinator", f"file://{tmp}/rdv_bench", "--num-processes",
+             "1", "--process-id", "0", "--bench-only", "--device", "cuda"],
+            capture_output=True, text=True, cwd=REPO, timeout=MESH_TIMEOUT_S)
+        assert res.returncode == 0, res.stderr[-3000:]
+        line = [ln for ln in res.stdout.splitlines()
+                if ln.startswith("[proc 0] ")][-1]
+        bench = json.loads(line.split(" ", 2)[2])
+        log(f"mesh (a) parallel/launch.py --bench-only, one rank (nccl, "
+            f"world size 1), a single-device reading and no scaling number: "
+            f"grid_points_per_s {bench['grid_points_per_s']:.6e}, "
+            f"sec_per_block {bench['sec_per_block']:.6e} on "
+            f"{bench['device']} [{card}]")
+
+        specs = [dict(common, backend="gloo", rank=r, world=2,
+                      rdv=str(tmp / "rdv_gloo"), runs=list(MESH_RUNS),
+                      audit=True, out=str(tmp / f"gloo{r}"))
+                 for r in range(2)]
+        got = start_mesh_children(specs, tmp)
+        stats, fixes = [g[0] for g in got], [g[1] for g in got]
+        for st in stats:
+            assert st["backend"] == "gloo" and st["shape"] == {
+                "chan": 1, "grid": 2}, st
+        for name in MESH_RUNS + ("chan split",):
+            want, extra, _ = refs[name]
+            audit = stats[0]["runs"][name]["audit"]
+            matched, after = 0, None
+            for fx in fixes:
+                np.testing.assert_array_equal(fx[name], fixes[0][name])
+                matched, after = same_fixes(fx[name], want, audit,
+                                            exact=name != "chan split")
+                for k, v in extra.items():   # the survey's state
+                    if audit["rel"] == 0.0:
+                        np.testing.assert_array_equal(fx[f"{name}.{k}"], v)
+                    else:                    # one fine-lattice step
+                        np.testing.assert_allclose(
+                            fx[f"{name}.{k}"][:4], v[:4], rtol=0,
+                            atol=0.25 * np.sqrt(3) + 1e-9)
+            report("(b) gloo, 2 ranks on cuda:0", name, stats[0], fixes,
+                   matched, after)
+        k1 = stats[1]["k1_slice"]
+        log(f"mesh (b) rank 1's K1 slice rows {k1['rows']} (G=390 625, "
+            f"N=50): kernel == plain with the offset added, max|best diff| "
+            f"{k1['max_abs_err']:.3e} [{card}]")
+        log(f"mesh phase: wall {time.perf_counter() - t_phase:.1f} s "
+            f"[{card}]")
+    return launches
+
+
+def main_path(first, hand, arr, grid, dev, card):
+    """Phase 5 on the first 12 s: (K1 launches of the timed segments, the
+    fixes of the whole sequence [300, 8])."""
     rx = receiver(first, hand, arr, grid, dev)
     raw_dev = torch.from_numpy(first.view(np.int16).reshape(-1, S, 2)
                                ).to(dev)
@@ -2141,13 +2671,55 @@ def main() -> int:
     total = sum(segments)
     log(f"main path: 400 blocks in {total:.3f} s, {400 * T / total:.2f}x "
         f"real time [{card}]")
+    phase5_fixes = np.stack([f.x_ecef for f in rx.fixes])
     for name, start, group_k in (("per-block", 500, 1),
                                  ("grouped K=5", 550, 5)):
         device_record(
             f"one 50-block dispatch, {name}",
             lambda: rx.run_batched(50, start_block=start, group_k=group_k,
                                    **run), "score_kernel", card)
-    del raw_dev, rx
+    return k1_launches, phase5_fixes
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    for name, (lib, sec) in build_all().items():
+        log(f"build: {name} -> {lib.name} in {sec:.2f} s")
+    log(f"tracking kernel: {track.kernel_design()}")
+
+    grid = spread_grid()
+    cw, vw = dpe_ops.auto_windows(grid.d_enu, grid.dt_m, grid.dv_enu,
+                                  grid.dtdot, FS, CARR_FFTPTS)
+    widths = {"pos": cw, "vel": vw}
+    k1 = check_scorer(grid, widths, dev)
+    log(f"scorer: kernel == plain in all 16 cases and at N=10, 25 (max|best "
+        f"diff| {k1['err']:.3e}); per dispatch (pos W={cw} + vel W={vw}, "
+        f"G={grid.n_pos}): N=50 wrapper {k1['ms']:.4f} ms, kernel's own "
+        f"{fmt_ms(k1['device_ms'])}, plain {k1['plain_ms']:.4f} ms; N=10 "
+        f"wrapper {k1['ms10']:.4f} ms, kernel's own "
+        f"{fmt_ms(k1['device_ms10'])} [{card}]")
+    k1_sum = check_block_sum(grid, widths, dev, card)
+
+    t0 = time.perf_counter()
+    samples, hand, arr = make_capture(CAPTURE_S)
+    log(f"capture: {CAPTURE_S:.0f} s synthesized in "
+        f"{time.perf_counter() - t0:.1f} s")
+    first = samples[:S * 600]        # 500 timed and warm-up blocks + 100
+    rel = check_dispatch(first, hand, arr, grid)
+    log(f"dispatch: card == cpu on 5 blocks (indices, flips equal; "
+        f"windows rel diff {rel:.2e})")
+
+    k1_launches, phase5_fixes = main_path(first, hand, arr, grid, dev,
+                                          card)
 
     k3 = check_correlator(dev, card)
     st0, raw0, table0 = tracker_inputs(samples, hand, dev)
@@ -2198,6 +2770,9 @@ def main() -> int:
     k4b_by_path = {"track(2000, batch_k=4)": k4b.pop("launches"),
                    "cli": cl["track_chunk_batched"]}
     k3w_by_path = {"vector": k3w_launches, "cli": cl["correlate_windows"]}
+    mesh = check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes)
+    k1_by_path["mesh"] = mesh.get("score_argmax", 0)
+    k2_by_path["mesh"] = mesh.get("score_surface", 0)
     for by_path in (k1_by_path, k2_by_path, k4_by_path, k4c_by_path,
                     k4b_by_path, k3w_by_path):
         assert all(n > 0 for n in by_path.values()), by_path
@@ -2229,5 +2804,24 @@ def main() -> int:
     return 0
 
 
+def main_path_only() -> int:
+    """--main-path: the card, the builds and phase 5 on a 12 s capture."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    card = card_line()
+    log(f"{card}; the port of {REPO}")
+    for name, (lib, sec) in build_all().items():
+        log(f"build: {name} -> {lib.name} in {sec:.2f} s")
+    samples, hand, arr = make_capture(12.0)
+    main_path(samples, hand, arr, spread_grid(), torch.device("cuda"), card)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--main-path"]:
+        sys.exit(main_path_only())
     sys.exit(main())

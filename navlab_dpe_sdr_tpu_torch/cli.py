@@ -19,10 +19,15 @@ The same 13 subcommands, arguments and defaults as the JAX package's CLI
 
 `--device cuda|cpu` (default cuda) is passed to every receiver, fleet and
 sweep a command builds; without a card `cuda` raises, and nothing moves to
-the CPU unless asked. Differences from the JAX CLI: no `auto` device and no
-`--cpu-devices` (the JAX CLI's virtual CPU devices are its test bed for
-`--mesh`); `--mesh` exits naming ROADMAP Queue 1 item 11 (the mesh is not
-ported yet); `acquire --engine real` (the all-real TPU engine) raises, and
+the CPU unless asked. `--mesh grid=G[,chan=C]` (dpe, survey) runs the
+receiver on a mesh of G x C ranks, one process each: start them with
+`torchrun --nproc-per-node N -m navlab_dpe_sdr_tpu_torch dpe ... --mesh
+grid=N` (a CUDA rank binds cuda:{LOCAL_RANK}); a lone process runs a
+one-rank mesh and exits on a larger one, saying how to start the ranks.
+Only rank 0 writes the output files and prints the fixes. Differences from
+the JAX CLI: no `auto` device and no `--cpu-devices` (the JAX CLI's virtual
+CPU devices are its test bed for `--mesh`; the port's test bed is gloo
+ranks); `acquire --engine real` (the all-real TPU engine) raises, and
 `auto` is `fft`; `dpe --profile-dir` writes a torch.profiler Chrome trace;
 `bench` exits naming ROADMAP Queue 1 item 6.
 
@@ -34,6 +39,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
 import time
 
@@ -71,10 +77,55 @@ def _dpe_config(args):
                         if k in DPEConfig.__dataclass_fields__})
 
 
-def _refuse_mesh(args):
-    if getattr(args, "mesh", None):
-        raise SystemExit("--mesh: the mesh is not ported yet: ROADMAP "
-                         "Queue 1 item 11 (mesh)")
+@contextlib.contextmanager
+def _cli_mesh(args):
+    """The --mesh grid=G[,chan=C] mesh (None without --mesh), torn down
+    after the command. Under torchrun (WORLD_SIZE in the environment) the
+    process joins the launcher's group first and a CUDA rank binds
+    cuda:{LOCAL_RANK}; the mesh must then equal the world size. A lone
+    process runs a one-rank mesh, and exits on a larger one."""
+    if not getattr(args, "mesh", None):
+        yield None
+        return
+    import torch.distributed as dist
+
+    from .parallel.launch import init_distributed
+    from .parallel.mesh import make_mesh
+
+    spec = dict(kv.split("=") for kv in args.mesh.split(","))
+    n_grid = int(spec.get("grid", 0)) or None
+    n_chan = int(spec.get("chan", 1))
+    joined = False
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        args.device = init_distributed(
+            "env://", int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+            device=args.device.type)
+        joined = True
+    if not dist.is_initialized() and (n_grid or 1) * n_chan != 1:
+        want = (n_grid or 1) * n_chan
+        raise SystemExit(
+            f"--mesh {args.mesh}: {want} ranks need {want} processes; start "
+            f"them with `torchrun --nproc-per-node {want} -m "
+            f"navlab_dpe_sdr_tpu_torch {args.cmd} ... --mesh {args.mesh}` "
+            f"(or python -m navlab_dpe_sdr_tpu_torch.parallel.launch)")
+    mesh = make_mesh(n_grid=n_grid, n_chan=n_chan, device=args.device)
+    if dist.get_rank() == 0:
+        print(f"mesh: {mesh.shape} over {mesh.size} rank(s) "
+              f"({mesh.backend} on {mesh.device})")
+    try:
+        yield mesh
+    finally:
+        mesh.close()
+        if joined:
+            dist.destroy_process_group()
+
+
+def _rank0(mesh) -> bool:
+    """Whether this process writes outputs and prints fixes: always
+    without a mesh, rank 0 with one."""
+    import torch.distributed as dist
+
+    return mesh is None or dist.get_rank() == 0
 
 
 def cmd_synth(args):
@@ -206,6 +257,11 @@ def _profiled(profile_dir, device):
 
 
 def cmd_dpe(args):
+    with _cli_mesh(args) as mesh:
+        _dpe(args, mesh)
+
+
+def _dpe(args, mesh):
     from .io.handoff import read_handoff
     from .io.printer import FixWriter
     from .io.rawfile import SampleFile
@@ -213,10 +269,11 @@ def cmd_dpe(args):
     from .models.grid import load_grid_csv, make_grid
     from .runtime.flow import FlowRunner
 
-    _refuse_mesh(args)
+    rank0 = _rank0(mesh)
     hand = read_handoff(args.handoff)
     rf = SampleFile(args.file, fs=args.fs, ds=args.ds)
     cfg = _dpe_config(args)
+    cfg.mesh = mesh
     if args.grid_csv:
         grid = load_grid_csv(args.grid_csv)
     else:
@@ -237,14 +294,14 @@ def cmd_dpe(args):
                      eph_manager=_eph_manager(args, hand), device=args.device)
     n_blocks = args.blocks
 
-    with _profiled(args.profile_dir, rx.device):
-        writer = (FixWriter(args.out, weekno=args.weekno) if args.out
-                  else None)
+    with _profiled(args.profile_dir if rank0 else None, rx.device):
+        writer = (FixWriter(args.out, weekno=args.weekno)
+                  if args.out and rank0 else None)
 
         # --log port=path[:bin] — attach async loggers to arbitrary receiver
         # ports (reference DataLogger any-port attachment, datalogger.cu:34)
         port_loggers = []
-        for spec in (args.log or []):
+        for spec in (args.log or []) if rank0 else []:
             port, _, dest = spec.partition("=")
             binary = dest.endswith(":bin")
             dest = dest[:-4] if binary else dest
@@ -271,7 +328,7 @@ def cmd_dpe(args):
                 writer.write(fix)
             for pl in port_loggers:
                 pl.step()
-            if args.verbose:
+            if args.verbose and rank0:
                 from .libgnss import frames
                 lla = frames.ecef_to_lla(fix.x_ecef[:3])
                 print(f"{fix.mc:5d} {lla[0]:.6f} {lla[1]:.6f} {lla[2]:8.2f} "
@@ -321,8 +378,8 @@ def cmd_dpe(args):
 
             stream = SampleStream(args.file, block_samples=rx.S,
                                   start_byte=hand.bytes_read)
-            xlog = AsyncLogger(args.xecef_log, n_cols=9) if args.xecef_log \
-                else None
+            xlog = (AsyncLogger(args.xecef_log, n_cols=9)
+                    if args.xecef_log and rank0 else None)
 
             def step_native():
                 blk = stream.next_block()
@@ -347,6 +404,8 @@ def cmd_dpe(args):
         pl.close()
     if writer:
         writer.close()
+    if not rank0:
+        return
     if rx.fixes:
         last = rx.fixes[-1]
         print(f"final fix: {last.x_ecef[:3]}")
@@ -373,6 +432,11 @@ def cmd_dpe(args):
 
 def cmd_survey(args):
     """Multi-epoch joint DPE: one static state against the whole pass."""
+    with _cli_mesh(args) as mesh:
+        _survey(args, mesh)
+
+
+def _survey(args, mesh):
     from .io.handoff import read_handoff
     from .io.printer import FixWriter
     from .io.rawfile import SampleFile
@@ -380,10 +444,10 @@ def cmd_survey(args):
     from .models.dpe import DPEReceiver
     from .models.grid import make_grid
 
-    _refuse_mesh(args)
     hand = read_handoff(args.handoff)
     rf = SampleFile(args.file, fs=args.fs, ds=args.ds)
     cfg = _dpe_config(args)
+    cfg.mesh = mesh
     grid = make_grid(args.grid)
     rx = DPEReceiver(rf, hand, grid=grid, config=cfg,
                      eph_manager=_eph_manager(args, hand), device=args.device)
@@ -394,6 +458,8 @@ def cmd_survey(args):
                         vel_fine_spacing=args.vel_fine_spacing,
                         zoom_interp=args.zoom_interp)
     wall = time.time() - t0
+    if not _rank0(mesh):
+        return
     lla = frames.ecef_to_lla(res.x_ecef[:3])
     print(f"survey over {res.n_blocks} blocks "
           f"({res.n_blocks * cfg.T:.1f} s) in {wall:.1f} s")
@@ -860,8 +926,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="torch device: cuda (default; raises without a card) "
                         "or cpu. There is no --cpu-devices: the JAX CLI's "
-                        "virtual CPU devices are its --mesh test bed, and "
-                        "the mesh is not ported (ROADMAP Queue 1 item 11)")
+                        "virtual CPU devices are its --mesh test bed; the "
+                        "port's mesh runs one process per rank (torchrun)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     ps = sub.add_parser("synth", help="generate synthetic capture + handoff")
@@ -949,8 +1015,11 @@ def build_parser() -> argparse.ArgumentParser:
     pd.add_argument("--batched", action="store_true",
                     help="high-throughput batched mode")
     pd.add_argument("--mesh", metavar="SPEC",
-                    help="multi-device mesh, e.g. 'grid=8': not ported yet "
-                         "(ROADMAP Queue 1 item 11); exits")
+                    help="mesh of ranks, e.g. 'grid=8' or 'chan=2,grid=4' "
+                         "(axes multiply to the world size; one process "
+                         "per rank, started by torchrun); shards manifold "
+                         "scoring over grid points and correlation over "
+                         "channels")
     pd.add_argument("--integrate", type=int, metavar="K",
                     help="integrated mode: one fix per K blocks with "
                          "on-device score accumulation (lower noise)")
@@ -1022,8 +1091,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "reconstruction (removes the 3-tap vertex bias "
                          "from the clock estimate)")
     pu.add_argument("--mesh", metavar="SPEC",
-                    help="multi-device mesh, e.g. 'grid=8': not ported yet "
-                         "(ROADMAP Queue 1 item 11); exits")
+                    help="mesh of ranks, e.g. 'grid=8' (one process per "
+                         "rank, started by torchrun)")
     pu.add_argument("--out", help="per-batch fix CSV")
     pu.add_argument("--json", help="survey result JSON")
     pu.add_argument("--weekno", type=int, default=2008)

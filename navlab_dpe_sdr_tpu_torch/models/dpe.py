@@ -24,8 +24,15 @@ engine="fft" runs `step`/`run` through the FFT engine instead
 the score windows), the per-block cross-validation oracle; as in the JAX
 receiver the batched and integrated modes refuse it. The receiver takes the
 JAX package's numpy objects (Handoff, Grid, EphArray), so a JAX receiver's
-`save_handoff()` starts a port receiver that continues the same run. A mesh
-(ROADMAP Queue 1 item 11) raises NotImplementedError naming its item.
+`save_handoff()` starts a port receiver that continues the same run.
+
+DPEConfig(mesh=parallel.mesh.make_mesh(...)) runs every mode above on a
+('chan', 'grid') mesh of ranks (one process each, all running this same
+host loop on the same samples): the device calls take the mesh, each rank
+correlates its share of blocks and channels and scores its rows of the
+grid, and every rank gets the whole results, so the float64 host state
+stays the same on every rank. Collectives are issued from the receiver's
+own thread only (never from `_RawPrefetcher`'s).
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from ..libgnss.ephemeris import EphArray
 from ..libgnss.satcache import SatStateCache
 from ..ops import dpe as dpe_ops
 from ..ops import dpe_real as dpe_real_ops
+from ..parallel.mesh import Mesh
 from .ekf import NavEKF
 from .grid import Grid, _mesh4, check_grid_size, spread_grid
 
@@ -104,7 +112,7 @@ class DPEConfig:
                                      # polish of the argmax from the score
                                      # windows
     dump_scores_to: str | None = None  # per-block score dump (npz)
-    mesh: object | None = None         # multi-device scoring (not ported)
+    mesh: Mesh | None = None           # parallel.mesh.Mesh ('chan', 'grid')
     ekf_q_accel: float = 1.0
     ekf_q_pos: float = 25.0
     ion_alpha: tuple | None = None     # Klobuchar iono model in the
@@ -133,9 +141,9 @@ def _check_config(cfg: DPEConfig) -> None:
             "with its static default R instead of the adaptive "
             "score-curvature R (use engine='real' for adaptive R)",
             stacklevel=3)
-    if cfg.mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet: ROADMAP Queue 1 item 11 (mesh)")
+    if cfg.mesh is not None and not isinstance(cfg.mesh, Mesh):
+        raise TypeError(f"mesh must be a navlab_dpe_sdr_tpu_torch.parallel."
+                        f"mesh.Mesh (make_mesh), not {type(cfg.mesh)!r}")
     if cfg.engine not in ("real", "fft"):
         raise ValueError(f"engine={cfg.engine!r}: 'real' or 'fft'")
     if cfg.interp not in dpe_real_ops.INTERP_MODES:
@@ -297,6 +305,9 @@ class DPEReceiver:
         self.rawfile = rawfile
         self.cfg = config or DPEConfig()
         _check_config(self.cfg)
+        if self.cfg.mesh is not None and self.cfg.mesh.device != self.device:
+            raise ValueError(f"the mesh's ranks run on {self.cfg.mesh.device},"
+                             f" the receiver on {self.device}")
         self.grid = check_grid_size(grid or spread_grid())
         self.prn_list = list(handoff.prn_list)
         c = len(self.prn_list)
@@ -630,7 +641,8 @@ class DPEReceiver:
                 fp[1], fp[2], d.time_idc, ip[1], ip[2], params, d.d_enu,
                 d.dt_m, d.dv_enu, d.dtdot, carr_fftpts=self.carr_fftpts,
                 l_power=self.cfg.l_power, interp=self.cfg.interp,
-                code_win=self.code_win, carr_win=self.carr_win)
+                code_win=self.code_win, carr_win=self.carr_win,
+                mesh=self.cfg.mesh)
         else:
             (pos_scores, pos_arg, vel_scores, vel_arg, flip_used, code_mag,
              carr_mag) = dpe_real_ops.dpe_device_step_real(
@@ -639,7 +651,7 @@ class DPEReceiver:
                 d.dtdot, carr_fftpts=self.carr_fftpts, period=self.period,
                 n_periods=self.S // self.period, l_power=self.cfg.l_power,
                 interp=self.cfg.interp, code_win=self.code_win,
-                carr_win=self.carr_win)
+                carr_win=self.carr_win, mesh=self.cfg.mesh)
 
         if self.cfg.use_argmax:
             pa, va = int(pos_arg), int(vel_arg)
@@ -1069,7 +1081,7 @@ class DPEReceiver:
             return_windows=(self.cfg.refine == "newton"
                             or self.cfg.ekf_mode == "full"),
             code_win=self.code_win, carr_win=self.carr_win, group_k=group_k,
-            use_argmax=self.cfg.use_argmax)
+            use_argmax=self.cfg.use_argmax, mesh=self.cfg.mesh)
         # queue the device->host copy now: it runs as soon as the batch
         # finishes on the device, overlapping the NEXT batch's host prep
         return _fetch_async(rows), preps
@@ -1218,7 +1230,7 @@ class DPEReceiver:
                 l_power=self.cfg.l_power, interp=self.cfg.interp,
                 code_win=self.code_win, carr_win=self.carr_win,
                 coherent=coherent, return_windows=want_windows,
-                use_argmax=self.cfg.use_argmax)
+                use_argmax=self.cfg.use_argmax, mesh=self.cfg.mesh)
             # one device->host fetch: head, the last block's flips, windows
             flat = _fetched(_fetch_async(torch.cat(
                 [res[0], res[1][-1].float()]
@@ -1374,7 +1386,7 @@ class DPEReceiver:
             f32(r0 if r0 is not None else np.zeros_like(centers)),
             f32(off3), f32(np.broadcast_to(off1, off3.shape[:1])),
             interp=interp or self.cfg.interp, l_power=self.cfg.l_power,
-            has_r0=r0 is not None)
+            has_r0=r0 is not None, mesh=self.cfg.mesh)
         a = int(arg)
         return (np.asarray(off3[a], np.float64).copy(),
                 float(np.asarray(off1).reshape(-1)[a]

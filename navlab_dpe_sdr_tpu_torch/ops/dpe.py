@@ -166,10 +166,11 @@ def batch_correlate(raw: torch.Tensor, code_fft0: torch.Tensor,
 
 def score_manifolds(code_win, carr_win, params: ManifoldParams, d_enu, dt_m,
                     dv_enu, dtdot, l_power: int = 1,
-                    interp: str = "quadratic"):
+                    interp: str = "quadratic", mesh=None):
     """(pos_scores [Gp], pos_arg, vel_scores [Gv], vel_arg) of one block's
     complex windows code_win [C, CODE_WIN] / carr_win [C, CARR_WIN]: the
-    magnitudes through `dpe_real.score_manifolds_mag` (K2 on the card).
+    magnitudes through `dpe_real.score_manifolds_mag` (K2 on the card; on
+    a mesh, each rank's grid rows).
 
     As in the JAX module, interpolation runs on |window|; for "linear" the
     reference interpolates the complex values first, a difference far below
@@ -178,7 +179,7 @@ def score_manifolds(code_win, carr_win, params: ManifoldParams, d_enu, dt_m,
 
     return score_manifolds_mag(code_win.abs(), carr_win.abs(), params, d_enu,
                                dt_m, dv_enu, dtdot, l_power=l_power,
-                               interp=interp)
+                               interp=interp, mesh=mesh)
 
 
 def _slice_rows(arr: torch.Tensor, start: torch.Tensor,
@@ -194,18 +195,39 @@ def dpe_device_step(raw, code_fft0, m_int, m_frac, idx_next, fi, ri,
                     time_idc, pos_start, vel_start, params: ManifoldParams,
                     d_enu, dt_m, dv_enu, dtdot, carr_fftpts: int,
                     l_power: int = 1, interp: str = "quadratic",
-                    code_win: int = CODE_WIN, carr_win: int = CARR_WIN):
+                    code_win: int = CODE_WIN, carr_win: int = CARR_WIN,
+                    mesh=None):
     """One block of the FFT engine: replica shift + batch correlate, the
     score windows at pos_start/vel_start [C], both manifolds scored.
-    Returns (pos_scores, pos_arg, vel_scores, vel_arg, flip_used)."""
-    scores = batch_correlate(raw, code_fft0, m_int, m_frac, idx_next, fi, ri,
-                             time_idc, carr_fftpts)
-    code_w = _slice_rows(scores.code_corr, pos_start, code_win)
-    carr_w = _slice_rows(scores.carr_fft, vel_start, carr_win)
+    Returns (pos_scores, pos_arg, vel_scores, vel_arg, flip_used).
+
+    With a mesh (parallel/mesh.py `sharded_dpe_step`): each 'chan' rank
+    transforms its channel shard, the windows and flips are gathered over
+    'chan', and each rank scores its grid rows; the results are the whole
+    ones on every rank."""
+    c = code_fft0.shape[0]
+    cs = slice(0, c) if mesh is None else mesh.chan_rows(c)
+    scores = batch_correlate(raw, code_fft0[cs], m_int[cs], m_frac[cs],
+                             idx_next[cs], fi[cs], ri[cs], time_idc,
+                             carr_fftpts)
+    code_w = _slice_rows(scores.code_corr, pos_start[cs], code_win)
+    carr_w = _slice_rows(scores.carr_fft, vel_start[cs], carr_win)
+    flip_used = scores.flip_used
+    if mesh is not None and mesh.chan_split(c):
+        packed = torch.cat([torch.view_as_real(code_w).flatten(1),
+                            torch.view_as_real(carr_w).flatten(1),
+                            flip_used[:, None].float()], dim=1)
+        full = mesh.gather_chan(packed[None], c)[0]         # [C, K]
+        nc, nv = 2 * code_win, 2 * carr_win
+        code_w = torch.view_as_complex(
+            full[:, :nc].reshape(c, code_win, 2).contiguous())
+        carr_w = torch.view_as_complex(
+            full[:, nc:nc + nv].reshape(c, carr_win, 2).contiguous())
+        flip_used = full[:, -1] != 0
     pos_scores, pos_arg, vel_scores, vel_arg = score_manifolds(
         code_w, carr_w, params, d_enu, dt_m, dv_enu, dtdot,
-        l_power=l_power, interp=interp)
-    return pos_scores, pos_arg, vel_scores, vel_arg, scores.flip_used
+        l_power=l_power, interp=interp, mesh=mesh)
+    return pos_scores, pos_arg, vel_scores, vel_arg, flip_used
 
 
 def nominal_code_fft(chips: np.ndarray, fs: float, s: int) -> np.ndarray:

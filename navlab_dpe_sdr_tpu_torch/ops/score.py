@@ -38,6 +38,10 @@ read where the weight form has 11 and three.
 clamp (the JAX `_interp_weights`). `torch.sinc` and the kernel's `sinpif`
 round differently, so for sinc alone kernel and plain version agree to
 rtol 1e-5 on scores, not to the bit.
+
+`ceil_rows`, `even_rows` and `pick_first` split rows among a mesh's ranks
+and combine their (max, first index); they live here, so that the ops layer
+reaches parallel/ only through the mesh object a caller passes in.
 """
 
 from __future__ import annotations
@@ -114,20 +118,60 @@ def score_argmax_plain(win_mag, los_enu, centers, coefs, r0, off3, off1,
     the global first-index rule). Weighted sums accumulate in float64.
     block_sum: the blocks' scores are added, one after the other from n = 0
     up (the kernel's order), before the reduction; outputs are scalars."""
-    n = 1 if block_sum else win_mag.shape[0]
-    g = off3.shape[0]
     if chunk is None:       # sinc holds a [N, C, chunk, W] weight tensor
         chunk = PLAIN_CHUNK // 8 if interp == "sinc" else PLAIN_CHUNK
-    dev = win_mag.device
-    best = torch.full((n,), float("-inf"), dtype=torch.float32, device=dev)
-    arg = torch.zeros((n,), dtype=torch.int64, device=dev)
-    wsum4 = torch.zeros((n, 4), dtype=torch.float64, device=dev)
-    wtot = torch.zeros((n,), dtype=torch.float64, device=dev)
+    return streaming_best(
+        lambda o3, o1: score_points(win_mag, los_enu, centers, coefs, r0, o3,
+                                    o1, interp, l_power),
+        off3, off1, win_mag.shape[0], chunk, weighted, block_sum)
+
+
+def ceil_rows(n: int, parts: int) -> list[tuple[int, int]]:
+    """[lo, hi) of each part when part r holds rows r*ceil(n/parts) on
+    (the last parts may be short or empty)."""
+    per = -(-n // parts)
+    return [(min(r * per, n), min((r + 1) * per, n)) for r in range(parts)]
+
+
+def even_rows(n: int, parts: int) -> list[tuple[int, int]]:
+    """[lo, hi) of each of `parts` contiguous parts whose sizes differ by at
+    most one (the first n % parts are the longer)."""
+    out, lo = [], 0
+    for r in range(parts):
+        hi = lo + n // parts + (r < n % parts)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def pick_first(bests: torch.Tensor, args: torch.Tensor):
+    """(best, arg) over the rank axis 0 of gathered [nd, ...] bests and
+    their global indices: the highest best, the lowest rank among equal
+    ones (torch.argmax returns the first maximal index). With rows split by
+    `ceil_rows`, that is the single scorer's first occurrence."""
+    sel = torch.argmax(bests, dim=0, keepdim=True)
+    return (torch.gather(bests, 0, sel)[0], torch.gather(args, 0, sel)[0])
+
+
+def streaming_best(scores, off3, off1, n: int, chunk: int,
+                   weighted: bool = False, block_sum: bool = False):
+    """The running (max, first index) over grid chunks of `scores(o3, o1)`
+    -> [n, chunk'] f32 (the reduction of `score_argmax_plain`; also of the
+    mesh's channel-split scorer, ops/dpe_real.py). With weighted, the
+    score-weighted offset sums in float64; with block_sum the n rows are
+    added in ascending order first and the results are scalars."""
+    rows = 1 if block_sum else n
+    g = off3.shape[0]
+    dev = off3.device
+    best = torch.full((rows,), float("-inf"), dtype=torch.float32,
+                      device=dev)
+    arg = torch.zeros((rows,), dtype=torch.int64, device=dev)
+    wsum4 = torch.zeros((rows, 4), dtype=torch.float64, device=dev)
+    wtot = torch.zeros((rows,), dtype=torch.float64, device=dev)
     for g0 in range(0, g, chunk):
         o3 = off3[g0:g0 + chunk]
         o1 = off1[g0:g0 + chunk]
-        s = score_points(win_mag, los_enu, centers, coefs, r0, o3, o1,
-                         interp, l_power)                  # [N, chunk]
+        s = scores(o3, o1)                                 # [n, chunk]
         if block_sum:
             tot = s[0]
             for i in range(1, s.shape[0]):

@@ -461,14 +461,30 @@ def test_cli_fleet_decode_failed_matches_jax(tiny_capture, tmp_path, live):
         assert all(s["delivered_s"] >= 0.5 for s in ts["sources"])
 
 
-def test_cli_bench_and_mesh_refuse_by_roadmap_item(tiny_capture):
+def test_cli_bench_and_mesh_refuse_by_roadmap_item(tiny_capture, tmp_path):
+    """`bench` exits naming ROADMAP item 6. `--mesh grid=8` in a lone
+    process exits naming how to start the ranks; `--mesh grid=1` runs a
+    one-rank mesh: the same CSV as the run without it, and no process
+    group left behind."""
+    import torch.distributed as dist
+
     cap, hand = tiny_capture
     with pytest.raises(SystemExit, match="item 6"):
         run(tcli, "bench")
     for sub in ("dpe", "survey"):
-        with pytest.raises(SystemExit, match="item 11"):
+        with pytest.raises(SystemExit, match="torchrun --nproc-per-node 8"):
             run(tcli, sub, str(cap), "--handoff", str(hand), "--mesh",
                 "grid=8")
+    csv = {}
+    for mesh in ((), ("--mesh", "grid=1")):
+        csv[mesh] = tmp_path / f"fixes{len(mesh)}.csv"
+        out = run(tcli, "dpe", str(cap), "--handoff", str(hand), "--blocks",
+                  "10", "--batched", "--lookahead", "5", "--out",
+                  str(csv[mesh]), *mesh)
+        assert ("mesh: {'chan': 1, 'grid': 1} over 1 rank(s)" in out) \
+            == bool(mesh)
+        assert not dist.is_initialized()
+    assert csv[()].read_text() == csv[("--mesh", "grid=1")].read_text()
 
 
 def test_cli_without_device_never_runs_on_the_cpu(tiny_capture):

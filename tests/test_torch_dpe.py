@@ -207,15 +207,15 @@ def test_run_batched_ephemeris_cutover_matches_jax(scenario):
 
 
 def test_unported_configs_raise(scenario):
-    """A mesh raises naming its ROADMAP item (engine="fft" is ported:
-    tests/test_torch_fft_engine.py); the all-real acquisition engine is
-    not ported by design; coherent windows stop at 10 ms."""
+    """A mesh that is not the port's parallel.mesh.Mesh raises TypeError (the
+    mesh itself runs: tests/test_torch_mesh.py); the all-real acquisition
+    engine is not ported by design; coherent windows stop at 10 ms."""
     from navlab_dpe_sdr_tpu_torch.models import scalar as tscalar
     from navlab_dpe_sdr_tpu_torch.ops import tracking as ttrk
 
     samples, hand, arr, grid, _ = scenario
     for cfg in (dict(mesh=object()), dict(engine="fft", mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             tmodel.DPEReceiver(SampleFile(samples=samples, fs=FS),
                                copy.deepcopy(hand), grid=grid,
                                config=tmodel.DPEConfig(**cfg), eph=arr,

@@ -558,7 +558,7 @@ def test_constructor_refusals_match_jax(scenario):
             rx.run_batched(4, lookahead=4)
         with pytest.raises(ValueError, match="integrated mode runs on"):
             rx.run_integrated(1, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         build(tmodel, mesh=object())
     with pytest.raises(ValueError, match="interp"):
         build(tmodel, interp="cubic")

@@ -37,7 +37,7 @@ def test_port_modules_listed():
                  "ops.score", "models.dpe", "ops.acquisition", "ops.track",
                  "ops.tracking", "models.scalar", "models.vector",
                  "models.fleet", "models.montecarlo", "cli", "console",
-                 "__main__") + HOST_LAYERS:
+                 "__main__", "parallel.mesh", "parallel.launch") + HOST_LAYERS:
         assert f"navlab_dpe_sdr_tpu_torch.{name}" in PORT_MODULES
 
 
