@@ -66,10 +66,12 @@ Phases, one line or more each (any failure raises and exits non-zero):
 14. K4's coherent mode against its plain version from the acquisition
    state (K4's limits of phase 7), 8 channels: m = 2, 8, 10 code periods a
    window over 200 updates, m = 4 on the coherent cold start's 2000 ms chunk
-   (500 updates);
+   (500 updates); each with the kernel's own time (torch.profiler) and the
+   clock64() split of an update (one more launch with the clock buffer);
 15. K4's batch_k = 4 schedule against its plain version on one 2000 ms
-   chunk, then ScalarReceiver.track(2000, batch_k=4) from the acquisition
-   state;
+   chunk, with its own time and the clock split of a step; batch_k = 2, 3,
+   5, 8 against plain over 240 steps (the kernel's other pass shapes);
+   then ScalarReceiver.track(2000, batch_k=4) from the acquisition state;
 16. K3's windows mode (the open-loop correlation of vector tracking)
    against its plain version: 20 windows x 8 channels, bit-equal;
 17. the coherent cold start: acquire -> track(36 000, coh_ms=4) with the
@@ -665,6 +667,31 @@ def track_bound(steps, s, raw, code_table, lf, li):
                  + 2 * n_chan * (16 + 5 + 40) * 4)
 
 
+def clock_parts(kernel, n_upd: int, n_chan: int, dev, logf):
+    """More launches of kernel(clocks) with the kernel's clock buffer
+    (whose logs must equal logf, the path's, unless logf is None): (clocked
+    ms a launch, the clock in MHz, us per update of each of
+    track.CLOCK_NAMES, mean over channels)."""
+    clocks = torch.zeros((n_chan, track.N_CLOCKS), dtype=torch.int64,
+                         device=dev)
+    _, lfc, _ = kernel(clocks)           # warms this instantiation
+    assert logf is None or torch.equal(lfc, logf), \
+        "the clocked kernel logs differently"
+    clocked_ms = cuda_ms(lambda: kernel(clocks), 3)
+    clk = clocks.cpu().numpy().astype(np.float64).mean(axis=0)
+    us = clk / clk[-1] * clocked_ms * 1e3 / n_upd
+    return clocked_ms, clk[-1] / clocked_ms / 1e3, us
+
+
+def clock_split(kernel, n_upd: int, n_chan: int, dev, logf) -> str:
+    """clock_parts as "name us, ..." (us per update)."""
+    clocked_ms, mhz, us = clock_parts(kernel, n_upd, n_chan, dev, logf)
+    return (f"clocked kernel {clocked_ms:.3f} ms, "
+            f"{mhz:.0f} MHz: "
+            + ", ".join(f"{n} {u:.3f}" for n, u in
+                        zip(track.CLOCK_NAMES, us)))
+
+
 def check_tracker(st0, raw, code_table, card):
     """Phase 7: K4 against its plain version on one 2000 ms chunk from the
     acquisition result; dict(err: max |float log diff|, ms, plain_ms,
@@ -691,18 +718,9 @@ def check_tracker(st0, raw, code_table, card):
         f"{k_ms:.3f} ms per chunk ({TRACK_MS / k_ms:.1f}x real time), plain "
         f"{p_ms:.1f} ms ({TRACK_MS / p_ms:.2f}x) [{card}]")
 
-    # where a step goes: one more launch, with the kernel's clock buffer
-    clocks = torch.zeros((n_chan, track.N_CLOCKS), dtype=torch.int64,
-                         device=raw.device)
-    _, lfc, _ = kernel(clocks)            # warms this instantiation
-    assert torch.equal(lfc, lfk), "the clocked kernel logs differently"
-    clocked_ms = cuda_ms(lambda: kernel(clocks), 3)
-    clk = clocks.cpu().numpy().astype(np.float64).mean(axis=0)
-    us = clk / clk[-1] * clocked_ms * 1e3 / TRACK_MS      # per step
-    log(f"K4 step split (us per step, mean over channels; clocked kernel "
-        f"{clocked_ms:.3f} ms per chunk, {clk[-1] / clocked_ms / 1e3:.0f} "
-        f"MHz): " + ", ".join(f"{n} {u:.3f}" for n, u in
-                              zip(track.CLOCK_NAMES, us)) + f" [{card}]")
+    log(f"K4 step split (us per step, mean over channels): "
+        f"{clock_split(kernel, TRACK_MS, n_chan, raw.device, lfk)} "
+        f"[{card}]")
     steps, s = raw.shape[:2]
     return dict(
         err=err, ms=k_ms, plain_ms=p_ms,
@@ -1217,9 +1235,10 @@ def check_coherent(st0, samples, code_table, card):
                                .reshape(n_upd, m * 2500, 2).copy()).to(dev)
         loops = tracking.cadence_loops(m)
 
-        def kernel():
+        def kernel(clocks=None):
             return tracking.track_chunk_packed(st0, raw, code_table, FS,
-                                               FCAID, loops, coh_ms=m)
+                                               FCAID, loops, coh_ms=m,
+                                               clocks=clocks)
 
         _, lfk, lik = kernel()
         torch.cuda.synchronize()
@@ -1234,33 +1253,35 @@ def check_coherent(st0, samples, code_table, card):
                                     rows)
         errs.append(err)
         k_ms = cuda_ms(kernel, 5)
+        d_ms = kernel_device_ms(kernel, 3, "track_window_kernel")
+        split = clock_split(kernel, n_upd, code_table.shape[0], dev, lfk)
         log(f"K4 coherent m={m}: {n_upd} updates ({n_upd * m} ms) x "
             f"{code_table.shape[0]} channels from acquisition: logs "
             f"{verdict} (max|float diff| {err:.3e}); kernel {k_ms:.3f} ms "
             f"({n_upd * m / k_ms:.1f}x real time, "
-            f"{k_ms / n_upd * 1e3:.2f} us an update), plain {p_ms:.1f} ms "
-            f"[{card}]")
+            f"{k_ms / n_upd * 1e3:.2f} us an update), kernel's own "
+            f"{fmt_ms(d_ms)}, plain {p_ms:.1f} ms; update split (us) "
+            f"{split} [{card}]")
         if m == 4:
-            out = dict(ms=k_ms, plain_ms=p_ms, device_ms=kernel_device_ms(
-                kernel, 3, "track_window_kernel"),
-                bound=track_bound(n_upd, m * 2500, raw, code_table, lfk,
-                                  lik))
+            out = dict(ms=k_ms, plain_ms=p_ms, device_ms=d_ms,
+                       bound=track_bound(n_upd, m * 2500, raw, code_table,
+                                         lfk, lik))
     out["err"] = max(errs)
     return out
 
 
 def check_batched(st0, samples, hand, code_table, card):
     """Phase 15: K4's batch_k = 4 schedule against its plain version on the
-    path's 2000 ms chunk, then the receiver's batch_k path. Returns the K4
-    batch_k entry."""
+    path's 2000 ms chunk, batch_k = 2, 3, 5, 8 on its first 240 steps, then
+    the receiver's batch_k path. Returns the K4 batch_k entry."""
     dev = code_table.device
     n = TRACK_MS
     raw = torch.from_numpy(samples[:n * 2500].view(np.int16)
                            .reshape(n, 2500, 2).copy()).to(dev)
 
-    def kernel():
+    def kernel(clocks=None):
         return tracking.track_chunk_packed(st0, raw, code_table, FS, FCAID,
-                                           batch_k=4)
+                                           clocks=clocks, batch_k=4)
 
     _, lfk, lik = kernel()
     torch.cuda.synchronize()
@@ -1274,10 +1295,27 @@ def check_batched(st0, samples, hand, code_table, card):
                                 lfp.cpu().numpy(), lip.cpu().numpy(), rows)
     k_ms = cuda_ms(kernel, 5)
     d_ms = kernel_device_ms(kernel, 3, "track_window_kernel")
+    split = clock_split(kernel, n, code_table.shape[0], dev, lfk)
     log(f"K4 batch_k=4: {n} steps x {code_table.shape[0]} channels from "
         f"acquisition: logs {verdict} (max|float diff| {err:.3e}); kernel "
-        f"{k_ms:.3f} ms ({n / k_ms:.1f}x real time), plain {p_ms:.1f} ms "
-        f"[{card}]")
+        f"{k_ms:.3f} ms ({n / k_ms:.1f}x real time, "
+        f"{k_ms / n * 1e3:.3f} us a step), kernel's own {fmt_ms(d_ms)}, "
+        f"plain {p_ms:.1f} ms; step split (us) {split} [{card}]")
+    # the kernel's other pass shapes: 2, 3 and 1 windows a pass, and a
+    # batch over two passes (track.window_pass)
+    sweep = []
+    for kb in (2, 3, 5, 8):
+        rk = raw[:240]
+        _, lfk2, lik2 = tracking.track_chunk_packed(
+            st0, rk, code_table, FS, FCAID, batch_k=kb)
+        _, lfp2, lip2 = tracking.track_chunk_batched_plain(
+            st0, rk, code_table, FS, FCAID, batch_k=kb)
+        v, e = compare_logs(lfk2.cpu().numpy(), lik2.cpu().numpy(),
+                            lfp2.cpu().numpy(), lip2.cpu().numpy(), rows)
+        err = max(err, e)
+        sweep.append(f"batch_k={kb} ({track.window_pass(1, kb)} a pass) {v}")
+    log(f"K4 batch_k sweep: 240 steps x {code_table.shape[0]} channels from "
+        f"acquisition, logs against plain: {'; '.join(sweep)} [{card}]")
 
     rx = ScalarReceiver(SampleFile(samples=samples, fs=FS), hand.prn_list,
                         device=dev)

@@ -90,24 +90,34 @@
 // package computes in XLA (ops/tracking.py _track_chunk_jit at coh_ms > 1,
 // track_chunk_batched):
 // - coherent windows of m = 2..10 code periods: m + 2 segments, so 6m + 12
-//   sums, taken as up to four groups of 18 (three segments each). A group's
-//   samples are a contiguous range of the window, so each thread walks its
-//   samples once per group, adds only those of the group, and the group's
-//   18 sums go through the same warp reduction as K3's. The ring holds one
-//   code period a slot (a window is m consecutive slots: at m = 10 a window
-//   of int16 is 100 KB), refilled period by period after barrier 1; the
-//   time table is read from global memory (100 KB at m = 10). The tail is
-//   the m-scaled one: the single-flip hypothesis test over m + 2 segments,
-//   m + 1 signs, lock thresholds and C/N0 denominator from TrackParams.
+//   sums, the m-scaled tail (the single-flip hypothesis test over m + 2
+//   segments, m + 1 signs, lock thresholds and C/N0 denominator from
+//   TrackParams);
 // - batch_k at m = 1: window w of a batch correlates at the phases
 //   predicted from the batch-start rates, rc_w = mod(rc + (dfc T_MS) w,
 //   L_CA), while the updates run per window as at m = 1; the batch closes
 //   with the frozen-rate carry mod(rc_{k-1} + dfc T_MS, L_CA).
-// The m = 1 schedule stays in track_chunk_kernel, untouched.
+// Its design (redesigned from a first one that walked a window once per
+// group of three segments, with the time table in global memory): one
+// correlation pass per coherent window, and per batch (up to four 1 ms
+// windows, correlated together behind one cluster barrier, their updates
+// then run back to back by the tail warps). A warp takes a contiguous
+// chunk of a window's samples, so it meets at most two segments (12 sums,
+// one warp reduction); after barrier 1 each sum adds only the warps whose
+// chunks meet its segment, one thread a sum. A block stages, by one bulk
+// copy a pass, only the samples its own warps take, and keeps their sample
+// times in shared memory beside them. A channel is a cluster of kWinCluster
+// = 8 blocks (64 of the 132 SMs for 8 channels; 4 and 16 were slower). Lane
+// w of warps 0 and 1 combines window w over the nav-bit hypotheses; the two
+// warps then run the pass's loop updates in turn. After barrier 2 the
+// service warp of the first block logs the pass, the C/N0 rings across its
+// lanes and lane w taking window w's ring sums. What bounds it is latency,
+// as for the 1 ms kernel: an update is a correlation pass, a cluster
+// barrier and the dependent tail of one warp. The m = 1 schedule stays in
+// track_chunk_kernel, untouched.
 //
 // Later: the partial sums handed over with remote mbarrier arrivals instead
-// of the cluster barrier (~0.45 us of a ~2 us step); the batch_k windows
-// correlated together rather than one step each.
+// of the cluster barrier.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -133,9 +143,18 @@ constexpr int kLogI = 3;
 constexpr int kClocks = 6;     // wait, correlate, barrier, on-path, tail, loop
 constexpr int kMaxM = 10;      // code periods a coherent window holds, at most
 constexpr int kMaxSeg = kMaxM + 2;
-constexpr int kGroups = (kMaxSeg + 2) / 3;        // groups of three segments
-constexpr int kMaxSums = kGroups * kSums;
-constexpr int kSlotMax = 32;   // code periods the second K4 kernel's ring holds
+// The second K4 kernel (coherent windows, batch_k): its own cluster size,
+// so its own sum order (ops/track.py WINDOW_LANES, track_window_lanes()).
+constexpr int kWinCluster = 8;    // thread blocks per channel
+constexpr int kWinBlockCorr = 320;   // correlating threads per block
+constexpr int kWinUnroll = 2;     // samples a thread evaluates side by side
+constexpr int kWinBlockWarps = kWinBlockCorr / 32;
+constexpr int kWinBlockThreads = kWinBlockCorr + 32;   // + the service warp
+constexpr int kWinLanes = kWinCluster * kWinBlockCorr;
+constexpr int kWinWarps = kWinLanes / 32;
+constexpr int kMaxPass = 4;       // 1 ms windows of a batch correlated together
+constexpr int kMaxPassSeg = 12;   // segments of a pass: m + 2, or 3 per window
+constexpr int kPassSums = kMaxPassSeg * 6;
 constexpr float kFca = 1.023e6f;
 constexpr float kLca = 1023.0f;
 constexpr float kTwoPi = 6.283185307179586f;
@@ -149,10 +168,14 @@ static_assert(kBlockThreads <= 1024, "block too large");
 static_assert(kCluster == 4, "__cluster_dims__ of the kernels");
 static_assert(kRingMax >= 2, "the ring needs two slots");
 static_assert(kBlockWarps >= 3, "three warps share the on-path tail");
-// The second K4 kernel's dynamic shared memory: the static part is its
-// partial sums by parity and group, barriers, rings, Pub.
-constexpr size_t kSmemMaxW =
-    232448 - (2 * kGroups * (kLanes / 32) * kSums * 4 + 8 * kSlotMax + 1024);
+static_assert(kMaxSeg <= kMaxPassSeg && 3 * kMaxPass <= kMaxPassSeg, "pass segments");
+static_assert(kPassSums <= 96, "a pass's sums: one thread each of warps 0-2");
+static_assert(kWinCluster <= 8 && kWinWarps >= kMaxPass, "window kernel cluster: portable");
+static_assert(kWinBlockCorr % 32 == 0 && kWinBlockWarps >= 3 && kWinBlockThreads <= 1024,
+              "window kernel block");
+// The second K4 kernel's dynamic shared memory: the card's 227 KB less its
+// static part (barriers, rings, Pubs).
+constexpr size_t kSmemMaxW = 232448 - 1024;
 
 }  // namespace
 
@@ -331,10 +354,12 @@ __device__ __forceinline__ void halve(float v[], int off, int lane) {
   }
 }
 
-// After halve<18>, <9>, <5>, <3>, <2> (offsets 16 .. 1) a lane holds in v[0]
-// the warp's total of one of the 18 sums: which one (or -1: none).
+// After the halve levels from W values (offsets 16 .. 1; for W = 18: <18>,
+// <9>, <5>, <3>, <2>) a lane holds in v[0] the warp's total of one of the W
+// sums: which one (or -1: none).
+template <int W>
 __device__ __forceinline__ int reduce_owner(int lane) {
-  int n = kSums, width = kSums, base = 0;
+  int n = W, width = W, base = 0;
   for (int off = 16; off > 0; off >>= 1) {
     const int h = (width + 1) / 2;
     if (lane & off) {
@@ -755,7 +780,7 @@ correlate_window_kernel(const T* __restrict__ raw, const float* __restrict__ tim
     mbar_wait(&s_full[0], 0);
     correlate_partial(reinterpret_cast<const T*>(m.ring), m.time, m.code, n_samp, fs,
                       rc, ph[1], ri, ph[3], rank * kBlockCorr + (int)threadIdx.x,
-                      reduce_owner(lane), s_red);
+                      reduce_owner<kSums>(lane), s_red);
   }
   channel_sync();
   if (rank == 0 && warp == 0) {
@@ -793,7 +818,7 @@ track_chunk_kernel(const T* __restrict__ raw, const float* __restrict__ time_idc
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool service = warp == kBlockWarps;
   const bool logger = service && rank == 0 && lane == 0;
-  const int own = reduce_owner(lane);
+  const int own = reduce_owner<kSums>(lane);
   const Smem m = carve<T>(smem, n_samp, depth);
   block_setup(m, time_idc, table + (size_t)c * kCode, n_samp, s_full, depth);
 
@@ -900,6 +925,26 @@ track_chunk_kernel(const T* __restrict__ raw, const float* __restrict__ time_idc
 }
 
 // ---- the second K4 kernel: coherent windows and the batch_k schedule -------
+//
+// One correlation pass covers kbp windows of n samples (kbp = 1 for a
+// coherent window; for batch_k, up to kMaxPass 1 ms windows of a batch
+// together: WinLayout). Each window has m + 2 segments (m code periods and
+// the partial ones at both ends) of 6 sums (tap E, P, L x re/im); the
+// pass's segments are numbered window by window. A window is taken by wpw
+// warps of the channel's kWinWarps; warp c of a window takes the contiguous
+// chunk of 32 R samples [c 32 R, (c + 1) 32 R), lane i its samples
+// c 32 R + i + 32 r, r = 0 .. R - 1, in order, kWinUnroll side by side. A
+// segment is about one code period (~n / m samples) and a chunk at most
+// n / wpw + 32 (wpw >= 20), so a warp meets at most two segments: it holds
+// 12 sums, reduces them over the warp once, and leaves its partials for
+// segments sb and sb + 1 in red[segment][warp] of every block of the
+// cluster. (A warp whose samples
+// reach a third segment, which no window of the tracker's shapes gives,
+// takes them in a second round over its samples, two segments more.) After
+// barrier 1 one thread of warps 0-2 a sum adds the partials of the warps
+// whose chunks meet its segment, in warp order, into shared memory, where
+// the tail warps and the logger read them. The plain version sums in this
+// order (ops/track.py _window_order_sum with window_warps()).
 
 // Boundary k of a window (between segments k - 1 and k): the sample index
 // from which the code phase has passed k L_CA, b_k = (k L_CA - rc) fs / fc;
@@ -910,129 +955,206 @@ __device__ __forceinline__ float seg_bound(int k, int m, float rc, float ratio) 
   return ((float)k * kLca - rc) * ratio;
 }
 
-// K3 body for one group of three segments [3 grp, 3 grp + 3) of an m-period
-// window held in the ring's slots slot0, slot0 + 1, ... (mod depth), each
-// one code period of n_per samples: this thread's share of the group's 18
-// sums (its samples g, g + kLanes, ... that fall in the group, in order),
-// reduced over its warp into red[gwarp][own] of every block of the channel.
-// Sums are indexed tap * 6 + (segment - 3 grp) * 2 + re/im, as K3's.
+// The first sample index of segment k in a window of n samples: the least s
+// with (float)s >= b_k (0 for k = 0, n past the last boundary).
+__device__ __forceinline__ int seg_first(int k, int m, float rc, float ratio, int n) {
+  const float b = seg_bound(k, m, rc, ratio);
+  if (b <= 0.0f) return 0;
+  if (b >= (float)n) return n;
+  return (int)ceilf(b);
+}
+
+// What a launch of the window kernel correlates, from the host.
+struct WinLayout {
+  int n;          // samples a window (m code periods)
+  int kbp;        // windows a pass
+  int wpw;        // warps a window
+  int r;          // samples a lane of a window's warp
+  int share;      // samples a block stages per pass, at most (kWinBlockWarps 32 r)
+  int depth;      // passes in the ring
+  int bulk;       // one bulk copy a pass (else 4-byte copies)
+};
+
+// Index of sum (tap, segment, re/im) among a window's 6 (m + 2).
+__device__ __forceinline__ constexpr int sum_index(int tap, int seg, int q) {
+  return seg * 6 + tap * 2 + q;
+}
+
+// One warp's chunk: `win`/`time` point at the chunk's first sample in the
+// block's ring slot and time table, n_loc samples of which lie in the window,
+// the first at window index s_first. The 12 sums of segments sb, sb + 1 are
+// reduced over the warp; the owning lanes leave them in
+// red[(seg0 + segment) kWinWarps + gw][6] of every block of the cluster.
 template <typename T>
-__device__ __forceinline__ void correlate_group(
-    const unsigned char* ring, uint32_t slot_bytes, int slot0, int depth, int n_per,
-    int m, const float* __restrict__ g_time, const float* s_code, float fs, float rc,
-    float dfc, float ri, float fi, float half_win, int grp, int g, int own,
-    float (*red)[kSums]) {
-  float acc[kSums];
-#pragma unroll
-  for (int i = 0; i < kSums; ++i) acc[i] = 0.0f;
-  const int n_samp = m * n_per;
+__device__ __forceinline__ void correlate_chunk(
+    const T* win, const float* time, int n_loc, int s_first, int r_lane,
+    const float* s_code, float fs, float rc, float dfc, float ri, float fi,
+    float half_win, int m, int lane, int seg0, int gw, float* red) {
   const float rc_mid = rc + dfc * half_win;
   const float ph_e = rc_mid + 0.5f;
   const float ph_l = rc_mid - 0.5f;
   const float ratio = fs / (kFca + dfc);
-  const float b_lo = seg_bound(3 * grp, m, rc, ratio);
-  const float b_1 = seg_bound(3 * grp + 1, m, rc, ratio);
-  const float b_2 = seg_bound(3 * grp + 2, m, rc, ratio);
-  const float b_hi = seg_bound(3 * grp + 3, m, rc, ratio);
-  int per = g / n_per;              // the sample's code period in the window
-  int off = g - per * n_per;        // and its index in that period
-  for (int s = g; s < n_samp; s += kLanes) {
-    const float k = (float)s;
-    if (k >= b_hi) break;           // segments rise with the sample index
-    if (k >= b_lo) {
-      const int slot = (slot0 + per) % depth;
-      const T* win = reinterpret_cast<const T*>(ring + (size_t)slot * slot_bytes);
-      const float t = __ldg(g_time + s);
-      float re, im;
-      load_iq(win, off, re, im);
-      const float ang = kTwoPi * (fi * t + ri);
-      float wc, ws;
-      sincosf(ang, &ws, &wc);
-      const float bre = re * wc + im * ws;
-      const float bim = im * wc - re * ws;
-      const float base = t * kFca;
-      const float e = s_code[chip_index(base + ph_e)];
-      const float p = s_code[chip_index(base + rc_mid)];
-      const float l = s_code[chip_index(base + ph_l)];
-      const int seg = (int)(k >= b_1) + (int)(k >= b_2);
-#define NAVLAB_ACC(SEG)                         \
-  {                                             \
-    acc[0 * 6 + (SEG) * 2 + 0] += e * bre;      \
-    acc[0 * 6 + (SEG) * 2 + 1] += e * bim;      \
-    acc[1 * 6 + (SEG) * 2 + 0] += p * bre;      \
-    acc[1 * 6 + (SEG) * 2 + 1] += p * bim;      \
-    acc[2 * 6 + (SEG) * 2 + 0] += l * bre;      \
-    acc[2 * 6 + (SEG) * 2 + 1] += l * bim;      \
+  const int own = reduce_owner<12>(lane);
+  int sb = 0;                       // segment of the chunk's first sample
+  for (int k = 1; k <= m + 1; ++k) sb += (int)((float)s_first >= seg_bound(k, m, rc, ratio));
+  for (;;) {
+    const float b_lo = seg_bound(sb, m, rc, ratio);
+    const float b_1 = seg_bound(sb + 1, m, rc, ratio);
+    const float b_hi = seg_bound(sb + 2, m, rc, ratio);
+    float acc[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) acc[i] = 0.0f;
+    bool more = false;
+    for (int r0 = 0; r0 < r_lane; r0 += kWinUnroll) {
+      float bre[kWinUnroll], bim[kWinUnroll], e[kWinUnroll], p[kWinUnroll], l[kWinUnroll];
+      int j[kWinUnroll];
+#pragma unroll
+      for (int u = 0; u < kWinUnroll; ++u) {
+        j[u] = lane + 32 * (r0 + u);
+        const int jj = min(j[u], n_loc - 1);
+        const float t = time[jj];
+        float re, im;
+        load_iq(win, jj, re, im);
+        const float ang = kTwoPi * (fi * t + ri);
+        float wc, ws;
+        sincosf(ang, &ws, &wc);
+        bre[u] = re * wc + im * ws;
+        bim[u] = im * wc - re * ws;
+        const float base = t * kFca;
+        e[u] = s_code[chip_index(base + ph_e)];
+        p[u] = s_code[chip_index(base + rc_mid)];
+        l[u] = s_code[chip_index(base + ph_l)];
+      }
+#define NAVLAB_ACC(SLOT)                                    \
+  {                                                         \
+    acc[(SLOT) * 6 + 0] += e[u] * bre[u];                   \
+    acc[(SLOT) * 6 + 1] += e[u] * bim[u];                   \
+    acc[(SLOT) * 6 + 2] += p[u] * bre[u];                   \
+    acc[(SLOT) * 6 + 3] += p[u] * bim[u];                   \
+    acc[(SLOT) * 6 + 4] += l[u] * bre[u];                   \
+    acc[(SLOT) * 6 + 5] += l[u] * bim[u];                   \
   }
-      if (seg == 0) NAVLAB_ACC(0)
-      else if (seg == 1) NAVLAB_ACC(1)
-      else NAVLAB_ACC(2)
+#pragma unroll
+      for (int u = 0; u < kWinUnroll; ++u) {
+        if (r0 + u >= r_lane || j[u] >= n_loc) break;
+        const float k = (float)(s_first + j[u]);
+        if (k < b_lo) continue;     // taken in an earlier round
+        if (k >= b_hi) {            // for the next round
+          more = true;
+          continue;
+        }
+        if (k >= b_1) NAVLAB_ACC(1)
+        else NAVLAB_ACC(0)
+      }
 #undef NAVLAB_ACC
     }
-    off += kLanes;
-    while (off >= n_per) {
-      off -= n_per;
-      ++per;
+    halve<12>(acc, 16, lane);
+    halve<6>(acc, 8, lane);
+    halve<3>(acc, 4, lane);
+    halve<2>(acc, 2, lane);
+    halve<1>(acc, 1, lane);
+    if (own >= 0) {
+      const int seg = sb + own / 6;
+      if (seg <= m + 1) {
+        float* mine = red + ((size_t)(seg0 + seg) * kWinWarps + gw) * 6 + own % 6;
+        for (int rk = 0; rk < kWinCluster; ++rk) store_to_rank(mine, rk, acc[0]);
+      }
     }
-  }
-  const int lane = g & 31;
-  halve<18>(acc, 16, lane);
-  halve<9>(acc, 8, lane);
-  halve<5>(acc, 4, lane);
-  halve<3>(acc, 2, lane);
-  halve<2>(acc, 1, lane);
-  if (own >= 0) {
-    float* mine = &red[g >> 5][own];
-    for (int r = 0; r < kCluster; ++r) store_to_rank(mine, r, acc[0]);
+    if (!__any_sync(0xffffffffu, more)) break;
+    sb += 2;
   }
 }
 
-// Index of sum (tap, segment, re/im) in the grouped layout.
-__device__ __forceinline__ constexpr int sum_index(int tap, int seg, int q) {
-  return (seg / 3) * kSums + tap * 6 + (seg % 3) * 2 + q;
+// The window's correlation phases: a batch's window wb correlates at the
+// phases predicted from the batch start (rc0, ri0) and its frozen rates.
+struct WinPhase {
+  float rc, ri;
+};
+
+__device__ __forceinline__ WinPhase window_phase(int kb, int wb, float rc0, float ri0,
+                                                 float dfc_c, float fi_c, float t_up) {
+  if (kb == 1) return {rc0, ri0};
+  return {floor_mod(rc0 + (dfc_c * t_up) * (float)wb, kLca),
+          floor_mod(ri0 + (fi_c * t_up) * (float)wb, 1.0f)};
 }
 
-// Every lane of the calling warp gets the window's n_groups * 18 sums.
-__device__ __forceinline__ void all_group_sums(float (*red)[kWarps][kSums], int n_groups,
-                                               int lane, float sums[kMaxSums]) {
-#pragma unroll
-  for (int grp = 0; grp < kGroups; ++grp) {
-    const float v = grp < n_groups ? finish_sum(red[grp], lane) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < kSums; ++i) sums[grp * kSums + i] = __shfl_sync(0xffffffffu, v, i);
-  }
-}
-
-// Nav-bit polarity of an m-period window: m = 1 the decision tree, m > 1
-// the flip-location hypothesis test (ops/tracking.py _polarity_combine):
-// hypothesis j flips segments k >= j; the combined sum under j >= 1 is
-// 2 cum_{j-1} - tot; the first of the largest |.|^2 wins.
-__device__ __forceinline__ void polarity_combine_m(const float sums[kMaxSums], int m,
-                                                   float comb[6]) {
-  if (m == 1) {          // group 0 is the 18 sums of a 1 ms window
-    polarity_combine(sums, comb);
-    return;
-  }
+// After barrier 1, one thread a sum: pass sum i (segment i / 6) added over
+// the warps whose chunks meet its segment, in warp order (0 where none); the
+// partials are loaded eight at a time ahead of their adds.
+__device__ __forceinline__ float finish_sum_w(const float* red, const WinLayout& L, int m,
+                                              int kb, int b0, float rc0, float ri0,
+                                              float dfc_c, float fi_c, const TrackParams& p,
+                                              int i) {
   const int n_seg = m + 2;
-  float tr[kMaxSeg], ti[kMaxSeg];
+  const int chunk = 32 * L.r;
+  const int j = i / 6, wi = j / n_seg, jj = j - wi * n_seg;
+  const float ratio = p.fs / (kFca + dfc_c);
+  const WinPhase w = window_phase(kb, b0 + wi, rc0, ri0, dfc_c, fi_c, p.t_up);
+  const int s_lo = seg_first(jj, m, w.rc, ratio, L.n);
+  const int s_hi = seg_first(jj + 1, m, w.rc, ratio, L.n);
+  if (s_lo >= s_hi) return 0.0f;
+  const float* col = red + ((size_t)j * kWinWarps + wi * L.wpw) * 6 + (i - 6 * j);
+  const int c_lo = s_lo / chunk, c_n = (s_hi - 1) / chunk - c_lo + 1;
+  float acc = col[c_lo * 6];
+  for (int c0 = 1; c0 < c_n; c0 += 8) {
+    float x[8];
 #pragma unroll
-  for (int j = 0; j < kMaxSeg; ++j) {
-    tr[j] = sums[sum_index(0, j, 0)] + sums[sum_index(1, j, 0)] + sums[sum_index(2, j, 0)];
-    ti[j] = sums[sum_index(0, j, 1)] + sums[sum_index(1, j, 1)] + sums[sum_index(2, j, 1)];
+    for (int u = 0; u < 8; ++u) {   // loads past the segment's warps stay in shared memory
+      const float y = col[(c_lo + c0 + u) * 6];
+      x[u] = c0 + u < c_n ? y : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (c0 + u < c_n) acc += x[u];
   }
-  float tot_r = tr[0], tot_i = ti[0];
+  return acc;
+}
+
+// Nav-bit polarity of a window of M code periods from its 6 (M + 2) sums
+// `ws` (shared memory): M = 1 the decision tree, M > 1 the flip-location
+// hypothesis test (ops/tracking.py _polarity_combine): hypothesis j flips
+// segments k >= j; the combined sum under j >= 1 is 2 cum_{j-1} - tot; the
+// first of the largest |.|^2 wins. comb = e_r, p_r, l_r as (re, im).
+template <int M>
+__device__ __forceinline__ void combine_window(const float* ws, float comb[6]) {
+  constexpr int N = M + 2;
+  float x[6 * N];
 #pragma unroll
-  for (int j = 1; j < kMaxSeg; ++j)
-    if (j < n_seg) {
+  for (int i = 0; i < 6 * N; ++i) x[i] = ws[i];
+  float tr[N], ti[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    tr[j] = x[sum_index(0, j, 0)] + x[sum_index(1, j, 0)] + x[sum_index(2, j, 0)];
+    ti[j] = x[sum_index(0, j, 1)] + x[sum_index(1, j, 1)] + x[sum_index(2, j, 1)];
+  }
+  if constexpr (M == 1) {
+    float ar = tr[0] + tr[1], ai = ti[0] + ti[1], br = tr[0] - tr[1], bi = ti[0] - ti[1];
+    const bool flip01 = (ar * ar + ai * ai) < (br * br + bi * bi);
+    ar = tr[1] + tr[2]; ai = ti[1] + ti[2]; br = tr[1] - tr[2]; bi = ti[1] - ti[2];
+    const bool flip12 = (ar * ar + ai * ai) < (br * br + bi * bi);
+    const float g1 = flip01 ? -1.0f : 1.0f;
+    const float g2 = flip01 ? -1.0f : (flip12 ? -1.0f : 1.0f);
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float a = x[sum_index(tap, 0, q)];
+        a = a + g1 * x[sum_index(tap, 1, q)];
+        a = a + g2 * x[sum_index(tap, 2, q)];
+        comb[tap * 2 + q] = a;
+      }
+  } else {
+    float tot_r = tr[0], tot_i = ti[0];
+#pragma unroll
+    for (int j = 1; j < N; ++j) {
       tot_r = tot_r + tr[j];
       tot_i = tot_i + ti[j];
     }
-  float best = tot_r * tot_r + tot_i * tot_i;
-  int jstar = 0;
-  float cum_r = tr[0], cum_i = ti[0];
+    float best = tot_r * tot_r + tot_i * tot_i;
+    int jstar = 0;
+    float cum_r = tr[0], cum_i = ti[0];
 #pragma unroll
-  for (int j = 1; j < kMaxSeg; ++j)
-    if (j < n_seg) {
+    for (int j = 1; j < N; ++j) {
       const float cr = 2.0f * cum_r - tot_r;
       const float ci = 2.0f * cum_i - tot_i;
       const float cand = cr * cr + ci * ci;
@@ -1044,99 +1166,239 @@ __device__ __forceinline__ void polarity_combine_m(const float sums[kMaxSums], i
       cum_i = cum_i + ti[j];
     }
 #pragma unroll
-  for (int tap = 0; tap < 3; ++tap)
+    for (int tap = 0; tap < 3; ++tap)
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      float a = sums[sum_index(tap, 0, q)];
+      for (int q = 0; q < 2; ++q) {
+        float a = x[sum_index(tap, 0, q)];
 #pragma unroll
-      for (int k = 1; k < kMaxSeg; ++k)
-        if (k < n_seg) {
+        for (int k = 1; k < N; ++k) {
           const float g = (jstar == 0 || k < jstar) ? 1.0f : -1.0f;
-          a = a + g * sums[sum_index(tap, k, q)];
+          a = a + g * x[sum_index(tap, k, q)];
         }
-      comb[tap * 2 + q] = a;
-    }
+        comb[tap * 2 + q] = a;
+      }
+  }
 }
 
-// The off-path tail of an m-period window: prompt carry and m + 1 signs,
-// lock detector, C/N0 meter, the log row of 15 + m floats. The window was
-// correlated at rc_c / ri_c with the rate dfc_c (ncp from them); the row
-// logs rc_c, ri_c and the state's fc/fi before the update.
-__device__ __forceinline__ void monitor_and_log_m(
-    const Phases& ph, float rc_c, float ri_c, float dfc_c, Monitor& mo,
-    const float sums[kMaxSums], const Pub& pub, const TrackParams& p, float* s_rz,
-    float* s_rv, float* logf, int* logi, int log_stride) {
-  const int m = p.m;
-  const int n_seg = m + 2;
-  const int ncp = (int)floorf((p.win_s * (kFca + dfc_c) + rc_c) * p.inv_lca);
-
-  float pa[2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const float carry = q == 0 ? mo.p_a_re : mo.p_a_im;
-    float a = (ncp == 0) ? carry + sums[sum_index(1, 0, q)] : 0.0f;
-#pragma unroll
-    for (int k = 1; k < kMaxSeg; ++k)
-      if (k < n_seg) a = a + ((ncp == k) ? sums[sum_index(1, k, q)] : 0.0f);
-    pa[q] = a;
+__device__ __forceinline__ void combine_window(const float* ws, int m, float comb[6]) {
+  switch (m) {
+    case 1: combine_window<1>(ws, comb); break;
+    case 2: combine_window<2>(ws, comb); break;
+    case 3: combine_window<3>(ws, comb); break;
+    case 4: combine_window<4>(ws, comb); break;
+    case 5: combine_window<5>(ws, comb); break;
+    case 6: combine_window<6>(ws, comb); break;
+    case 7: combine_window<7>(ws, comb); break;
+    case 8: combine_window<8>(ws, comb); break;
+    case 9: combine_window<9>(ws, comb); break;
+    default: combine_window<kMaxM>(ws, comb); break;
   }
+}
 
-  const LockOut lk = lock_and_cn0(mo, pub.comb[2], pub.comb[3], p, s_rz, s_rv);
-  const float row[14] = {pub.comb[0], pub.comb[1], pub.comb[2], pub.comb[3],
-                         pub.comb[4], pub.comb[5], rc_c, ri_c, kFca + ph.dfc, ph.fi,
-                         lk.lockval, lk.snr, pub.dpc, pub.dpi};
-#pragma unroll
-  for (int f = 0; f < 14; ++f) logf[f * log_stride] = row[f];
-  logf[14 * log_stride] = -sign_of(mo.p_a_re + sums[sum_index(1, 0, 0)]);
-#pragma unroll
-  for (int k = 1; k < kMaxSeg - 1; ++k)
-    if (k < n_seg - 1) logf[(14 + k) * log_stride] = -sign_of(sums[sum_index(1, k, 0)]);
-  logi[0] = mo.cp;
-  logi[log_stride] = ncp;
-  logi[2 * log_stride] = lk.lock;
+// The C/N0 meter's two 20-sample rings, oldest first, across the lanes of
+// the logging warp: lane i < 20 holds entry i of each.
+struct Rings {
+  float z, v;
+};
 
-  mo.cp += ncp;
-  mo.p_a_re = pa[0];
-  mo.p_a_im = pa[1];
+// The mean of a ring as it stands after window w's value (lane w computes
+// window w's): its entries w + 1 .. 19 from the lanes that hold them, then
+// the pass's values x[0 .. w], added oldest first as ring_mean adds them.
+__device__ __forceinline__ float ring_mean_after(float r, const float x[kMaxPass], int w) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 1; i < kSnrN; ++i) {
+    const float old = __shfl_sync(0xffffffffu, r, min(w + i, kSnrN - 1));
+    s = w + i < kSnrN ? s + old : s;
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxPass; ++k) s = k <= w ? s + x[k] : s;
+  return s / (float)kSnrN;
+}
+
+// A ring after the pass's kbp values x: lane i < 20 takes entry i + kbp of
+// the old ring, or x[i + kbp - 20].
+__device__ __forceinline__ float ring_after(float r, const float x[kMaxPass], int kbp,
+                                            int lane) {
+  const int i = lane + kbp;
+  const float old = __shfl_sync(0xffffffffu, r, min(i, kSnrN - 1));
+  float y = old;
+#pragma unroll
+  for (int k = 0; k < kMaxPass; ++k) y = i - kSnrN == k ? x[k] : y;
+  return y;
+}
+
+// The off-path tail of a pass, on the service warp of the cluster's first
+// block: each window's prompt carry and m + 1 signs, lock detector, C/N0
+// meter (monitor_and_log's arithmetic) and log row of 15 + m floats. The
+// chained state (lock detector and its counters, prompt carry, cp, the
+// rates before each update) runs through the pass's windows in every lane
+// alike; lane w < kbp keeps window w's values, takes window w's two C/N0
+// ring sums (the rings across the warp's lanes, Rings) and writes its row.
+// Window w was correlated at its predicted rc / ri with the rate dfc_c (ncp
+// from them); its row logs those and the state's fc/fi before its update.
+// `logf`/`logi` point at the pass's first row.
+__device__ __forceinline__ void monitor_pass(
+    const Phases& ph, int kb, int b0, float rc0, float ri0, float dfc_c, float fi_c,
+    int kbp, int m, Monitor& mo, Rings& rg, const float* s_sums, const Pub* s_pub,
+    const TrackParams& p, float* logf, int* logi, size_t log_f_step, size_t log_i_step,
+    int n_chan, int lane) {
+  const int n_seg = m + 2;
+  const WinPhase wp = window_phase(kb, b0 + (lane < kbp ? lane : 0), rc0, ri0, dfc_c,
+                                   fi_c, p.t_up);
+  const int ncp_me = (int)floorf((p.win_s * (kFca + dfc_c) + wp.rc) * p.inv_lca);
+  float dfc = ph.dfc, fi = ph.fi;          // the rates before each update
+  float z[kMaxPass];
+  float my_fc = 0.0f, my_fi = 0.0f, my_lockval = 0.0f, my_sign0 = 0.0f;
+  int my_cp = 0, my_lock = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxPass; ++k) {
+    const int ncp = __shfl_sync(0xffffffffu, ncp_me, k);
+    z[k] = 0.0f;
+    if (k >= kbp) continue;
+    const Pub& pub = s_pub[k];
+    const float* ws = s_sums + k * n_seg * 6;
+    const float ip = pub.comb[2], qp = pub.comb[3];
+    const float li = p.lpf * fabsf(ip) + p.one_m_lpf * mo.lock_i;
+    const float lq = p.lpf * fabsf(qp) + p.one_m_lpf * mo.lock_q;
+    const bool in_lock = (li / kLockK) > lq;
+    const int lock = (in_lock && mo.lockcount > p.lock_th)
+                         ? 1
+                         : ((!in_lock && mo.losscount > p.loss_th) ? 0 : mo.lock);
+    // the prompt carry: the sum over segments j of [ncp == j] P_j (with the
+    // carry at j = 0) in segment order is the one nonzero term plus zeros,
+    // that is the term + 0 (which turns -0 into +0, as the zeros do)
+    float pa[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float carry = q == 0 ? mo.p_a_re : mo.p_a_im;
+      const float term = ncp == 0 ? carry + ws[sum_index(1, 0, q)]
+                         : (ncp > 0 && ncp < n_seg ? ws[sum_index(1, ncp, q)] : 0.0f);
+      pa[q] = term + 0.0f;
+    }
+    z[k] = ip * ip + qp * qp;
+    if (k == lane) {
+      my_fc = kFca + dfc;
+      my_fi = fi;
+      my_lockval = li / kLockK - lq;
+      my_sign0 = -sign_of(mo.p_a_re + ws[sum_index(1, 0, 0)]);
+      my_cp = mo.cp;
+      my_lock = lock;
+    }
+    mo.losscount = in_lock ? 0 : mo.losscount + 1;
+    mo.lockcount = in_lock ? mo.lockcount + 1 : 0;
+    mo.lock_i = li;
+    mo.lock_q = lq;
+    mo.lock = lock;
+    mo.snr_fill += 1;
+    mo.cp += ncp;
+    mo.p_a_re = pa[0];
+    mo.p_a_im = pa[1];
+    fi = ph.fi_bias + pub.di;
+    dfc = ph.dfc_bias + pub.dc + p.fcaid * (ph.fi_bias + pub.di);
+  }
+  // the C/N0 meter, window w in lane w
+  const int w = lane < kbp ? lane : 0;
+  float my_z = z[0];
+#pragma unroll
+  for (int k = 1; k < kMaxPass; ++k)
+    if (k == w) my_z = z[k];
+  const float z_mean = ring_mean_after(rg.z, z, w);
+  float v = my_z - z_mean;
+  v = v * v;
+  float vs[kMaxPass];
+#pragma unroll
+  for (int k = 0; k < kMaxPass; ++k) vs[k] = __shfl_sync(0xffffffffu, v, k);
+  const float z_var = ring_mean_after(rg.v, vs, w);
+  if (lane < kbp) {
+    const float carrier = sqrtf(fmaxf(z_mean * z_mean - z_var, 0.0f));
+    const float noise_var = fmaxf((z_mean - carrier) / 2.0f, 1e-12f);
+    const float logarg = fmaxf(carrier / (p.snr_den * noise_var), 1.0f);
+    const Pub& pub = s_pub[lane];
+    const float* ws = s_sums + lane * n_seg * 6;
+    float* lf = logf + (size_t)lane * log_f_step;
+    int* lo = logi + (size_t)lane * log_i_step;
+    const float row[14] = {pub.comb[0], pub.comb[1], pub.comb[2], pub.comb[3],
+                           pub.comb[4], pub.comb[5], wp.rc, wp.ri, my_fc, my_fi,
+                           my_lockval, 10.0f * log10f(logarg), pub.dpc, pub.dpi};
+#pragma unroll
+    for (int f = 0; f < 14; ++f) lf[f * n_chan] = row[f];
+    lf[14 * n_chan] = my_sign0;
+#pragma unroll
+    for (int j = 1; j < kMaxSeg - 1; ++j)
+      if (j < n_seg - 1) lf[(14 + j) * n_chan] = -sign_of(ws[sum_index(1, j, 0)]);
+    lo[0] = my_cp;
+    lo[n_chan] = ncp_me;
+    lo[2 * n_chan] = my_lock;
+  }
+  // the rings after the pass: entries kbp .. 19, then the pass's values
+  const float nz = ring_after(rg.z, z, kbp, lane);
+  const float nv = ring_after(rg.v, vs, kbp, lane);
+  rg = {nz, nv};
 }
 
 // K4 over windows of p.m code periods (p.batch_k == 1), or over 1 ms windows
-// in batches of p.batch_k (p.m == 1). The structure is track_chunk_kernel's
-// (a cluster per channel, the ring filled by the service warp, barrier 1,
-// the on-path tail shared by warps 0-2, barrier 2, the off-path tail on the
-// service warp's lane 0); the ring holds `depth` code periods of n_per
-// samples, window k being periods k m .. k m + m - 1.
-template <typename T>
-__global__ void __launch_bounds__(kBlockThreads) __cluster_dims__(4, 1, 1)
+// in batches of p.batch_k (p.m == 1), L.kbp windows a correlation pass. The
+// structure is track_chunk_kernel's (a cluster per channel, a ring filled
+// by the service warp, barrier 1, the on-path tail shared by warps 0-2,
+// barrier 2, the off-path tail on the service warp), with a cluster of
+// kWinCluster blocks; a block stages and times only the samples its warps
+// take (at most L.share a pass). After barrier 1 warps 0 and 1 run the
+// pass's windows' loop updates back to back; the service warp logs them
+// after barrier 2.
+template <typename T, bool kClock>
+__global__ void __launch_bounds__(kWinBlockThreads)
 track_window_kernel(const T* __restrict__ raw, const float* __restrict__ time_idc,
                     const float* __restrict__ table, const float* __restrict__ stf_in,
                     const int* __restrict__ sti_in, const float* __restrict__ ring_in,
                     float* __restrict__ stf_out, int* __restrict__ sti_out,
                     float* __restrict__ ring_out, float* __restrict__ logf,
-                    int* __restrict__ logi, int n_per, int n_steps, int depth, int bulk,
-                    TrackParams p) {
+                    int* __restrict__ logi, int n_steps, WinLayout L, TrackParams p,
+                    long long* __restrict__ clk) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float s_red[2][kGroups][kWarps][kSums];   // by step parity and group
-  __shared__ __align__(8) uint64_t s_full[kSlotMax];
+  __shared__ __align__(8) uint64_t s_full[kRingMax];
   __shared__ float s_rz[kSnrN], s_rv[kSnrN];
-  __shared__ Pub s_pub;
-  const int c = blockIdx.x / kCluster;
-  const int n_chan = gridDim.x / kCluster;
+  __shared__ Pub s_pub[kMaxPass];
+  const int c = blockIdx.x / kWinCluster;
+  const int n_chan = gridDim.x / kWinCluster;
   const int rank = cluster_rank();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool service = warp == kBlockWarps;
+  const bool service = warp == kWinBlockWarps;
   const bool logger = service && rank == 0 && lane == 0;
-  const int own = reduce_owner(lane);
-  const int m = p.m, kb = p.batch_k;
-  const int n_groups = (m + 2 + 2) / 3;
-  const uint32_t per_bytes = (uint32_t)n_per * 2u * (uint32_t)sizeof(T);
-  const uint32_t slot_b = (per_bytes + 15u) & ~15u;
+  const int m = p.m, kb = p.batch_k, n = L.n;
+  const int n_seg = m + 2;
+  const int chunk = 32 * L.r;
+  const uint32_t slot_b = ((uint32_t)L.share * 2u * (uint32_t)sizeof(T) + 15u) & ~15u;
   unsigned char* ring = smem;
-  float* s_code = reinterpret_cast<float*>(smem + (size_t)depth * slot_b);
-  for (int i = threadIdx.x; i < kCode; i += blockDim.x)
-    s_code[i] = table[(size_t)c * kCode + i];
+  float* s_red = reinterpret_cast<float*>(smem + (size_t)L.depth * slot_b);
+  float* s_time = s_red + 2 * kMaxPassSeg * kWinWarps * 6;
+  float* s_code = s_time + L.share;
+  float* s_sums = s_code + kCode + 1;        // the pass's sums, after barrier 1
+
+  // This warp's chunk (window wi of a pass, chunk ci of it) and this block's
+  // share of a pass: samples [sh_lo, sh_hi) of the pass's windows laid end
+  // to end, contiguous in raw.
+  const int gw = rank * kWinBlockWarps + warp;
+  const int wi = gw / L.wpw, ci = gw % L.wpw;
+  const bool active = !service && wi < L.kbp && ci * chunk < n;
+  const int n_loc = active ? min(chunk, n - ci * chunk) : 0;
+  int sh_lo = 0, sh_hi = 0;
+  for (int w = kWinBlockWarps - 1; w >= 0; --w) {   // the block's first active warp
+    const int g = rank * kWinBlockWarps + w;
+    if (g / L.wpw < L.kbp && (g % L.wpw) * chunk < n) sh_lo = (g / L.wpw) * n + (g % L.wpw) * chunk;
+  }
+  for (int w = 0; w < kWinBlockWarps; ++w) {         // ... and its last
+    const int g = rank * kWinBlockWarps + w;
+    if (g / L.wpw < L.kbp && (g % L.wpw) * chunk < n)
+      sh_hi = (g / L.wpw) * n + min((g % L.wpw + 1) * chunk, n);
+  }
+  const int j_chunk = wi * n + ci * chunk - sh_lo;   // the chunk's first sample in the share
+
+  for (int i = threadIdx.x; i < sh_hi - sh_lo; i += blockDim.x)
+    s_time[i] = time_idc[(sh_lo + i) % n];
+  for (int i = threadIdx.x; i < kCode; i += blockDim.x) s_code[i] = table[(size_t)c * kCode + i];
   if (threadIdx.x == 0) {
-    for (int d = 0; d < depth; ++d) mbar_init(&s_full[d], 32);
+    for (int d = 0; d < L.depth; ++d) mbar_init(&s_full[d], 32);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   block_sync();
@@ -1146,102 +1408,151 @@ track_window_kernel(const T* __restrict__ raw, const float* __restrict__ time_id
   CarrierLoop carr;
   CodeLoop code;
   Monitor mo;
-  load_carry(c, logger, stf_in, sti_in, ring_in, ph, carr, code, mo, s_rz, s_rv);
+  // the monitor in every lane of the logging warp (monitor_pass runs in
+  // each); the C/N0 rings, loaded into shared memory alike by all of them,
+  // then one entry a lane (Rings)
+  const bool logging = service && rank == 0;
+  load_carry(c, logging, stf_in, sti_in, ring_in, ph, carr, code, mo, s_rz, s_rv);
+  Rings rg = {0.0f, 0.0f};
+  if (logging) {
+    __syncwarp();
+    if (lane < kSnrN) rg = {s_rz[lane], s_rv[lane]};
+  }
 
-  const size_t per_len = (size_t)2 * n_per;            // elements of T
-  const int n_per_total = n_steps * m;
+  const int n_pass = n_steps / L.kbp;
+  const size_t pass_len = (size_t)2 * L.kbp * n;     // elements of T
+  const uint32_t share_bytes = (uint32_t)(sh_hi - sh_lo) * 2u * (uint32_t)sizeof(T);
   const int n_log_f = 15 + m;
   const size_t log_f_step = (size_t)n_log_f * n_chan;
   const size_t log_i_step = (size_t)kLogI * n_chan;
-  if (service)
-    for (int q = 0; q < depth && q < n_per_total; ++q)
-      stage_window(ring + (size_t)q * slot_b, raw + (size_t)q * per_len, per_bytes,
-                   &s_full[q], bulk != 0, lane);
+  if (service && share_bytes > 0)
+    for (int q = 0; q < L.depth && q < n_pass; ++q)
+      stage_window(ring + (size_t)q * slot_b, raw + (size_t)q * pass_len + 2 * (size_t)sh_lo,
+                   share_bytes, &s_full[q], L.bulk != 0, lane);
 
-  float dfc_c = ph.dfc, fi_c = ph.fi;      // the rates the window correlates at
-  for (int k = 0; k < n_steps; ++k) {
-    float (*red)[kWarps][kSums] = s_red[k & 1];
-    const int w = k % kb;                  // window in the batch
-    if (w == 0) {
-      dfc_c = ph.dfc;
-      fi_c = ph.fi;
+  // the batch start: the phases and frozen rates its windows correlate at
+  float rc0 = ph.rc, ri0 = ph.ri, dfc_c = ph.dfc, fi_c = ph.fi;
+  long long c_wait = 0, c_corr = 0, c_bar = 0, c_on = 0, c_tail = 0, t_begin = 0;
+  if (kClock) t_begin = clock64();
+  int slot = 0;
+  uint32_t parity = 0;
+  for (int q = 0; q < n_pass; ++q) {
+    float* red = s_red + (size_t)(q & 1) * kMaxPassSeg * kWinWarps * 6;
+    const int b0 = (q * L.kbp) % kb;        // the pass's first window in its batch
+    if (b0 == 0) {
+      rc0 = ph.rc; ri0 = ph.ri; dfc_c = ph.dfc; fi_c = ph.fi;
     }
-    float rc_c = ph.rc, ri_c = ph.ri;
-    if (kb > 1) {
-      rc_c = floor_mod(ph.rc + (dfc_c * p.t_up) * (float)w, kLca);
-      ri_c = floor_mod(ph.ri + (fi_c * p.t_up) * (float)w, 1.0f);
+    long long t0 = 0, t1 = 0, t2 = 0, t3 = 0;
+    if (active) {
+      const WinPhase w = window_phase(kb, b0 + wi, rc0, ri0, dfc_c, fi_c, p.t_up);
+      if (kClock) t0 = clock64();
+      mbar_wait(&s_full[slot], parity);
+      if (kClock) t1 = clock64();
+      const T* win = reinterpret_cast<const T*>(ring + (size_t)slot * slot_b) + 2 * j_chunk;
+      correlate_chunk<T>(win, s_time + j_chunk, n_loc, ci * chunk, L.r, s_code, p.fs, w.rc,
+                         dfc_c, w.ri, fi_c, p.half_win, m, lane, wi * n_seg, gw, red);
+      if (kClock) t2 = clock64();
+    } else if (kClock && !service) {
+      t0 = t1 = t2 = clock64();
     }
-    const int q0 = k * m;
-    float sums[kMaxSums];
-    if (!service) {
-      for (int j = 0; j < m; ++j) {
-        const int q = q0 + j;
-        mbar_wait(&s_full[q % depth], (uint32_t)((q / depth) & 1));
-      }
-      for (int grp = 0; grp < n_groups; ++grp)
-        correlate_group<T>(ring, slot_b, q0 % depth, depth, n_per, m, time_idc, s_code,
-                           p.fs, rc_c, dfc_c, ri_c, fi_c, p.half_win, grp,
-                           rank * kBlockCorr + (int)threadIdx.x, own, red[grp]);
-    }
-    // Barrier 1: the partials are complete and the window's slots are free.
+    // Barrier 1: the partials are complete and the pass's slot is free.
     channel_sync();
-    if (warp == 0) {            // the carrier loop
-      float comb[6], dpi;
-      all_group_sums(red, n_groups, lane, sums);
-      polarity_combine_m(sums, m, comb);
-      const float di = carrier_step(carr, comb, p, dpi);
-      if (lane == 0) {
+    if (kClock) t3 = clock64();
+    if (warp < 3) {                   // the pass's sums, a thread each
+      if ((int)threadIdx.x < L.kbp * n_seg * 6)
+        s_sums[threadIdx.x] = finish_sum_w(red, L, m, kb, b0, rc0, ri0, dfc_c, fi_c, p,
+                                           threadIdx.x);
+      asm volatile("bar.sync 1, 96;" ::: "memory");   // warps 0-2
+    }
+    if (warp == 0 || warp == 1) {     // the carrier loop, the code loop
+      // lane w < kbp: window w's polarity combine (the windows' are
+      // independent); then the loop updates, window after window
+      float own[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (lane < L.kbp) combine_window(s_sums + lane * n_seg * 6, m, own);
+      for (int w = 0; w < L.kbp; ++w) {
+        float comb[6];
 #pragma unroll
-        for (int i = 0; i < 6; ++i) s_pub.comb[i] = comb[i];
-        s_pub.dpi = dpi;
-        s_pub.di = di;
-      }
-    } else if (warp == 1) {     // the code loop
-      float comb[6], dpc;
-      all_group_sums(red, n_groups, lane, sums);
-      polarity_combine_m(sums, m, comb);
-      const float dc = code_step(code, comb, p, dpc);
-      if (lane == 0) {
-        s_pub.dpc = dpc;
-        s_pub.dc = dc;
-      }
-    } else if (warp == 2) {     // the time update
-      if (lane == 0) {
-        if (kb == 1) {          // with the pre-update rates
-          s_pub.rc_new = floor_mod(ph.rc + ph.dfc * p.t_up, kLca);
-          s_pub.ri_new = floor_mod(ph.ri + ph.fi * p.t_up, 1.0f);
-        } else if (w == kb - 1) {   // the batch's frozen-rate carry
-          s_pub.rc_new = floor_mod(rc_c + dfc_c * p.t_up, kLca);
-          s_pub.ri_new = floor_mod(ri_c + fi_c * p.t_up, 1.0f);
+        for (int i = 0; i < 6; ++i) comb[i] = __shfl_sync(0xffffffffu, own[i], w);
+        if (warp == 0) {
+          float dpi;
+          const float di = carrier_step(carr, comb, p, dpi);
+          if (lane == 0) {
+#pragma unroll
+            for (int i = 0; i < 6; ++i) s_pub[w].comb[i] = comb[i];
+            s_pub[w].dpi = dpi;
+            s_pub[w].di = di;
+          }
         } else {
-          s_pub.rc_new = ph.rc;
-          s_pub.ri_new = ph.ri;
+          float dpc;
+          const float dc = code_step(code, comb, p, dpc);
+          if (lane == 0) {
+            s_pub[w].dpc = dpc;
+            s_pub[w].dc = dc;
+          }
         }
       }
-    } else if (service) {       // refill the window's slots; keep the sums
-      for (int j = 0; j < m; ++j) {
-        const int q = q0 + j;
-        if (q + depth < n_per_total)
-          stage_window(ring + (size_t)(q % depth) * slot_b,
-                       raw + (size_t)(q + depth) * per_len, per_bytes,
-                       &s_full[q % depth], bulk != 0, lane);
+    } else if (warp == 2) {           // the time update, after the pass's last window
+      if (lane == 0) {
+        Pub& last = s_pub[L.kbp - 1];
+        if (kb == 1) {                // with the pre-update rates
+          last.rc_new = floor_mod(ph.rc + ph.dfc * p.t_up, kLca);
+          last.ri_new = floor_mod(ph.ri + ph.fi * p.t_up, 1.0f);
+        } else if (b0 + L.kbp == kb) {   // the batch's frozen-rate carry
+          const WinPhase w = window_phase(kb, kb - 1, rc0, ri0, dfc_c, fi_c, p.t_up);
+          last.rc_new = floor_mod(w.rc + dfc_c * p.t_up, kLca);
+          last.ri_new = floor_mod(w.ri + fi_c * p.t_up, 1.0f);
+        } else {
+          last.rc_new = ph.rc;
+          last.ri_new = ph.ri;
+        }
       }
-      if (rank == 0) all_group_sums(red, n_groups, lane, sums);
+    } else if (service && share_bytes > 0 && q + L.depth < n_pass) {   // refill the slot
+      stage_window(ring + (size_t)slot * slot_b,
+                   raw + (size_t)(q + L.depth) * pass_len + 2 * (size_t)sh_lo, share_bytes,
+                   &s_full[slot], L.bulk != 0, lane);
     }
-    // Barrier 2 (the block's own): the new phases are published.
+    if (kClock && service) c_tail += clock64() - t3;
+    // Barrier 2 (the block's own): the new phases are published. The
+    // correlating warps go on to the next pass at once.
     block_sync();
-    if (logger) {
-      const Pub pub = s_pub;
-      monitor_and_log_m(ph, rc_c, ri_c, dfc_c, mo, sums, pub, p, s_rz, s_rv,
-                        logf + k * log_f_step + c, logi + k * log_i_step + c, n_chan);
-      advance(ph, pub, p);
+    if (logging) {
+      // Meanwhile: lock detector, C/N0 meter, prompt carry, signs, log rows.
+      if (kClock) t0 = clock64();
+      const size_t k0 = (size_t)q * L.kbp;
+      monitor_pass(ph, kb, b0, rc0, ri0, dfc_c, fi_c, L.kbp, m, mo, rg, s_sums, s_pub, p,
+                   logf + k0 * log_f_step + c, logi + k0 * log_i_step + c, log_f_step,
+                   log_i_step, n_chan, lane);
+      advance(ph, s_pub[L.kbp - 1], p);
+      if (kClock) c_tail += clock64() - t0;
     } else {
-      advance(ph, s_pub, p);
+      advance(ph, s_pub[L.kbp - 1], p);
+    }
+    if (kClock && !service) {
+      c_wait += t1 - t0; c_corr += t2 - t1; c_bar += t3 - t2;
+      c_on += clock64() - t3;
+    }
+    if (++slot == L.depth) {
+      slot = 0;
+      parity ^= 1u;
     }
   }
 
+  if (logging) {                    // the rings back, oldest first at 0
+    if (lane < kSnrN) {
+      s_rz[lane] = rg.z;
+      s_rv[lane] = rg.v;
+    }
+    __syncwarp();
+    mo.head = 0;
+  }
   store_carry(c, rank, warp, lane, logger, ph, carr, code, mo, s_rz, s_rv, stf_out,
               sti_out, ring_out);
+  if (kClock && logger) clk[(size_t)c * kClocks + 4] = c_tail;
+  if (kClock && rank == 0 && threadIdx.x == 0) {
+    long long* o = clk + (size_t)c * kClocks;
+    o[0] = c_wait; o[1] = c_corr; o[2] = c_bar; o[3] = c_on;
+    o[5] = clock64() - t_begin;
+  }
   channel_sync();   // no block leaves while a peer may write to it
 }
 
@@ -1289,28 +1600,62 @@ int launch_correlate(const void* raw, const float* time_idc, const float* table,
   return (int)cudaGetLastError();
 }
 
-// Code periods the second K4 kernel's ring holds beside one code row.
-int window_depth(int n_per, int raw_i16) {
-  if (n_per <= 0) return 0;
-  const size_t code = (size_t)(kCode + 1) * sizeof(float);
-  const size_t fit = (kSmemMaxW - code) / slot_bytes(n_per, raw_i16);
-  return (int)(fit < (size_t)kSlotMax ? fit : (size_t)kSlotMax);
+// Windows of a batch_k batch correlated together: the largest divisor of kb
+// that fits a pass (ops/track.py window_pass).
+int window_pass(int m, int kb) {
+  for (int d = kMaxPass; d > 1; --d)
+    if (kb % d == 0 && d * (m + 2) <= kMaxPassSeg) return d;
+  return 1;
 }
 
-template <typename T>
+size_t window_fixed_bytes(const WinLayout& L) {
+  return ((size_t)2 * kMaxPassSeg * kWinWarps * 6 + L.share + kCode + 1 + kPassSums) *
+         sizeof(float);
+}
+
+// The window kernel's layout for windows of n samples (m code periods),
+// batches of kb; depth 0 when not even one pass fits in shared memory.
+WinLayout window_layout(int n, int m, int kb, int raw_i16) {
+  WinLayout L{};
+  L.n = n;
+  L.kbp = window_pass(m, kb);
+  L.wpw = kWinWarps / L.kbp;
+  L.r = (n + 32 * L.wpw - 1) / (32 * L.wpw);
+  L.share = kWinBlockWarps * 32 * L.r;
+  const size_t slot = slot_bytes(L.share, raw_i16);
+  const size_t fixed = window_fixed_bytes(L);
+  const size_t fit = fixed < kSmemMaxW ? (kSmemMaxW - fixed) / slot : 0;
+  L.depth = (int)(fit < (size_t)kRingMax ? fit : (size_t)kRingMax);
+  return L;
+}
+
+template <typename T, bool kClock>
 int launch_window(const void* raw, const float* time_idc, const float* table,
                   const float* stf_in, const int* sti_in, const float* ring_in,
                   float* stf_out, int* sti_out, float* ring_out, float* logf, int* logi,
-                  int n_chan, int n_per, int n_steps, int depth, int bulk,
-                  const TrackParams& p, cudaStream_t s) {
-  const size_t smem = (size_t)depth * slot_bytes(n_per, sizeof(T) == 2) +
-                      (size_t)(kCode + 1) * sizeof(float);
+                  int n_chan, int n_steps, const WinLayout& L, const TrackParams& p,
+                  long long* clk, cudaStream_t s) {
+  auto kernel = track_window_kernel<T, kClock>;
+  const size_t smem = (size_t)L.depth * slot_bytes(L.share, sizeof(T) == 2) +
+                      window_fixed_bytes(L);
   static size_t allowed = 0;       // per instantiation
-  cudaError_t e = allow_smem(track_window_kernel<T>, smem, allowed);
+  cudaError_t e = allow_smem(kernel, smem, allowed);
   if (e != cudaSuccess) return (int)e;
-  track_window_kernel<T><<<n_chan * kCluster, kBlockThreads, smem, s>>>(
-      (const T*)raw, time_idc, table, stf_in, sti_in, ring_in, stf_out, sti_out, ring_out,
-      logf, logi, n_per, n_steps, depth, bulk, p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_chan * kWinCluster));
+  cfg.blockDim = dim3(kWinBlockThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kWinCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, (const T*)raw, time_idc, table, stf_in, sti_in,
+                         ring_in, stf_out, sti_out, ring_out, logf, logi, n_steps, L, p, clk);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -1353,9 +1698,22 @@ int track_cluster() { return kCluster; }
 // Sample windows K4 keeps in flight for this window size.
 int track_ring_depth(int n_samp, int raw_i16) { return ring_depth(n_samp, raw_i16); }
 
-// Code periods of n_per samples the coherent/batched K4 keeps in its ring (a
-// window of m periods needs m).
-int track_window_depth(int n_per, int raw_i16) { return window_depth(n_per, raw_i16); }
+// Correlating threads per channel of the coherent/batched K4: its plain sums
+// follow this order (ops/track.py WINDOW_LANES).
+int track_window_lanes() { return kWinLanes; }
+
+// Thread blocks per channel of the coherent/batched K4 (one cluster).
+int track_window_cluster() { return kWinCluster; }
+
+// Windows a correlation pass of the coherent/batched K4 holds (m > 1: one).
+int track_window_pass(int m, int kb) { return window_pass(m, kb); }
+
+// Passes in flight in the coherent/batched K4's ring for windows of n_samp
+// samples of m code periods, batch_k kb (0: the window does not fit).
+int track_window_depth(int n_samp, int m, int kb, int raw_i16) {
+  if (n_samp <= 0 || m < 1 || kb < 1) return 0;
+  return window_layout(n_samp, m, kb, raw_i16).depth;
+}
 
 // int64 words per channel that track_chunk_launch's `clk` receives: clock64()
 // sums over the chunk for waiting on samples, correlate + warp reduce, the
@@ -1393,7 +1751,7 @@ int correlate_window_launch(const void* raw, int raw_i16, const float* time_idc,
 // [steps, 15 + p.m, C], logi [steps, 3, C]. p.m > 1 (coherent windows) or
 // p.batch_k > 1 (the batch schedule, n_steps a multiple of it) run the
 // second kernel. `clk`: null, or [C, track_clock_words()] int64 on the
-// device (the m = 1 kernel's).
+// device (either kernel).
 int track_chunk_launch(const void* raw, int raw_i16, const float* time_idc,
                        const float* table, const float* stf_in, const int* sti_in,
                        const float* ring_in, float* stf_out, int* sti_out,
@@ -1401,21 +1759,23 @@ int track_chunk_launch(const void* raw, int raw_i16, const float* time_idc,
                        int n_samp, int n_steps, TrackParams p, long long* clk,
                        void* stream) {
   if (p.m > 1 || p.batch_k > 1) {
-    if (p.m < 1 || p.m > kMaxM || n_samp % p.m != 0 || p.batch_k < 1 ||
-        (p.m > 1 && p.batch_k > 1) || n_steps <= 0 || n_steps % p.batch_k != 0 ||
-        clk != nullptr || n_chan <= 0 || n_chan > 65535 / kCluster ||
-        (uintptr_t)raw % 4 != 0)
+    if (p.m < 1 || p.m > kMaxM || n_samp <= 0 || n_samp >= (1 << 24) ||
+        n_samp % p.m != 0 || p.batch_k < 1 || (p.m > 1 && p.batch_k > 1) ||
+        n_steps <= 0 || n_steps % p.batch_k != 0 || n_chan <= 0 ||
+        n_chan > 65535 / kWinCluster || (uintptr_t)raw % 4 != 0)
       return (int)cudaErrorInvalidValue;
-    const int n_per = n_samp / p.m;
-    const int wdepth = window_depth(n_per, raw_i16);
-    if (wdepth < p.m) return (int)cudaErrorInvalidValue;
+    WinLayout L = window_layout(n_samp, p.m, p.batch_k, raw_i16);
+    if (L.depth < 1) return (int)cudaErrorInvalidValue;
+    L.bulk = bulk_ok(raw, n_samp, raw_i16);
     cudaStream_t s = (cudaStream_t)stream;
-    const int bulk = bulk_ok(raw, n_per, raw_i16);
 #define NAVLAB_WINDOW_ARGS                                                         \
   raw, time_idc, table, stf_in, sti_in, ring_in, stf_out, sti_out, ring_out, logf, \
-      logi, n_chan, n_per, n_steps, wdepth, bulk, p, s
-    return raw_i16 ? launch_window<int16_t>(NAVLAB_WINDOW_ARGS)
-                   : launch_window<float>(NAVLAB_WINDOW_ARGS);
+      logi, n_chan, n_steps, L, p, clk, s
+    if (raw_i16)
+      return clk ? launch_window<int16_t, true>(NAVLAB_WINDOW_ARGS)
+                 : launch_window<int16_t, false>(NAVLAB_WINDOW_ARGS);
+    return clk ? launch_window<float, true>(NAVLAB_WINDOW_ARGS)
+               : launch_window<float, false>(NAVLAB_WINDOW_ARGS);
 #undef NAVLAB_WINDOW_ARGS
   }
   const int depth = ring_depth(n_samp, raw_i16);

@@ -18,8 +18,10 @@ K3's body on the correlating warps, the loop update on three warps by
 function, and the lock/C-N0/log half of the tail on a warp of its own;
 ops/tracking.track_chunk packs the state for it and holds it to
 `track_chunk_plain`. Coherent windows (m = 2..10 code periods a window)
-and the batch_k schedule run in the same file's second K4 kernel, whose
-ring holds one code period a slot.
+and the batch_k schedule run in the same file's second K4 kernel, which
+correlates a coherent window, or up to MAX_PASS windows of a batch, in one
+pass over their samples (its own lane count and sum order: WINDOW_LANES,
+`_window_order_sum`).
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ N_LOG_F = 16         # float log rows per step at m = 1 (tracking.LOG_F_ROWS)
 N_LOG_I = 3          # int32 log rows per step: cp, ncp, lock
 MAX_COH_MS = 10      # code periods a coherent window holds, at most
 KERNEL_THREADS = 1280  # correlating threads per channel (track_threads())
+WINDOW_LANES = 2560    # the same, coherent/batched kernel (track_window_lanes())
+MAX_PASS = 4           # 1 ms windows a batch correlates together, at most
+MAX_PASS_SEG = 12      # segments a correlation pass holds
 N_CLOCKS = 6          # clock64() sums per channel (track_clock_words())
 CLOCK_NAMES = ("wait for samples", "correlate + warp reduce", "step barrier",
                "on-path tail", "off-path tail (with staging)", "step loop")
@@ -65,7 +70,7 @@ def n_log_f(m: int) -> int:
 
 
 def correlate_window_plain(raw_re, raw_im, rc, dfc, ri, fi, code_table,
-                           time_idc, fs: float, m: int = 1):
+                           time_idc, fs: float, m: int = 1, warps=None):
     """Plain PyTorch K3: sums [C, 3 tap (E, P, L), m + 2 seg, 2 (re, im)]
     f32 and ncp [C] int32 of one window of m code periods raw_re/raw_im
     [S] f32, per-channel rc/dfc/ri/fi [C] f32, code_table [C, 1023] f32,
@@ -74,7 +79,9 @@ def correlate_window_plain(raw_re, raw_im, rc, dfc, ri, fi, code_table,
     The f32 operations are those of the JAX `_correlate_step(m)` (gather
     replicas at the mid-window phase rc + dfc m/2 ms, the m + 1 segment
     boundaries k L_CA at the true fc), and those of the kernels in the
-    kernels' order, sums included."""
+    kernels' order, sums included: the 1 ms kernels' (`_kernel_order_sum`)
+    or, given `warps` (window_warps()), the coherent/batched kernel's
+    (`_window_order_sum`)."""
     c = code_table.shape[0]
     s = raw_re.shape[0]
     n_seg = int(m) + 2
@@ -104,7 +111,9 @@ def correlate_window_plain(raw_re, raw_im, rc, dfc, ri, fi, code_table,
     w = (repl[:, :, :, None] * segm[:, :, None, :]).reshape(c, s, 3 * n_seg)
     bb = torch.stack([bb_re, bb_im], dim=1)                 # [C, 2, S]
     prod = bb[:, :, None, :] * w.transpose(1, 2)[:, None]   # [C, 2, 3n, S]
-    sums = _kernel_order_sum(prod).reshape(c, 2, 3, n_seg).permute(0, 2, 3, 1)
+    total = (_kernel_order_sum(prod) if warps is None
+             else _window_order_sum(prod, warps))
+    sums = total.reshape(c, 2, 3, n_seg).permute(0, 2, 3, 1)
     ncp = torch.floor((float(np.float32(s / fs)) * fc + rc)
                       * float(np.float32(1.0 / L_CA))).to(torch.int32)
     return sums.contiguous(), ncp
@@ -130,6 +139,45 @@ def _kernel_order_sum(prod):
     acc = acc[..., 0]
     tot = acc[..., 0]
     for wi in range(1, acc.shape[-1]):
+        tot = tot + acc[..., wi]
+    return tot
+
+
+def window_pass(m: int, batch_k: int) -> int:
+    """Windows the coherent/batched kernel correlates in one pass: the
+    largest divisor of batch_k that is at most MAX_PASS and whose windows'
+    m + 2 segments each fit MAX_PASS_SEG (1 at m > 1; track_window_pass())."""
+    for d in range(MAX_PASS, 1, -1):
+        if batch_k % d == 0 and d * (m + 2) <= MAX_PASS_SEG:
+            return d
+    return 1
+
+
+def window_warps(m: int, batch_k: int = 1) -> int:
+    """Warps of the coherent/batched kernel that take one window."""
+    return WINDOW_LANES // 32 // window_pass(m, batch_k)
+
+
+def _window_order_sum(prod, warps: int):
+    """Sum over the last axis (a window's S samples) in the coherent/batched
+    kernel's order: `warps` warps take R = ceil(S / (32 warps)) samples a
+    lane, warp w the contiguous 32 R from w 32 R, lane i its samples
+    w 32 R + i + 32 r, added in turn; a warp-shuffle tree reduces each warp,
+    then the warps are added in turn. A segment's sum in the kernel adds
+    only the warps that meet it; the others' terms are zeros here, so the
+    bits are the same."""
+    s = prod.shape[-1]
+    r = -(-s // (32 * warps))
+    p = torch.nn.functional.pad(prod, (0, warps * 32 * r - s))
+    p = p.reshape(p.shape[:-1] + (warps, r, 32))
+    acc = p[..., 0, :]
+    for i in range(1, r):
+        acc = acc + p[..., i, :]
+    for half in (16, 8, 4, 2, 1):
+        acc = acc[..., :half] + acc[..., half:2 * half]
+    acc = acc[..., 0]
+    tot = acc[..., 0]
+    for wi in range(1, warps):
         tot = tot + acc[..., wi]
     return tot
 
@@ -236,8 +284,8 @@ def track_chunk_cuda(stf, sti, rings, raw, code_table, fs: float,
     [steps, 3, C] int32); the inputs are not modified. A window holds
     params.m code periods (S / m samples each); params.batch_k > 1 is the
     batch_k schedule (steps a multiple of it). `clocks`, an int64
-    [C, N_CLOCKS] CUDA tensor, asks the m = 1 kernel for its clock64() sums
-    per channel (CLOCK_NAMES); the path never passes it."""
+    [C, N_CLOCKS] CUDA tensor, asks the kernel for its clock64() sums per
+    channel (CLOCK_NAMES), in every mode; the path never passes it."""
     dev = raw.device
     if dev.type != "cuda":
         raise ValueError(f"track_chunk_cuda needs a CUDA tensor, got {dev}")
@@ -262,8 +310,6 @@ def track_chunk_cuda(stf, sti, rings, raw, code_table, fs: float,
                          f"periods, or batch_k > 1 at m = 1 over a multiple "
                          f"of batch_k steps; got m={m}, S={s}, "
                          f"batch_k={kb}, steps={steps}")
-    if clocks is not None and (m > 1 or kb > 1):
-        raise ValueError("clocks: the m = 1 kernel's only")
     time_idc = window_times(s, fs, dev)
     stf_out = torch.empty_like(stf)
     sti_out = torch.empty_like(sti)
@@ -274,10 +320,10 @@ def track_chunk_cuda(stf, sti, rings, raw, code_table, fs: float,
     lib = _lib()
     i16 = int(raw.dtype == torch.int16)
     if m > 1 or kb > 1:
-        if lib.track_window_depth(s // m, i16) < m:
-            raise ValueError(f"a window of {m} periods of {s // m} "
-                             f"{raw.dtype} samples exceeds the kernel's ring "
-                             f"(shared memory)")
+        if lib.track_window_depth(s, m, kb, i16) < 1:
+            raise ValueError(f"a window of {s} {raw.dtype} samples (m={m}, "
+                             f"batch_k={kb}) exceeds the kernel's shared "
+                             f"memory")
     else:
         _check_samples(lib, s, raw)
     if clocks is not None and (
@@ -309,7 +355,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.track_chunk_launch.restype = i
     for fn, args in ((lib.track_max_samples, [i]),
                      (lib.track_ring_depth, [i, i]),
-                     (lib.track_window_depth, [i, i]),
+                     (lib.track_window_depth, [i, i, i, i]),
+                     (lib.track_window_pass, [i, i]),
+                     (lib.track_window_lanes, []),
+                     (lib.track_window_cluster, []),
                      (lib.track_params_size, []), (lib.track_threads, []),
                      (lib.track_cluster, []),
                      (lib.track_clock_words, [])):
@@ -327,6 +376,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         raise RuntimeError(f"kernel sums over {lib.track_threads()} "
                            f"threads per channel, plain sum order "
                            f"assumes {KERNEL_THREADS}")
+    if lib.track_window_lanes() != WINDOW_LANES or any(
+            lib.track_window_pass(m, kb) != window_pass(m, kb)
+            for m in range(1, MAX_COH_MS + 1) for kb in range(1, 13)):
+        # the plain sums follow the window kernel's lanes and passes
+        raise RuntimeError(f"window kernel sums over "
+                           f"{lib.track_window_lanes()} lanes per channel "
+                           f"or passes otherwise; plain sum order assumes "
+                           f"{WINDOW_LANES} (_window_order_sum)")
 
 
 def _lib() -> ctypes.CDLL:
@@ -334,14 +391,19 @@ def _lib() -> ctypes.CDLL:
 
 
 def kernel_design() -> dict:
-    """What the built kernel is: correlating threads and thread blocks per
+    """What the built kernels are: correlating threads and thread blocks per
     channel, the sample windows in flight at the 2.5 MHz int16 window, and
-    the code periods the coherent/batched kernel's ring holds."""
+    the same for the coherent/batched kernel (passes in flight at m = 4 and
+    10, and at batch_k = 4)."""
     lib = _lib()
     return {"threads": lib.track_threads(), "cluster": lib.track_cluster(),
             "ring_depth_int16_2500": lib.track_ring_depth(2500, 1),
-            "period_slots_int16_2500": lib.track_window_depth(2500, 1),
-            "period_slots_f32_2500": lib.track_window_depth(2500, 0)}
+            "window_lanes": lib.track_window_lanes(),
+            "window_cluster": lib.track_window_cluster(),
+            "window_depth_int16_m4": lib.track_window_depth(10000, 4, 1, 1),
+            "window_depth_f32_m10": lib.track_window_depth(25000, 10, 1, 0),
+            "window_depth_int16_batch4": lib.track_window_depth(2500, 1, 4,
+                                                                1)}
 
 
 def _check_samples(lib, s: int, raw) -> None:

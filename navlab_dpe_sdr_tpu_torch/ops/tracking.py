@@ -429,8 +429,9 @@ def _step_plain(st: TrackState, raw_re, raw_im, code_table, time_idc,
     """One closed-loop update over an m-period window (the scan body,
     ops/tracking.py:698-724): returns (state', log floats [15 + m, C], log
     ints [3, C])."""
-    sums, ncp = correlate_window_plain(raw_re, raw_im, st.rc, st.dfc, st.ri,
-                                       st.fi, code_table, time_idc, fs, m)
+    sums, ncp = correlate_window_plain(
+        raw_re, raw_im, st.rc, st.dfc, st.ri, st.fi, code_table, time_idc, fs,
+        m, _track.window_warps(m) if m > 1 else None)
     e_s, p_s, l_s = sums[:, 0], sums[:, 1], sums[:, 2]
     e_r, p_r, l_r, signs, pa_re, pa_im = _polarity_combine(st, e_s, p_s,
                                                            l_s, ncp, m)
@@ -509,6 +510,7 @@ def track_chunk_batched_plain(state: TrackState, raw_chunk, code_table,
     if k < 1 or steps % k:
         raise ValueError(f"steps {steps} not divisible by batch_k {k}")
     time_idc = _track.window_times(s, fs, raw_chunk.device)
+    warps = _track.window_warps(1, k)      # the kernel's sum order
     rows_f, rows_i = [], []
     st = state
     for b0 in range(0, steps, k):
@@ -519,7 +521,7 @@ def track_chunk_batched_plain(state: TrackState, raw_chunk, code_table,
             raw = raw_chunk[b0 + w].float()
             sums, ncp = correlate_window_plain(raw[:, 0], raw[:, 1], rc_w,
                                                dfc0, ri_w, fi0, code_table,
-                                               time_idc, fs)
+                                               time_idc, fs, warps=warps)
             stw = st._replace(rc=rc_w, ri=ri_w)
             e_r, p_r, l_r, signs, pa_re, pa_im = _polarity_combine(
                 stw, sums[:, 0], sums[:, 1], sums[:, 2], ncp)
@@ -575,8 +577,8 @@ def track_chunk_packed(state: TrackState, raw_chunk, code_table, fs: float,
     int32): the packed form of `track_chunk` (coh_ms = m) and, with
     batch_k > 1, of `track_chunk_batched`, so a caller fetches the whole log
     in two copies. CPU tensors -> the plain versions; CUDA tensors -> K4,
-    or an exception. `clocks` (a measurement's int64 [C, 6] CUDA tensor,
-    m = 1 only) is handed to `ops/track.track_chunk_cuda`."""
+    or an exception. `clocks` (a measurement's int64 [C, 6] CUDA tensor, any
+    mode) is handed to `ops/track.track_chunk_cuda`."""
     m = _check_chunk(raw_chunk, coh_ms)
     kb = int(batch_k)
     if kb > 1 and m > 1:

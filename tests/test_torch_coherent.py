@@ -270,6 +270,106 @@ def test_batched_track_matches_jax():
                                   tlog.signs.numpy()[20:, 0])
 
 
+# -- the coherent/batched kernel's sum order -----------------------------------
+
+def _window_products(m, n_samp, seed):
+    """E/P/L x re/im products of one window [1, 2, 3 (m + 2), S] f32, zero
+    outside each sum's segment (the boundaries of a seeded rc at fs =
+    2.5 MHz), as correlate_window_plain forms them; and the segment of each
+    sample."""
+    rng = np.random.default_rng(seed)
+    n_seg = m + 2
+    rc = np.float32(rng.random() * 1023.0)
+    ratio = np.float32(FS) / np.float32(F_CA + rng.standard_normal())
+    cols = np.arange(n_samp, dtype=np.float32)
+    seg = sum((cols >= (np.float32(k * L_CA) - rc) * ratio).astype(int)
+              for k in range(1, n_seg))
+    bb = (rng.standard_normal((2, n_samp)) * 300.0).astype(np.float32)
+    taps = np.where(rng.random((3, n_samp)) < 0.5, -1.0, 1.0).astype(np.float32)
+    w = np.stack([taps[t] * (seg == j) for t in range(3) for j in range(n_seg)])
+    return (bb[:, None, :] * w[None]).astype(np.float32)[None], seg
+
+
+def _kernel_window_sum(prod, seg, sums_seg, warps):
+    """The window kernel's order, simulated in numpy f32: warp w's lanes
+    add their samples w 32 R + i + 32 r in turn, a shuffle tree per warp,
+    then only the warps whose chunks meet the sum's segment, in order."""
+    n = prod.shape[-1]
+    r = -(-n // (32 * warps))
+    out = np.zeros(prod.shape[:-1], np.float32)
+    for idx in np.ndindex(*prod.shape[:-1]):
+        j = sums_seg[idx[-1]]
+        tot = None
+        for wi in range(warps):
+            lo, hi = wi * 32 * r, min((wi + 1) * 32 * r, n)
+            if lo >= n or not (seg[lo:hi] == j).any():
+                continue
+            lanes = np.zeros(32, np.float32)
+            for i in range(32):
+                for k in range(r):
+                    s = lo + i + 32 * k
+                    if s < hi:
+                        lanes[i] = np.float32(lanes[i] + prod[idx + (s,)])
+            for half in (16, 8, 4, 2, 1):
+                lanes = (lanes[:half] + lanes[half:2 * half]).astype(np.float32)
+            tot = lanes[0] if tot is None else np.float32(tot + lanes[0])
+        out[idx] = 0.0 if tot is None else tot
+    return out
+
+
+@pytest.mark.parametrize("m,batch_k", [(m, 1) for m in range(2, 11)]
+                         + [(1, 4)])
+def test_window_order_sum_is_a_sum(m, batch_k):
+    """_window_order_sum over a window's masked products (the segment
+    layout of m periods; a batch_k = 4 pass's 1 ms windows) sums to a plain
+    torch.sum within f32 rounding, and equals the window kernel's order
+    simulated lane by lane, bit for bit."""
+    from navlab_dpe_sdr_tpu_torch.ops import track as ttrack
+    n_samp = m * S
+    prod, seg = _window_products(m, n_samp, seed=m + 10 * batch_k)
+    warps = ttrack.window_warps(m, batch_k)
+    assert warps == ttrack.WINDOW_LANES // 32 // (batch_k if m == 1 else 1)
+    got = ttrack._window_order_sum(torch.from_numpy(prod), warps).numpy()
+    want = prod.astype(np.float64).sum(-1)
+    scale = np.abs(prod).astype(np.float64).sum(-1)
+    assert np.all(np.abs(got - want) <= 4 * n_samp * 2.0 ** -24 * scale + 1e-30)
+    sums_seg = np.tile(np.arange(m + 2), 3)
+    sim = _kernel_window_sum(prod[0, :1, ::max(1, (m + 2) // 2)],
+                             seg, sums_seg[::max(1, (m + 2) // 2)], warps)
+    assert np.array_equal(got[0, :1, ::max(1, (m + 2) // 2)], sim)
+
+
+def test_sum_orders_by_mode(monkeypatch):
+    """The 1 ms plain tracker sums in the 1 ms kernel's order
+    (_kernel_order_sum) only; the coherent and batch_k plain trackers in the
+    window kernel's (_window_order_sum) only."""
+    from navlab_dpe_sdr_tpu_torch.ops import track as ttrack
+    calls = []
+    for name in ("_kernel_order_sum", "_window_order_sum"):
+        real = getattr(ttrack, name)
+        monkeypatch.setattr(ttrack, name,
+                            lambda *a, _n=name, _f=real: (calls.append(_n),
+                                                          _f(*a))[1])
+    raw = _make_blocks(5, 8, 250.0, 0.4, 900.0)
+    tab = _t(ca_table([5]).astype(np.float32))
+    st0 = _port_state(jt.init_state(rc=[250.0], ri=[0.4],
+                                    fc=[F_CA + FCAID * 900.0], fi=[900.0]))
+    seen = {}
+    for mode, kw in (("m=1", {}), ("m=2", dict(coh_ms=2))):
+        calls.clear()
+        m = kw.get("coh_ms", 1)
+        tt.track_chunk_plain(st0, _t(_pairs(raw.reshape(8 // m, m * S))), tab,
+                             FS, FCAID, tt.cadence_loops(m), **kw)
+        seen[mode] = set(calls)
+    calls.clear()
+    tt.track_chunk_batched_plain(st0, _t(_pairs(raw)), tab, FS, FCAID,
+                                 batch_k=4)
+    seen["batch_k=4"] = set(calls)
+    assert seen == {"m=1": {"_kernel_order_sum"},
+                    "m=2": {"_window_order_sum"},
+                    "batch_k=4": {"_window_order_sum"}}
+
+
 def test_open_loop_matches_jax():
     """20 windows x 8 channels of the scenario at its handoff phases
     (int16 samples): E/P/L within 1e-4 of the prompt peak of the JAX scan

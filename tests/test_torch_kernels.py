@@ -6,7 +6,7 @@ without a card.
 
 The kernels do the plain versions' f32 operations in the same order (sums
 included: the plain sums follow the kernel's threads per channel,
-ops/track.KERNEL_THREADS;
+ops/track.KERNEL_THREADS, and WINDOW_LANES for the coherent/batched kernel;
 -fmad=false), so every comparison is equality, bit for bit. This file
 imports nothing of JAX or of the JAX package, so it runs on a machine with
 the card alone:
@@ -148,13 +148,40 @@ def test_track_chunk_clocks_do_not_change_the_logs(capture, dev):
     assert bool((clocks > 0).all())
 
 
+@pytest.mark.parametrize("m,batch_k", [(2, 1), (4, 1), (10, 1), (1, 4)])
+def test_window_kernel_clocks(capture, m, batch_k, dev):
+    """The coherent/batched kernel's clock buffer: [C, 6] int64, every word
+    non-negative, each part no larger than the whole loop, the loop's count
+    positive; and the measuring instantiation logs what the path's does."""
+    samples, hand, _ = capture
+    n_upd = 40 if m < 8 else 20
+    tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
+    raw = torch.from_numpy(samples[:n_upd * m * S].view(np.int16).reshape(
+        n_upd, m * S, 2).copy()).to(dev)
+    st0 = _seeded_state(hand, dev)
+    loops = tracking.cadence_loops(m)
+    clocks = torch.full((len(hand.prn_list), track.N_CLOCKS), -1,
+                        dtype=torch.int64, device=dev)
+    _, lf, li = tracking.track_chunk_packed(st0, raw, tab, FS, FCAID, loops,
+                                            coh_ms=m, batch_k=batch_k)
+    _, lfc, lic = tracking.track_chunk_packed(st0, raw, tab, FS, FCAID, loops,
+                                              coh_ms=m, clocks=clocks,
+                                              batch_k=batch_k)
+    assert torch.equal(lf, lfc) and torch.equal(li, lic)
+    clk = clocks.cpu().numpy()
+    assert clk.shape == (len(hand.prn_list), 6)
+    assert (clk >= 0).all() and (clk[:, 5] > 0).all()
+    assert (clk[:, :5] <= clk[:, 5:6]).all()
+
+
 @pytest.mark.parametrize("m,dtype", [(2, torch.int16), (4, torch.int16),
                                      (8, torch.int16), (10, torch.int16),
                                      (4, torch.float32), (10, torch.float32)])
 def test_coherent_track_kernel_equals_plain(capture, m, dtype, dev):
-    """Coherent windows of m code periods (m + 2 segments: 6m + 12 sums in
-    up to four groups; at m = 10 and f32 the ring holds exactly one
-    window): logs, signs and carry bit-equal to the plain tracker's."""
+    """Coherent windows of m code periods (m + 2 segments: 6m + 12 sums,
+    one correlation pass a window; at m = 10 and f32 the ring holds the
+    fewest passes): logs, signs and carry bit-equal to the plain
+    tracker's, which sums in the window kernel's order."""
     samples, hand, _ = capture
     n_upd = 40 if m < 8 else 20
     tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
@@ -176,22 +203,32 @@ def test_coherent_track_kernel_equals_plain(capture, m, dtype, dev):
         assert torch.equal(getattr(sk, k), getattr(sp, k)), k
 
 
-@pytest.mark.parametrize("skew", [0, 2])
-def test_batched_track_kernel_equals_plain(capture, skew, dev):
-    """The batch_k = 4 schedule: windows correlated at the batch-start
-    rates, 1 ms updates, the frozen-rate carry; skew = 2 staged by the
-    4-byte copies."""
+@pytest.mark.parametrize("batch_k,skew,dtype", [
+    (4, 0, torch.int16), (4, 2, torch.int16), (2, 0, torch.int16),
+    (3, 0, torch.int16), (5, 0, torch.int16), (6, 2, torch.int16),
+    (8, 0, torch.int16), (12, 0, torch.int16), (4, 0, torch.float32),
+    (8, 0, torch.float32)])
+def test_batched_track_kernel_equals_plain(capture, batch_k, skew, dtype,
+                                           dev):
+    """The batch_k schedule: windows correlated at the batch-start rates,
+    1 ms updates, the frozen-rate carry. The kernel correlates
+    track.window_pass(1, batch_k) windows a pass (4 at batch_k = 4, 8, 12;
+    3 at 3, 6; 2 at 2; 1 at 5), so batch_k = 6, 8 and 12 span several
+    passes a batch; skew = 2 is staged by the 4-byte copies."""
     samples, hand, _ = capture
+    n = 240                               # a multiple of every batch_k here
     tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
-    flat = torch.from_numpy(samples[:201 * S].view(np.int16).copy()).to(dev)
-    raw = flat[2 * skew:2 * skew + 200 * S * 2].view(200, S, 2)
+    flat = torch.from_numpy(samples[:(n + 1) * S].view(np.int16).copy()).to(dev)
+    raw = flat[2 * skew:2 * skew + n * S * 2].view(n, S, 2)
+    if dtype != torch.int16:
+        raw = raw.to(dtype)
     st0 = _seeded_state(hand, dev)
     before = _build.launch_counts()["track_chunk_batched"]
     sk, lfk, lik = tracking.track_chunk_packed(st0, raw, tab, FS, FCAID,
-                                               batch_k=4)
+                                               batch_k=batch_k)
     assert _build.launch_counts()["track_chunk_batched"] == before + 1
     sp, lfp, lip = tracking.track_chunk_batched_plain(st0, raw, tab, FS,
-                                                      FCAID, batch_k=4)
+                                                      FCAID, batch_k=batch_k)
     assert torch.equal(lik, lip) and torch.equal(lfk, lfp)
     for k in tracking.TrackState._fields:
         assert torch.equal(getattr(sk, k), getattr(sp, k)), k

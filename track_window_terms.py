@@ -1,0 +1,273 @@
+#!/usr/bin/env python3
+"""Where the coherent / batch_k tracking kernel's time goes, term by term.
+
+    python3 track_window_terms.py [--set NAME]
+
+Builds variants of the K4 source (ops/csrc/track_chunk.cu) by text
+patches, loads each in turn in place of the package's library, and times
+the window kernel (`track_window_kernel`) at the shapes of chip_smoke.py
+phases 14 and 15 on a seeded 2 s capture of the 8-PRN scenario from its
+truth handoff: coherent m = 2, 8, 10 over 200 updates, m = 4 over 500 (the
+coherent cold start's 2000 ms chunk), and batch_k = 4 over 2000 steps. For
+each it prints the kernel's ms per chunk (CUDA events, 5 launches after a
+warm one), us per update, and the clock64() split of an update (more
+launches with the clock buffer; chip_smoke.clock_parts), with the card's
+name and power limit; the lines also go to chiprun_out/window_terms.jsonl.
+
+The sets (--set): "design", the kernel's geometry (cluster size, threads a
+block, samples side by side), each variant first held bit-equal to the
+plain version on short runs (the verdict is printed); "tail" and
+"monitor", one term of the kernel's tail taken out at a time. A variant
+that takes out work computes other numbers, so only its time is read.
+Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import pathlib
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import torch
+
+from navlab_dpe_sdr_tpu_torch.constants import F_CA, F_L1
+from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16
+from navlab_dpe_sdr_tpu_torch.io.scenario import make_scenario
+from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_table
+from navlab_dpe_sdr_tpu_torch.ops import _build, track, tracking
+
+from chip_smoke import card_line, clock_parts, cuda_ms
+
+REPO = pathlib.Path(__file__).resolve().parent
+SRC = REPO / "navlab_dpe_sdr_tpu_torch" / "ops" / "csrc" / "track_chunk.cu"
+OUT = REPO / "chiprun_out" / "window_terms.jsonl"
+FS = 2.5e6
+FCAID = F_CA / F_L1
+SEED_SECONDS = 2.0
+
+# the source's own (kWinCluster, kWinBlockCorr, kWinUnroll)
+_DESIGN = (8, 320, 2)
+# name -> [(text, replacement)], applied to the source in order
+SETS = {
+    # the redesigned kernel's geometry: blocks per channel (its cluster),
+    # correlating threads per block, samples a thread evaluates side by side
+    "design": {
+        f"cluster {c}, {b} threads a block, {u} side by side": (
+            [(f"constexpr int kWinCluster = {_DESIGN[0]};",
+              f"constexpr int kWinCluster = {c};")] * (c != _DESIGN[0])
+            + [(f"constexpr int kWinBlockCorr = {_DESIGN[1]};",
+                f"constexpr int kWinBlockCorr = {b};")] * (b != _DESIGN[1])
+            + [(f"constexpr int kWinUnroll = {_DESIGN[2]};",
+                f"constexpr int kWinUnroll = {u};")] * (u != _DESIGN[2]))
+        for c, b, u in ((4, 320, 2), (4, 320, 4), (4, 640, 2), (8, 320, 2),
+                        (8, 320, 4), (8, 640, 2))
+    },
+    # the redesigned kernel's tail, one term taken out at a time
+    "tail": {
+        "as built": [],
+        "no segment search in the finish": [
+            ("const int s_lo = seg_first(jj, m, w.rc, ratio, L.n);",
+             "const int s_lo = jj * 100;"),
+            ("const int s_hi = seg_first(jj + 1, m, w.rc, ratio, L.n);",
+             "const int s_hi = jj * 100 + 100;")],
+        "no polarity test": [
+            ("if (lane < L.kbp) combine_window(s_sums + lane * n_seg * 6, m, own);",
+             "if (lane < L.kbp) for (int i2 = 0; i2 < 6; ++i2) "
+             "own[i2] = s_sums[lane * n_seg * 6 + i2];")],
+        "no loop filters": [
+            ("          const float di = carrier_step(carr, comb, p, dpi);",
+             "          dpi = comb[0]; const float di = comb[1];"),
+            ("          const float dc = code_step(code, comb, p, dpc);",
+             "          dpc = comb[2]; const float dc = comb[3];")],
+        "no log rows": [
+            ("      monitor_pass(ph, kb,", "      if (kb < 0) monitor_pass(ph, kb,")],
+    },
+    # the redesigned kernel's logging tail (monitor_pass), one term out
+    "monitor": {
+        "as built": [],
+        "no C/N0 ring sums": [
+            ("const float z_mean = ring_mean_after(rg.z, z, w);",
+             "const float z_mean = z[0];"),
+            ("const float z_var = ring_mean_after(rg.v, vs, w);",
+             "const float z_var = vs[0];")],
+        "no lock-detector divisions": [
+            ("    const bool in_lock = (li / kLockK) > lq;",
+             "    const bool in_lock = (li * 0.6666667f) > lq;"),
+            ("my_lockval = li / kLockK - lq;", "my_lockval = li * 0.6666667f - lq;")],
+        "no prompt carry": [("pa[q] = term + 0.0f;", "pa[q] = carry;")],
+        "no window phases": [
+            ("const WinPhase wp = window_phase(kb, b0 + (lane < kbp ? lane : 0), rc0, "
+             "ri0, dfc_c,\n                                   fi_c, p.t_up);",
+             "const WinPhase wp = {rc0, ri0};")],
+        "no log row": [("  if (lane < kbp) {\n    const float carrier",
+                        "  if (lane < 0) {\n    const float carrier")],
+    },
+}
+# sets whose variants compute what the plain version computes: their logs
+# and carry are held to it, bit for bit, on short runs
+CHECKED = {"design"}
+
+
+def build_variant(text: str, name: str) -> pathlib.Path:
+    """nvcc with the package's flags -> build/variants/<hash>.so."""
+    out_dir = _build.build_dir() / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+    src = out_dir / f"track_chunk_{digest}.cu"
+    lib = out_dir / f"libtrack_chunk_{digest}.so"
+    if not lib.exists():
+        src.write_text(text)
+        res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                              str(lib), str(src)], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name!r}:\n"
+                               f"{res.stderr}")
+    return lib
+
+
+def patched(source: str, patches) -> str:
+    for old, new in patches:
+        if source.count(old) != 1:
+            raise ValueError(f"patch text found {source.count(old)} times: "
+                             f"{old!r}")
+        source = source.replace(old, new)
+    return source
+
+
+def use_library(path: pathlib.Path) -> None:
+    """Bind the variant (the plain sums follow its lane count) and put it
+    where ops/track.py loads its library."""
+    lib = ctypes.CDLL(str(path))
+    lib.track_window_lanes.restype = ctypes.c_int
+    track.WINDOW_LANES = lib.track_window_lanes()
+    track._bind(lib)
+    with _build._lock:
+        _build._libs["track_chunk"] = lib
+
+
+def capture(dev):
+    """SEED_SECONDS of the 8-PRN scenario (int16 I/Q on the card), the
+    truth-handoff state and the code table."""
+    sim, hand, _ = make_scenario(nav_data=True, cn0_dbhz=47.0)
+    n = int(SEED_SECONDS * FS)
+    iq = sim.generate(n)
+    samples = np.empty(n, DTYPE_IQ16)
+    samples["i"] = np.clip(np.round(iq.real), -32768, 32767)
+    samples["q"] = np.clip(np.round(iq.imag), -32768, 32767)
+    flat = torch.from_numpy(samples.view(np.int16).copy()).to(dev)
+    st0 = tracking.init_state(rc=hand.rc, ri=hand.ri, fc=hand.fc, fi=hand.fi,
+                              cp=hand.cp, device=dev)
+    tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
+    return flat, st0, tab
+
+
+def check_plain(flat, st0, tab) -> list:
+    """The loaded variant against the plain version, bit for bit: m = 4 (40
+    updates), m = 10 (20) and batch_k = 4 (200 steps). Returns the cases
+    that differ."""
+    bad = []
+    for m, kb, n_upd in ((4, 1, 40), (10, 1, 20), (1, 4, 200)):
+        raw = flat[:n_upd * m * 2500 * 2].view(n_upd, m * 2500, 2)
+        loops = tracking.cadence_loops(m)
+        sk, lfk, lik = tracking.track_chunk_packed(
+            st0, raw, tab, FS, FCAID, loops, coh_ms=m, batch_k=kb)
+        if kb > 1:
+            sp, lfp, lip = tracking.track_chunk_batched_plain(
+                st0, raw, tab, FS, FCAID, loops, kb)
+        else:
+            sp, lfp, lip = tracking.track_chunk_plain(st0, raw, tab, FS, FCAID,
+                                                      loops, m)
+        same = torch.equal(lfk, lfp) and torch.equal(lik, lip) and all(
+            torch.equal(getattr(sk, f), getattr(sp, f))
+            for f in tracking.TrackState._fields)
+        if not same:
+            bad.append(f"m={m} batch_k={kb}")
+    return bad
+
+
+CASES = [("m=2", 2, 1, 200), ("m=4", 4, 1, 500), ("m=8", 8, 1, 200),
+         ("m=10", 10, 1, 200), ("batch_k=4", 1, 4, 2000)]
+
+
+def time_cases(flat, st0, tab, checked: bool):
+    """{case: dict(ms, us_update, split)} for the loaded library; `checked`
+    holds the clocked launch's logs to the unclocked one's (a variant that
+    takes out work may leave log rows unwritten)."""
+    out = {}
+    c = tab.shape[0]
+    for name, m, kb, n_upd in CASES:
+        raw = flat[:n_upd * m * 2500 * 2].view(n_upd, m * 2500, 2)
+        loops = tracking.cadence_loops(m)
+
+        def kernel(clocks=None):
+            return tracking.track_chunk_packed(st0, raw, tab, FS, FCAID, loops,
+                                               coh_ms=m, clocks=clocks,
+                                               batch_k=kb)
+
+        lf = kernel()[1] if checked else None
+        ms = cuda_ms(kernel, 5)
+        clocked, _, us = clock_parts(kernel, n_upd, c, raw.device, lf)
+        out[name] = dict(ms=ms, us_update=ms / n_upd * 1e3, clocked_ms=clocked,
+                         split_us=dict(zip(track.CLOCK_NAMES, us.tolist())))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--set", default="design", choices=sorted(SETS))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("track_window_terms: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    print(card, flush=True)
+    source = SRC.read_text()
+    variants = {k: patched(source, v) for k, v in SETS[args.set].items()}
+    libs, errors = {}, []
+
+    def one(name):
+        try:
+            libs[name] = build_variant(variants[name], name)
+        except Exception as e:        # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(k,)) for k in variants]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    dev = torch.device("cuda")
+    flat, st0, tab = capture(dev)
+    OUT.parent.mkdir(parents=True, exist_ok=True)
+    with OUT.open("a") as f:
+        for name in variants:
+            use_library(libs[name])
+            if args.set in CHECKED:
+                bad = check_plain(flat, st0, tab)
+                print(f"[{args.set}] {name}: "
+                      + (f"DIFFERS from the plain version in {bad}" if bad
+                         else "bit-equal to the plain version (m=4, m=10, "
+                         "batch_k=4)"), flush=True)
+            for case, r in time_cases(flat, st0, tab,
+                                      args.set in CHECKED).items():
+                split = ", ".join(f"{k} {v:.3f}"
+                                  for k, v in r["split_us"].items())
+                print(f"[{args.set}] {name}: {case}: {r['ms']:.4f} ms a chunk, "
+                      f"{r['us_update']:.3f} us an update; split (us an "
+                      f"update): {split} [{card}]", flush=True)
+                f.write(json.dumps(dict(set=args.set, variant=name, case=case,
+                                        card=card, **r)) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
