@@ -6,8 +6,8 @@ CUDA card.
 
 Phases, one line or more each (any failure raises and exits non-zero):
 1. the card: nvidia-smi name and power limit;
-2. build the port's CUDA kernels from ops/csrc, both sources at once, and
-   time each build;
+2. build the port's CUDA kernels from ops/csrc, the three sources at once
+   (an nvcc each), and time each build;
 3. K1 (score_argmax) against its plain PyTorch version on the card at the
    batched path's shapes (N=50 blocks, C=8 channels, the spread grid's
    390 625 points per manifold, code/carrier windows of the receiver),
@@ -19,10 +19,11 @@ Phases, one line or more each (any failure raises and exits non-zero):
 5. the batched main path: DPEReceiver.run_batched on the first 10 s of a
    40 s synthetic capture held on the card as int16 [B, S, 2]: 100 warm-up
    blocks, 200 blocks per block (lookahead 50, pipeline depth 4), 200 blocks
-   in coherent groups of 5; K1 launch counts, fix errors against truth,
-   wall time and real-time factor; then, outside the timed segments, one
-   more dispatch of each kind under torch.profiler: kernel launches,
-   device-busy ms and its share of the wall, K1's device ms;
+   in coherent groups of 5; K1 and K5 launch counts, fix errors against
+   truth, wall time and real-time factor; then, outside the timed
+   segments, one more dispatch of each kind under torch.profiler: kernel
+   launches, device-busy ms and its share of the wall, K1's and K5's
+   device ms;
 6. K3 (correlate_window) against its plain version: seeded state and raw,
    C=8, S=2500 (one bulk copy per window), and S=2501 (a window that is no
    multiple of 16 bytes: the kernel's 4-byte copies);
@@ -38,9 +39,9 @@ Phases, one line or more each (any failure raises and exits non-zero):
    state, warm kernels): ScalarReceiver acquire -> track 30 s, then 2 s at
    a time to 8/8 ephemerides (checked against the scenario's) -> scalar
    PVT -> save_handoff -> DPEReceiver.run(1), then 50 more per-block steps;
-   K2/K3/K4 launch counts, errors, TTFF wall, tracking real-time factor;
-   then one more per-block step under torch.profiler (launches, device-busy
-   ms, K2's device ms);
+   K2/K3/K4/K5 launch counts, errors, TTFF wall, tracking real-time factor
+   (K5 once a step); then one more per-block step under torch.profiler
+   (launches, device-busy ms, K2's and K5's device ms);
 10. (run right after phase 3, before the capture is made) K1's
    block-summed mode (score_argmax(block_sum=True): the scores of all
    blocks summed per grid point inside the kernel) against its plain
@@ -54,11 +55,12 @@ Phases, one line or more each (any failure raises and exits non-zero):
 11. integrated DPE: run_integrated noncoherent on the spread grid (8 blocks
    a fix, 25 fixes), coherent on the dense grid (16 blocks a fix, 12
    fixes), and the first again read from the SampleFile through the
-   read-ahead thread (fixes identical); launches, errors, wall, real-time
-   factor, and the device side of one profiled fix;
+   read-ahead thread (fixes identical); K1 and K5 launches, errors, wall,
+   real-time factor, and the device side of one profiled fix;
 12. the survey: run_survey over 25 s (25 batches of 50 blocks), coherent,
    default fine lattice, a warm-up run, then one timed run and one with
-   sinc zoom passes (their launches are the ones counted); errors against
+   sinc zoom passes (their K1 and K5 launches are the ones counted); errors
+   against
    truth; the wall split (pass, coarse, zoom) from one more run of each,
    synchronized after every stage;
 13. run_batched with refine="newton" and ekf_mode="full": 200 blocks, the
@@ -130,25 +132,30 @@ Phases, one line or more each (any failure raises and exits non-zero):
    20 per-block steps, 10 FFT-engine steps, a 4-batch survey, and on
    chan=2 x grid=1 run_batched(50); every dispatch that splits blocks or
    channels is held to the same call on one device with the same inputs
-   (windows rel < 1e-5, flips equal, argmaxes equal or a proven tie), and
-   each run's fixes equal on both ranks and equal one device's run (phase
-   5's for the batched sequence) to the bit (within 1e-6 with the
-   channels split) up to the first proven tie, and within one step of the
-   spread grid after it; rank 1's K1 slice against its plain version; per
-   run the wall, the collectives and their host ms, the launches by
-   kernel, the audit and every rank's last fix; (c) on one card, every
-   dispatch of the batched sequence, run_integrated and the survey
-   correlated whole and as 2, 3 and 4 grid ranks would share its blocks,
-   held as in (b): the window elements that differ and the argmaxes that
-   turn on a tie ("mesh ..." lines).
+   (windows equal to the bit, flips equal, argmaxes equal or, with the
+   channels split, a proven tie), and each run's fixes equal on both ranks
+   and equal one device's run (phase 5's for the batched sequence) to the
+   bit over every fix (with the channels split: within 1e-6 up to the
+   first proven tie, and within one step of the spread grid after it);
+   rank 1's K1 slice against its plain version; per run the wall, the
+   collectives and their host ms, the launches by kernel, the audit and
+   every rank's last fix; (c) on one card, every dispatch of the batched
+   sequence, run_integrated and the survey correlated whole and as 2, 3
+   and 4 grid ranks would share its blocks, held as in (b): no window
+   element may differ and no argmax turn ("mesh ..." lines);
+26. (run last, on the capture's first 50 blocks) K5, the
+   windowed correlator, against its plain version at the main path's
+   shapes (N = 50, 8, 1; magnitude and complex; int16 and float32
+   samples): windows within 1e-5 of each channel's window maximum, flips
+   and code argmaxes equal; the same blocks correlated as 2, 3, 4 and 50
+   grid ranks share them and over 4 of the 8 channels, equal to the bit;
+   wrapper, kernels' own and plain ms, and the bound ("K5 ..." lines).
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 
-    python3 chip_smoke.py --main-path
-
-runs phases 1, 2 and 5 alone, on a 12 s capture, with the port that lies
-beside this script: a copy of it in the root of another tree times that
-tree's main path, so two trees can be set side by side in one call.
+Phase 5's run and every device record come from profile_dispatch.py, which
+also runs phase 5 alone against any tree (`--tree DIR`), so two trees are
+read by one routine.
 The line before the last is the kernels' JSON record (launches on the
 timed paths, and by path in launches_by_path, the CLI's and the mesh's
 included; error
@@ -167,6 +174,7 @@ import copy
 import dataclasses
 import hashlib
 import io
+import itertools
 import json
 import os
 import pathlib
@@ -179,7 +187,7 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+
 
 from navlab_dpe_sdr_tpu_torch import cli
 from navlab_dpe_sdr_tpu_torch.constants import F_CA, F_L1
@@ -202,10 +210,14 @@ from navlab_dpe_sdr_tpu_torch.models.fleet import ReceiverFleet
 from navlab_dpe_sdr_tpu_torch.models.scalar import ScalarReceiver
 from navlab_dpe_sdr_tpu_torch.runtime import flow
 from navlab_dpe_sdr_tpu_torch.models.vector import VectorReceiver
-from navlab_dpe_sdr_tpu_torch.ops import _build, score, track, tracking
+from navlab_dpe_sdr_tpu_torch.ops import _build, correlate, score, track
+from navlab_dpe_sdr_tpu_torch.ops import tracking
 from navlab_dpe_sdr_tpu_torch.ops import dpe as dpe_ops
 from navlab_dpe_sdr_tpu_torch.ops import dpe_real
 from navlab_dpe_sdr_tpu_torch.ops.acquisition import deep_dopplers
+from profile_dispatch import (K1_K5, TAKES, card_line, device_profile,
+                              dispatch_record, profile_seeing, record_line)
+from profile_dispatch import main_path as dispatch_main_path
 
 SEED = 20261016
 FS = 2.5e6
@@ -222,6 +234,7 @@ FLEET_TRACK_MS = 34_000
 FLEET_DPE_BLOCKS = 200
 SCORE_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/score_argmax.cu"
 TRACK_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/track_chunk.cu"
+CORR_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/windowed_correlate.cu"
 # Published peaks of one H100 SXM (dense, at the 700 W limit): f32 outside
 # the tensor cores, and HBM3.
 PEAK_F32 = 67e12        # operations / s
@@ -233,11 +246,20 @@ PEAK_BYTES = 3.35e12    # bytes / s
 # and one sample of one channel in correlate_window_plain (phase, cos and
 # sin, wipeoff, three chip indices, segment, 12 multiply-adds).
 OPS_PER_POINT_CHANNEL = {"pos": 22, "vel": 18}
-# sinc: the index (13 with the curvature term, 9 without), then per tap a
-# subtraction, sinpi, two multiplications, a division and an addition (the
-# sine counted as one operation), and the channel sum.
-OPS_SINC = {"pos": (14, 6), "vel": (10, 6)}       # (fixed, per tap)
+# sinc, in the form the kernel computes (sin(pi (x - k)) = (-1)^k
+# sin(pi x)): the index (13 with the curvature term, 9 without), one sine
+# (counted as one operation) and its scale by 1/pi, and the channel sum;
+# then per tap a subtraction, a reciprocal and a multiply-add. (A sine and a
+# division in every tap, the direct form, would be 6 a tap.)
+OPS_SINC = {"pos": (16, 4), "vel": (12, 4)}       # (fixed, per tap)
 OPS_PER_SAMPLE_CHANNEL = 60
+# K5, per (block, channel), from the plain version's algebra: the folds 8 a
+# sample (4 multiply-adds), and 8 more a sample of the periods after the
+# nav-bit boundary's; the lags 16 a (lag, tau) (the whole and the tail
+# folds, re and im); the lag-0 sums 8 a tau; the wipe 4 a sample; the
+# carrier DFT 8 a (bin, sample) (z = A yb: 4 multiply-adds a complex
+# product). The twiddles' sines, the rotation and the arc are left out.
+OPS_K5 = dict(fold=8, tail=8, lag=16, lag0=8, wipe=4, dft=8)
 KERNELS = {
     "K1": dict(name="score_argmax", route="cuda", source=SCORE_SRC,
                replaces="navlab_dpe_sdr_tpu/ops/pallas_score.py:166"),
@@ -256,7 +278,10 @@ KERNELS = {
     "K3 windows": dict(name="correlate_windows", route="cuda",
                        source=TRACK_SRC,
                        replaces="navlab_dpe_sdr_tpu/ops/pallas_track.py:50"),
+    "K5": dict(name="windowed_correlate", route="cuda", source=CORR_SRC,
+               replaces="navlab_dpe_sdr_tpu/ops/dpe_real.py:420"),
 }
+
 WEAK_REF = pathlib.Path(__file__).resolve().parent / "tools" / \
     "weak_start_reference.json"
 FCAID = F_CA / F_L1
@@ -264,14 +289,6 @@ FCAID = F_CA / F_L1
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -302,37 +319,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_profile(fn):
-    """Run fn() once under torch.profiler and synchronize. Returns (kernel
-    launches, device-busy ms: kernels and copies summed, wall ms under the
-    profiler, {kernel name: (ms, launches)}); launches 0 when the profiler
-    showed no device activity."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    launches, busy, by_name = 0, 0.0, {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-        busy += ms
-        seen = by_name.get(e.key, (0.0, 0))
-        by_name[e.key] = (seen[0] + ms, seen[1] + e.count)
-        if "memcpy" not in e.key.lower() and "memset" not in e.key.lower():
-            launches += e.count
-    return launches, busy, wall, by_name
-
-
-def kernel_device_ms(fn, reps: int, name: str):
+def kernel_device_ms(fn, reps: int, name: str, per_call: int = 1):
     """The device's own ms per launch of the kernels whose name holds
-    `name`, from torch.profiler over `reps` calls of fn (per launch the
-    profiler recorded: it can drop one, and now and then a whole window,
-    which is taken again, three times at most); None when it showed none."""
+    `name` (per call of fn when each call launches `per_call` of them),
+    from torch.profiler over `reps` calls of fn (per launch the profiler
+    recorded: it can drop one, and now and then a whole window, which is
+    taken again, three times at most); None when it showed none."""
     fn()
 
     def loop():
@@ -342,27 +334,21 @@ def kernel_device_ms(fn, reps: int, name: str):
     for _ in range(3):
         found = [v for k, v in device_profile(loop)[3].items() if name in k]
         count = sum(n for _, n in found)
+        TAKES["windows"] += 1
         if count:
-            return sum(ms for ms, _ in found) / count
+            return sum(ms for ms, _ in found) / count * per_call
+        TAKES["empty"] += 1
     return None
 
 
-def device_record(what: str, fn, kernel: str, card: str) -> None:
-    """Log the device side of one fn() outside the timed segments: kernel
-    launches, device-busy ms and its share of the wall, and the device ms
-    of the kernels named `kernel`."""
-    launches, busy, wall, by_name = device_profile(fn)
-    if launches == 0:
-        log(f"device side of {what}: not measured (the profiler showed no "
-            f"device activity)")
-        return
-    own = sum(ms for k, (ms, _) in by_name.items() if kernel in k)
-    n_own = sum(n for k, (_, n) in by_name.items() if kernel in k)
-    log(f"device side of {what} (one run under torch.profiler, outside the "
-        f"timed segments): {launches} kernel launches, device busy "
-        f"{busy:.3f} ms of {wall:.3f} ms of profiled wall (share "
-        f"{busy / wall:.3f}), of which {kernel} {own:.4f} ms in {n_own} "
-        f"launch(es) ({own / busy:.3f} of device busy) [{card}]")
+def device_record(what: str, fn, kernels, card: str) -> None:
+    """Log the device side of one fn() outside the timed segments
+    (profile_dispatch.dispatch_record: the third of three calls):
+    kernel launches, device-busy ms and its share of the wall, and the
+    device ms of the kernels whose names hold each of `kernels` (a name or
+    a tuple), every one of which fn launches."""
+    kernels = (kernels,) if isinstance(kernels, str) else kernels
+    log(record_line(what, dispatch_record(fn, kernels), card))
 
 
 def fmt_ms(ms) -> str:
@@ -552,6 +538,152 @@ def check_dispatch(samples, hand, arr, grid):
     return rel
 
 
+def k5_bound(args, out, kw) -> dict:
+    """bound() of one K5 call: OPS_K5 at these inputs (the tail periods as
+    this call's nav-bit boundaries give them) and the bytes of the inputs
+    and outputs, each once."""
+    raw_re, raw_im, chips, rc, idx_next, fi, ri, time_idc = args[:8]
+    n, s = raw_re.shape
+    c = chips.shape[0]
+    p0, n_p = kw["period"], kw["n_periods"]
+    wc, wv = kw["code_win"], kw["carr_win"]
+    p_b = torch.div(idx_next.long(), p0, rounding_mode="floor")
+    tail = int(((n_p - 1 - p_b).clamp(0, n_p) * p0).sum())
+    o = OPS_K5
+    ops = (n * c * ((o["fold"] + o["wipe"] + o["dft"] * wv) * s
+                    + (o["lag"] * wc + o["lag0"]) * p0) + o["tail"] * tail)
+    nbytes = (tensor_bytes(raw_re, raw_im, chips, time_idc, *out)
+              + 6 * n * c * 4)
+    return bound(ops, nbytes)
+
+
+def check_k5(first, hand, arr, grid, dev, card):
+    """Phase 26 (run last): K5 against its plain version on
+    the card at the main path's shapes: the capture's first 50 blocks with
+    the parameters the batched receiver prepares for them (windows of
+    auto_windows), passed as batch_correlate passes them, at N = 50, the
+    integrated fix's N = 8 and the per-block step's N = 1, magnitude and
+    complex, from the int16 capture and from float32 samples (the capture
+    times 0.3: the kernel's other instance, which the per-block step runs
+    on a complex or arg_pi4 block): windows within 1e-5 of each channel's
+    window maximum, flips and code-window argmaxes equal (but on a channel
+    whose nav-bit boundary is sample 0, a degenerate tie); the 50 blocks
+    correlated as 2, 3, 4 and 50 grid ranks share them, and over 4 of the 8
+    channels, bit for bit, from either (and how many elements the plain
+    version's 25/25 split changes). Times
+    at each N: CUDA events around the wrapper, the kernels' own from
+    torch.profiler (code and carrier kernel apart at N = 50), the plain
+    version; the bound at N = 50. Returns the kernels line's K5 entry."""
+    rx = receiver(first, hand, arr, grid, "cpu")
+    preps = rx._prepare_batch(N_BLOCKS)
+    pk = dpe_real.pack_params(np.stack([p[0] for p in preps]),
+                              np.stack([p[1] for p in preps]), 0)
+    d = device_state(grid, rx._dev.chips.numpy(), S, FS, dev)
+    cap = torch.from_numpy(first[:S * N_BLOCKS].view(np.int16)
+                           .reshape(N_BLOCKS, S, 2)).to(dev)
+    fpk, ipk = dpe_real.unpack_params(dpe_real.to_device(pk, dev))
+    kw = dict(carr_fftpts=rx.carr_fftpts, period=rx.period,
+              n_periods=S // rx.period, code_win=rx.code_win,
+              carr_win=rx.carr_win)
+    samples = {"int16": cap, "float32": cap.float() * 0.3}
+
+    def args(lo, hi, cs=slice(None), dtype="int16"):
+        raw = samples[dtype][lo:hi]
+        f, i = fpk[lo:hi, :, cs], ipk[lo:hi, :, cs]
+        return (raw[..., 0], raw[..., 1], d.chips[cs], f[:, 0], i[:, 0],
+                f[:, 1], f[:, 2], d.time_idc, i[:, 1], i[:, 2])
+
+    res = dict(err=0.0)
+    for n in (N_BLOCKS, 8, 1):
+        worst = dict.fromkeys(samples, 0.0)
+        for dtype, cplx in itertools.product(samples, (False, True)):
+            a = args(0, n, dtype=dtype)
+            keep = a[4] != 0                       # [n, C]
+            got = correlate.windowed_correlate(*a, **kw, complex_out=cplx)
+            want = correlate.windowed_correlate_plain(*a, **kw,
+                                                      complex_out=cplx)
+            torch.cuda.synchronize()
+            for name in got._fields[:-1]:
+                g, w = getattr(got, name)[keep], getattr(want, name)[keep]
+                diff = (g - w).abs()
+                if dtype == "int16":
+                    res["err"] = max(res["err"], float(diff.max()))
+                worst[dtype] = max(worst[dtype], float(
+                    (diff / w.abs().amax(-1, keepdim=True)).max()))
+            assert worst[dtype] < 1e-5, (n, dtype, cplx, worst)
+            assert torch.equal(got.flip_used[keep], want.flip_used[keep])
+            mags = [torch.hypot(o.code_re, o.code_im) if cplx
+                    else o.code_mag for o in (got, want)]
+            assert torch.equal(mags[0].argmax(-1)[keep],
+                               mags[1].argmax(-1)[keep]), (n, dtype, cplx)
+            if dtype == "int16":
+                n_flips, n_keep = int(got.flip_used.sum()), int(keep.sum())
+        a = args(0, n)
+
+        def kernel():
+            return correlate.windowed_correlate(*a, **kw)
+
+        def plain():
+            return correlate.windowed_correlate_plain(*a, **kw)
+
+        k_ms, p_ms = cuda_ms(kernel, 20), cuda_ms(plain, 5)
+        d_ms = kernel_device_ms(kernel, 10, "windowed_", per_call=2)
+        key = "" if n == N_BLOCKS else f"_n{n}"
+        res.update({f"ms{key}": k_ms, f"plain_ms{key}": p_ms,
+                    f"device_ms{key}": d_ms})
+        log(f"K5 windowed_correlate N={n} C={len(rx.prn_list)} S={S} "
+            f"windows {rx.code_win}/{rx.carr_win}: magnitude and complex "
+            f"within rel {worst['int16']:.3e} (int16 samples), "
+            f"{worst['float32']:.3e} (float32) of each channel's window "
+            f"maximum (limit 1e-5), flips equal ({n_flips} of {a[4].numel()} "
+            f"flipped; {a[4].numel() - n_keep} degenerate boundary-0 "
+            f"channel(s) left out), code argmaxes equal; wrapper "
+            f"{k_ms:.4f} ms, kernels' own {fmt_ms(d_ms)}, plain "
+            f"{p_ms:.4f} ms [{card}]")
+        if n == N_BLOCKS:
+            res["bound"] = k5_bound(a, kernel(), kw)
+            by_name = profile_seeing(kernel, ("windowed_",))[3]
+            split = {k: ms for k, (ms, _) in by_name.items()
+                     if "windowed_" in k}
+            res["device_ms_code"] = sum(v for k, v in split.items()
+                                        if "code" in k) or None
+            res["device_ms_carrier"] = sum(v for k, v in split.items()
+                                           if "carrier" in k) or None
+            log(f"K5 N={n}: code kernel {fmt_ms(res['device_ms_code'])}, "
+                f"carrier kernel {fmt_ms(res['device_ms_carrier'])} (one "
+                f"profiled call); bound {res['bound']['bound_ms']:.4f} ms "
+                f"({res['bound']['bound_by']}) [{card}]")
+
+    for dtype, cplx in itertools.product(samples, (False, True)):
+        whole = correlate.windowed_correlate(
+            *args(0, N_BLOCKS, dtype=dtype), **kw, complex_out=cplx)
+        for parts in SPLITS + (N_BLOCKS,):
+            shares = [correlate.windowed_correlate(
+                *args(lo, hi, dtype=dtype), **kw, complex_out=cplx)
+                for lo, hi in score.even_rows(N_BLOCKS, parts)]
+            for name, f in zip(whole._fields, zip(*shares)):
+                assert torch.equal(torch.cat(f), getattr(whole, name)), \
+                    (parts, name, dtype, cplx)
+        sub = correlate.windowed_correlate(
+            *args(0, N_BLOCKS, slice(2, 6), dtype), **kw, complex_out=cplx)
+        for name in whole._fields:
+            assert torch.equal(getattr(sub, name),
+                               getattr(whole, name)[:, 2:6]), (name, dtype,
+                                                               cplx)
+    pw = correlate.windowed_correlate_plain(*args(0, N_BLOCKS), **kw)
+    ps = [correlate.windowed_correlate_plain(*args(lo, hi), **kw)
+          for lo, hi in score.even_rows(N_BLOCKS, 2)]
+    n_plain = sum(int((torch.cat(f) != getattr(pw, name)).sum())
+                  for name, f in zip(pw._fields[:2], zip(*ps)))
+    log(f"K5 batch invariance: the 50 blocks correlated whole, as "
+        f"{', '.join(str(p) for p in SPLITS)} and 50 grid ranks share them "
+        f"and over channels 2-5 alone: windows and flips equal to the bit, "
+        f"magnitude and complex, int16 and float32 samples (the plain version on the card, 25/25: "
+        f"{n_plain} of {pw.code_mag.numel() + pw.carr_mag.numel()} window "
+        f"elements differ) [{card}]")
+    return res
+
+
 def build_all():
     """Phase 2: nvcc for every source at once; {name: (library, seconds)}."""
     out, errors = {}, []
@@ -564,7 +696,8 @@ def build_all():
             errors.append(e)
 
     threads = [threading.Thread(target=one, args=(name,))
-               for name in ("score_argmax", "track_chunk")]
+               for name in ("score_argmax", "track_chunk",
+                            "windowed_correlate")]
     for t in threads:
         t.start()
     for t in threads:
@@ -815,7 +948,9 @@ def cold_start(samples, hand, arr, grid, dev):
 
 def check_cold_start(samples, hand, arr, grid, dev, card):
     """Phase 9: warm pass, then the timed pass with every launch count set
-    to 0 just before it and read just after."""
+    to 0 just before it and read just after, then 50 more per-block steps,
+    counted the same way. Returns (the timed pass's counts, its tracked
+    steps, the scalar receiver, K5's launches in the 50 steps)."""
     cold_start(samples, hand, arr, grid, dev)            # warm the kernels
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -839,6 +974,7 @@ def check_cold_start(samples, hand, arr, grid, dev, card):
     # K3 runs here only as K4's device function, once per tracked step
     assert counts["track_chunk"] > 0 and rx.mcount > 0, counts
     assert counts["score_surface"] == 2, counts      # one fix, 2 manifolds
+    assert counts["windowed_correlate"] == 1, counts  # one correlation
     rtfs = sorted(n * 1e-3 / w for n, w in rx.chunk_walls)
     log(f"cold start: 8/8 acquired, 8/8 ephemerides (sqrt_A, t_oe, M_0 "
         f"equal to the scenario's), scalar PVT {pvt_m:.2f} m, first "
@@ -851,20 +987,24 @@ def check_cold_start(samples, hand, arr, grid, dev, card):
     log("cold start split (s): " + ", ".join(
         f"{k} {v:.4f}" for k, v in run["stages"].items()))
 
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     drx.run(50)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    k5 = _build.launch_counts()["windowed_correlate"]
+    assert k5 == 50, k5
     err = np.array([np.linalg.norm(f.x_ecef[:3] - hand.x_ecef[:3])
                     for f in drx.fixes[1:]])
     assert len(err) == 50 and np.isfinite(err).all()
     med = float(np.median(err))
     assert med < 15.0, med
-    log(f"per-block DPE after the handoff: 50 steps, error median "
+    log(f"per-block DPE after the handoff: 50 steps ({k5} K5 launches), "
+        f"error median "
         f"{med:.2f} m p95 {float(np.percentile(err, 95)):.2f} m, wall "
         f"{wall:.3f} s ({50 * T / wall:.2f}x real time) [{card}]")
-    device_record("one per-block step", drx.step, "score_kernel", card)
-    return counts, rx.mcount, rx
+    device_record("one per-block step", drx.step, K1_K5, card)
+    return counts, rx.mcount, rx, k5
 
 
 def sum_bound(args, got, manifold, interp="quadratic"):
@@ -1019,7 +1159,8 @@ def fix_errors(fixes, truth):
 
 
 def check_integrated(samples, hand, arr, grid, dev, card):
-    """Phase 11: integrated DPE at full width. Returns K1's launches."""
+    """Phase 11: integrated DPE at full width. Returns K1's and K5's
+    launches."""
     first = samples[:S * 216]      # a warm fix, the timed ones, a profiled one
     raw_dev = torch.from_numpy(first.view(np.int16).reshape(-1, S, 2)).to(dev)
     cfg = DPEConfig(ekf_mode="alpha", ekf_alpha=0.3)
@@ -1030,7 +1171,7 @@ def check_integrated(samples, hand, arr, grid, dev, card):
                            eph=copy.deepcopy(arr), config=copy.deepcopy(cfg),
                            device=dev)
 
-    launches = 0
+    launches = k5_all = 0
     runs = {}
     dense = dense_grid()
     for name, g, k, n_fix, kw in (
@@ -1053,16 +1194,20 @@ def check_integrated(samples, hand, arr, grid, dev, card):
         wall = time.perf_counter() - t0
         n_launch = _build.launch_counts()["score_argmax"]
         assert n_launch == 2 * n_fix, (name, n_launch)
+        k5 = _build.launch_counts()["windowed_correlate"]
+        assert k5 == n_fix, (name, k5)
         assert len(rx.fixes) == n_fix + 1 and rx.mc == (n_fix + 1) * k
         err = fix_errors(rx.fixes[1:], hand.x_ecef)
         assert np.isfinite(err).all()
         med = float(np.median(err))
         assert med < 15.0, (name, med)
         launches += n_launch
+        k5_all += k5
         runs[name] = rx
         log(f"integrated DPE, {name}: {n_fix} fixes of {k} blocks "
             f"(G={g.n_pos} per manifold, windows {rx.code_win}/"
-            f"{rx.carr_win}), {n_launch} kernel launches, error median "
+            f"{rx.carr_win}), K1 {n_launch} and K5 {k5} launches, error "
+            f"median "
             f"{med:.2f} m max {float(err.max()):.2f} m [first "
             f"{err[0]:.2f}, last {err[-1]:.2f}], wall {wall:.3f} s, "
             f"{n_fix * k * T / wall:.2f}x real time [{card}]")
@@ -1071,7 +1216,7 @@ def check_integrated(samples, hand, arr, grid, dev, card):
                 "one integrated fix of 8 blocks, spread grid",
                 lambda: rx.run_integrated(1, 8, raw_blocks_dev=raw_dev,
                                           start_block=208),
-                "score_kernel", card)
+                K1_K5, card)
     a = runs["noncoherent, spread grid"]
     b = runs["noncoherent, spread grid, from the file"]
     assert len(b.fixes) == 26
@@ -1081,13 +1226,13 @@ def check_integrated(samples, hand, arr, grid, dev, card):
     assert not [t for t in threading.enumerate() if t.name == "raw-prefetch"]
     log("integrated DPE: the file-mode run's 26 fixes equal the "
         "device-resident run's exactly")
-    return launches
+    return launches, k5_all
 
 
 def check_survey(samples, hand, arr, grid, dev, card):
     """Phase 12: the survey solve over 25 s. A warm-up run, then the timed
     runs (quadratic and sinc zoom passes) on the receiver as it is, whose
-    launches are the ones returned; then one more run of each with a
+    K1 and K5 launches are the ones returned; then one more run of each with a
     synchronize after every pass and joint argmax, for the wall split
     alone."""
     n_batches, k = 25, 50
@@ -1129,8 +1274,10 @@ def check_survey(samples, hand, arr, grid, dev, card):
         wall = time.perf_counter() - t0
         n_launch = _build.launch_counts()["score_argmax"]
         # two per integrated fix, then six joint passes (coarse and two zoom
-        # passes per manifold)
+        # passes per manifold); K5 once a batch
         assert n_launch == 2 * n_batches + 6, n_launch
+        n_k5 = _build.launch_counts()["windowed_correlate"]
+        assert n_k5 == n_batches, n_k5
         assert res.n_blocks == n_batches * k and res.n_batches == n_batches
         assert len(rx.fixes) == n_batches
         assert np.isfinite(res.pos_score) and np.isfinite(res.vel_score)
@@ -1139,16 +1286,16 @@ def check_survey(samples, hand, arr, grid, dev, card):
         enu = r_e2n @ (res.x_ecef[0:3] - truth[0:3])
         assert abs(enu[0]) < 1.5 and abs(enu[1]) < 1.5, enu
         assert np.linalg.norm(enu) < 6.0, enu
-        return res, enu, wall, n_launch
+        return res, enu, wall, n_launch, n_k5
 
     survey(None)                           # warms the shapes
-    launches = 0
+    launches = k5 = 0
     for zoom in (None, "sinc"):
-        res, enu, wall, n_launch = survey(zoom)
-        launches += n_launch
+        res, enu, wall, n_launch, n_k5 = survey(zoom)
+        launches, k5 = launches + n_launch, k5 + n_k5
         log(f"survey, zoom {zoom or 'quadratic'}: {n_batches} batches of {k} "
-            f"blocks ({n_batches * k * T:.0f} s), {n_launch} kernel "
-            f"launches, ENU error {enu[0]:.2f} / {enu[1]:.2f} / "
+            f"blocks ({n_batches * k * T:.0f} s), K1 {n_launch} and K5 "
+            f"{n_k5} launches, ENU error {enu[0]:.2f} / {enu[1]:.2f} / "
             f"{enu[2]:.2f} m (3-D {float(np.linalg.norm(enu)):.2f} m), clock "
             f"{res.x_ecef[3] - truth[3]:.2f} m, sigma_pos "
             f"{np.array2string(res.sigma_pos, precision=3)}, wall "
@@ -1156,19 +1303,19 @@ def check_survey(samples, hand, arr, grid, dev, card):
             f"[{card}]")
     for zoom in (None, "sinc"):
         calls = []
-        _, _, wall, _ = survey(zoom, calls)
+        _, _, wall, _, _ = survey(zoom, calls)
         split = {key: sum(t for kk, t in calls if kk == key)
                  for key in ("pass", "coarse", "zoom")}
         log(f"survey, zoom {zoom or 'quadratic'}, one more run synchronized "
             f"after every stage: wall {wall:.3f} s: pass "
             f"{split['pass']:.3f} s, coarse {split['coarse']:.4f} s, zoom "
             f"{split['zoom']:.4f} s [{card}]")
-    return launches
+    return launches, k5
 
 
 def check_refined(samples, hand, arr, grid, dev, card):
     """Phase 13: the batched path with the Newton polish and the full EKF.
-    Returns K1's launches."""
+    Returns K1's and K5's launches."""
     first = samples[:S * 250]
     raw_dev = torch.from_numpy(first.view(np.int16).reshape(-1, S, 2)).to(dev)
     rx = DPEReceiver(SampleFile(samples=first, fs=FS), copy.deepcopy(hand),
@@ -1198,6 +1345,8 @@ def check_refined(samples, hand, arr, grid, dev, card):
         dpe_real.pack_rows = inner
     launches = _build.launch_counts()["score_argmax"]
     assert launches == 2 * (200 // N_BLOCKS), launches
+    k5 = _build.launch_counts()["windowed_correlate"]
+    assert k5 == 200 // N_BLOCKS, k5
     c = len(rx.prn_list)
     assert set(widths) == {4 + c + c * (rx.code_win + rx.carr_win)}, widths
     fixes = rx.fixes[50:]
@@ -1214,12 +1363,12 @@ def check_refined(samples, hand, arr, grid, dev, card):
     assert frac.max() > 1e-3, enu
     tr, tr4 = float(np.trace(rx.ekf.P)), float(np.trace(rx.ekf.P[:4, :4]))
     assert tr < 300.0 and tr4 > 1.0, (tr, tr4)
-    log(f"refined + full EKF batched run: 200 blocks, {launches} kernel "
-        f"launches, rows of {widths[0]} floats (windows inside), error "
+    log(f"refined + full EKF batched run: 200 blocks, K1 {launches} and K5 "
+        f"{k5} launches, rows of {widths[0]} floats (windows inside), error "
         f"median {med:.2f} m p95 {p95:.2f} m, trace(P) {tr:.1f} "
         f"(position-clock block {tr4:.2f}), wall {wall:.3f} s, "
         f"{200 * T / wall:.2f}x real time [{card}]")
-    return launches
+    return launches, k5
 
 
 def check_coherent(st0, samples, code_table, card):
@@ -1695,12 +1844,13 @@ def fleet_pass(samples, hand, dev, parallel, record_align=False):
                              lookahead=N_BLOCKS, parallel=parallel)
         torch.cuda.synchronize()
         k1 = _build.launch_counts()["score_argmax"]
+        k5 = _build.launch_counts()["windowed_correlate"]
     finally:
         DPEReceiver._drain_batch = inner
     wall = time.perf_counter() - t0
     return dict(fleet=fleet, dpes=dpes, offsets=offsets, wall=wall,
                 t_align=t_align, k4_track=k4_track, k4_align=k4_align,
-                k1=k1, ttff=[first_fix[id(d)] - t0 for d in dpes],
+                k1=k1, k5=k5, ttff=[first_fix[id(d)] - t0 for d in dpes],
                 align_calls=calls)
 
 
@@ -1740,6 +1890,7 @@ def check_fleet(samples, hand, dev, card):
     signal_s = sum((FLEET_TRACK_MS + int(off)) * 1e-3
                    + FLEET_DPE_BLOCKS * T for off in par["offsets"])
     assert par["k1"] == 2 * 2 * FLEET_DPE_BLOCKS // N_BLOCKS, par["k1"]
+    assert par["k5"] == 2 * FLEET_DPE_BLOCKS // N_BLOCKS, par["k5"]
     log(f"fleet: 2 receivers (the capture, and the capture 7 ms later), "
         f"8/8 ephemerides decoded on both after track({FLEET_TRACK_MS}), "
         f"align offsets {par['offsets'].tolist()} ms ({par['k4_align']} "
@@ -1751,7 +1902,8 @@ def check_fleet(samples, hand, dev, card):
         + " / ".join(f"{m:.2f}" for m in meds)
         + f" m; parallel runs == sequential runs bit for bit (offsets, "
         f"logs, fixes); launches K4 {par['k4_track']} (track) + "
-        f"{par['k4_align']} (align), K1 {par['k1']} [{card}]")
+        f"{par['k4_align']} (align), K1 {par['k1']}, K5 {par['k5']} "
+        f"[{card}]")
     for parallel, r in runs:
         name = "parallel" if parallel else "sequential"
         log(f"fleet, {name}: wall {r['wall']:.3f} s ({r['t_align']:.3f} s "
@@ -1759,7 +1911,8 @@ def check_fleet(samples, hand, dev, card):
             + " / ".join(f"{t:.3f}" for t in r["ttff"])
             + f" s, aggregate {signal_s:.2f} s of signal over both "
             f"receivers, {signal_s / r['wall']:.1f}x real time [{card}]")
-    return dict(k4=par["k4_track"], k4_align=par["k4_align"], k1=par["k1"])
+    return dict(k4=par["k4_track"], k4_align=par["k4_align"], k1=par["k1"],
+                k5=par["k5"])
 
 
 def check_live_fleet(samples, hand, arr, dev, card):
@@ -1805,9 +1958,11 @@ def check_live_fleet(samples, hand, arr, dev, card):
     log(f"live fleet: 2 paced radios, 1.9 s, offsets {offsets.tolist()} ms, "
         f"last fixes {errs[0]:.2f} / {errs[1]:.2f} m from truth, median "
         f"spread {spread:.2f} m, wall {wall:.3f} s; launches K4 "
-        f"{counts['track_chunk']}, K2 {counts['score_surface']}; "
+        f"{counts['track_chunk']}, K2 {counts['score_surface']}, K5 "
+        f"{counts['windowed_correlate']}; "
         f"live_stats {json.dumps(stats)} [{card}]")
-    return dict(k4=counts["track_chunk"], k2=counts["score_surface"])
+    return dict(k4=counts["track_chunk"], k2=counts["score_surface"],
+                k5=counts["windowed_correlate"])
 
 
 def check_montecarlo(samples, hand, dev, card):
@@ -1816,7 +1971,7 @@ def check_montecarlo(samples, hand, dev, card):
     reference's 50-80 m band), spacing_sweep (3 spacings), cn0_sweep
     ([45, 30] dB-Hz, 32 blocks, 8 a fix), weak_sweep (one level, 128
     blocks). Returns launches by kernel over all four."""
-    counts = dict(score_argmax=0, score_surface=0)
+    counts = dict(score_argmax=0, score_surface=0, windowed_correlate=0)
     with tempfile.TemporaryDirectory() as tmp:
         cap = pathlib.Path(tmp) / "capture.dat"
         samples[:S * 60].tofile(cap)
@@ -1857,15 +2012,15 @@ def check_montecarlo(samples, hand, dev, card):
                 rows = " ".join(",".join(map(str, r.row())) for r in res)
                 log(f"Monte-Carlo {name}: {text}; rows {rows}; wall "
                     f"{wall:.3f} s ({wall / len(res):.3f} s a run); launches "
-                    f"K2 {got['score_surface']}, K1 {got['score_argmax']} "
-                    f"[{card}]")
+                    f"K2 {got['score_surface']}, K1 {got['score_argmax']}, "
+                    f"K5 {got['windowed_correlate']} [{card}]")
             else:
                 log(f"Monte-Carlo {name}: "
                     + "; ".join(json.dumps(dataclasses.asdict(p))
                                 for p in res)
                     + f"; wall {wall:.3f} s; launches K2 "
-                    f"{got['score_surface']}, K1 {got['score_argmax']} "
-                    f"[{card}]")
+                    f"{got['score_surface']}, K1 {got['score_argmax']}, K5 "
+                    f"{got['windowed_correlate']} [{card}]")
     assert counts["score_surface"] > 0 and counts["score_argmax"] > 0
     return counts
 
@@ -2542,13 +2697,14 @@ def check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes):
     fixes of 8), 20 per-block steps, 10 FFT-engine steps, a 4-batch survey
     and, on chan=2 x grid=1, run_batched(50), every dispatch that splits
     blocks or channels held to one device's on the same inputs
-    (MeshAudit), the fixes equal to one device's run (phase 5's for the
-    batched sequence) to the bit (within 1e-6 with the channels split) up
-    to the first proven tie and within AFTER_TIE after it, and equal on
-    both ranks; rank 1's K1 slice against its plain version; (c) first, on
-    one card and in this process, one device's batched sequence (equal to
-    phase 5's), run_integrated and survey, each dispatch also correlated as
-    2, 3 and 4 grid ranks share its blocks (SplitAudit). Returns {kernel:
+    (MeshAudit: windows to the bit), the fixes equal to one device's run
+    (phase 5's for the batched sequence) to the bit over every fix (with
+    the channels split: within 1e-6 up to the first proven tie and within
+    AFTER_TIE after it), and equal on both ranks; rank 1's K1 slice
+    against its plain version; (c) first, on one card and in this process,
+    one device's batched sequence (equal to phase 5's), run_integrated and
+    survey, each dispatch also correlated as 2, 3 and 4 grid ranks share
+    its blocks (SplitAudit: no window element differs). Returns {kernel:
     launches} of the timed mesh runs (rank 0 of each launch)."""
     import pickle
 
@@ -2575,10 +2731,12 @@ def check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes):
                 f"integrated fix's 8): {st['dispatches']} dispatches (the "
                 f"batched sequence, run_integrated, the survey) against the "
                 f"whole call: {st['n_diff']} of {st['n_all']} window "
-                f"elements differ, max rel {st['rel']:.3e}, flips equal, "
-                f"{st['ties']} argmaxes differ (each a proven tie); "
+                f"elements differ (limit 0: K5's windows do not depend on "
+                f"the split), max rel {st['rel']:.3e}, flips equal, "
+                f"{st['ties']} argmaxes differ; "
                 f"{time.perf_counter() - t0:.1f} s for all three splits "
                 f"[{card}]")
+            assert st["n_diff"] == 0 and st["ties"] == 0, (p, st)
         refs.update({name: mesh_case(name, first, hand, arr, grid, dev,
                                      None)
                      for name in ("per-block", "fft", "chan split")})
@@ -2643,10 +2801,17 @@ def check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes):
             want, extra, _ = refs[name]
             audit = stats[0]["runs"][name]["audit"]
             matched, after = 0, None
+            # the windows are one device's to the bit (K5 is batch- and
+            # channel-invariant); the grid splits' fixes too, over every
+            # fix; the channel split sums the channels in another order
+            assert audit is None or audit["rel"] == 0.0, (name, audit)
             for fx in fixes:
                 np.testing.assert_array_equal(fx[name], fixes[0][name])
                 matched, after = same_fixes(fx[name], want, audit,
                                             exact=name != "chan split")
+                if name != "chan split":
+                    assert matched == len(want) and after is None, (
+                        name, matched, after)
                 for k, v in extra.items():   # the survey's state
                     if audit["rel"] == 0.0:
                         np.testing.assert_array_equal(fx[f"{name}.{k}"], v)
@@ -2666,57 +2831,23 @@ def check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes):
 
 
 def main_path(first, hand, arr, grid, dev, card):
-    """Phase 5 on the first 12 s: (K1 launches of the timed segments, the
-    fixes of the whole sequence [300, 8])."""
-    rx = receiver(first, hand, arr, grid, dev)
-    raw_dev = torch.from_numpy(first.view(np.int16).reshape(-1, S, 2)
-                               ).to(dev)
-    run = dict(lookahead=N_BLOCKS, raw_blocks_dev=raw_dev, pipeline=True,
-               pipeline_depth=4)
-    t0 = time.perf_counter()
-    rx.run_batched(50, start_block=0, **run)
-    rx.run_batched(50, start_block=50, group_k=5, **run)
-    torch.cuda.synchronize()
-    log(f"warm-up: 100 blocks in {time.perf_counter() - t0:.2f} s")
-    n_warm = len(rx.fixes)
-
-    segments = []
-    _build.reset_launch_counts()
-    for name, start, group_k in (("per-block", 100, 1),
-                                 ("grouped K=5", 300, 5)):
-        before = _build.launch_counts()["score_argmax"]
-        n_fix0 = len(rx.fixes)
-        t0 = time.perf_counter()
-        rx.run_batched(200, start_block=start, group_k=group_k, **run)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _build.launch_counts()["score_argmax"] - before
-        fixes = rx.fixes[n_fix0:]
-        assert launches == 2 * (200 // N_BLOCKS), (name, launches)
-        assert len(fixes) == 200 // group_k, (name, len(fixes))
-        err = np.array([np.linalg.norm(f.x_ecef[:3] - hand.x_ecef[:3])
-                        for f in fixes])
-        assert np.isfinite(err).all()
-        med, p95 = float(np.median(err)), float(np.percentile(err, 95))
-        assert med < 15.0, (name, med)
-        segments.append(wall)
-        log(f"main path {name}: 200 blocks, {launches} kernel launches "
-            f"({200 // N_BLOCKS} dispatches), {len(fixes)} fixes, error "
-            f"median {med:.2f} m p95 {p95:.2f} m, wall {wall:.3f} s, "
-            f"{200 * T / wall:.2f}x real time [{card}]")
-    k1_launches = _build.launch_counts()["score_argmax"]
-    assert k1_launches > 0 and len(rx.fixes) == n_warm + 240
-    total = sum(segments)
-    log(f"main path: 400 blocks in {total:.3f} s, {400 * T / total:.2f}x "
-        f"real time [{card}]")
-    phase5_fixes = np.stack([f.x_ecef for f in rx.fixes])
-    for name, start, group_k in (("per-block", 500, 1),
-                                 ("grouped K=5", 550, 5)):
-        device_record(
-            f"one 50-block dispatch, {name}",
-            lambda: rx.run_batched(50, start_block=start, group_k=group_k,
-                                   **run), "score_kernel", card)
-    return k1_launches, phase5_fixes
+    """Phase 5 on the first 12 s (profile_dispatch.main_path) held to its
+    limits: K1 twice and K5 once a dispatch, every fix finite, each
+    segment's median error under 15 m. Returns (K1 and K5 launches of the
+    timed segments, the fixes of the whole sequence [300, 8])."""
+    res = dispatch_main_path(first, hand, arr, grid, dev, card, log)
+    for name, seg in res["segments"].items():
+        group_k = 5 if name.startswith("grouped") else 1
+        assert seg["k1"] == 2 * (200 // N_BLOCKS), (name, seg)
+        assert seg["k5"] == 200 // N_BLOCKS, (name, seg)
+        assert seg["fixes"] == 200 // group_k, (name, seg)
+        assert seg["finite"] and seg["median_m"] < 15.0, (name, seg)
+    assert len(res["fixes"]) == 300, len(res["fixes"])
+    for name, rec in res["dispatch"].items():
+        assert rec["launches"] > 0, (name, "no device records")
+    counts = res["counts"]
+    return counts["score_argmax"], counts["windowed_correlate"], \
+        res["fixes"]
 
 
 def main() -> int:
@@ -2756,23 +2887,25 @@ def main() -> int:
     log(f"dispatch: card == cpu on 5 blocks (indices, flips equal; "
         f"windows rel diff {rel:.2e})")
 
-    k1_launches, phase5_fixes = main_path(first, hand, arr, grid, dev,
-                                          card)
+    k1_launches, k5_launches, phase5_fixes = main_path(
+        first, hand, arr, grid, dev, card)
 
     k3 = check_correlator(dev, card)
     st0, raw0, table0 = tracker_inputs(samples, hand, dev)
     k4 = check_tracker(st0, raw0, table0, card)
     del raw0
     k2 = check_surface(grid, widths, dev, card)
-    counts, k4_steps, rx_cold = check_cold_start(samples, hand, arr, grid,
-                                                 dev, card)
+    counts, k4_steps, rx_cold, k5_steps = check_cold_start(
+        samples, hand, arr, grid, dev, card)
 
     k1_by_path = {"batched": k1_launches}
-    k1_by_path["integrated"] = check_integrated(samples, hand, arr, grid,
-                                                dev, card)
-    k1_by_path["survey"] = check_survey(samples, hand, arr, grid, dev, card)
-    k1_by_path["refined"] = check_refined(samples, hand, arr, grid, dev,
-                                          card)
+    k5_by_path = {"batched": k5_launches, "cold start":
+                  counts["windowed_correlate"], "per-block": k5_steps}
+    for path, check in (("integrated", check_integrated),
+                        ("survey", check_survey),
+                        ("refined", check_refined)):
+        k1_by_path[path], k5_by_path[path] = check(samples, hand, arr, grid,
+                                                   dev, card)
     assert all(n > 0 for n in k1_by_path.values()), k1_by_path
 
     k4c = check_coherent(st0, samples, table0, card)
@@ -2796,6 +2929,8 @@ def main() -> int:
     mc = check_montecarlo(samples, hand, dev, card)
     k1_by_path["montecarlo"] = mc["score_argmax"]
     k2_by_path["montecarlo"] = mc["score_surface"]
+    k5_by_path.update({"fleet": fl["k5"], "live fleet": live["k5"],
+                       "montecarlo": mc["windowed_correlate"]})
     t0 = time.perf_counter()
     cl = check_cli(samples, hand, dev, card)
     log(f"CLI phase: wall {time.perf_counter() - t0:.3f} s [{card}]")
@@ -2808,11 +2943,17 @@ def main() -> int:
     k4b_by_path = {"track(2000, batch_k=4)": k4b.pop("launches"),
                    "cli": cl["track_chunk_batched"]}
     k3w_by_path = {"vector": k3w_launches, "cli": cl["correlate_windows"]}
+    k5_by_path["cli"] = cl.get("windowed_correlate", 0)
     mesh = check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes)
     k1_by_path["mesh"] = mesh.get("score_argmax", 0)
     k2_by_path["mesh"] = mesh.get("score_surface", 0)
+    k5_by_path["mesh"] = mesh.get("windowed_correlate", 0)
+    # last: after this phase's runs torch.profiler has shown no device
+    # activity in a window (an H100 with torch 2.11), so the device records
+    # of phases 5, 9 and 11 come before it
+    k5 = check_k5(first, hand, arr, grid, dev, card)
     for by_path in (k1_by_path, k2_by_path, k4_by_path, k4c_by_path,
-                    k4b_by_path, k3w_by_path):
+                    k4b_by_path, k3w_by_path, k5_by_path):
         assert all(n > 0 for n in by_path.values()), by_path
 
     # no single PyTorch call computes any of these functions: library_ms is
@@ -2821,17 +2962,24 @@ def main() -> int:
             ("K3", k3_by_path, k3), ("K4", k4_by_path, k4),
             ("K4 coherent", k4c_by_path, k4c),
             ("K4 batch_k", k4b_by_path, k4b),
-            ("K3 windows", k3w_by_path, k3w)]
+            ("K3 windows", k3w_by_path, k3w), ("K5", k5_by_path, k5)]
     kernels = [dict(KERNELS[k], launches=sum(by_path.values()),
                     max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     **r["bound"], library_ms=None, device_ms=r["device_ms"],
                     launches_by_path=by_path) for k, by_path, r in rows]
     kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"],
                       **k1_sum)
+    kernels[-1].update({k: v for k, v in k5.items()
+                        if k not in ("err", "ms", "plain_ms", "device_ms",
+                                     "bound")})
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms against a bound of "
             f"{k['bound_ms']:.5f} ms ({k['bound_by']}; "
             f"{100.0 * k['bound_ms'] / k['ms']:.2f} % of it) [{card}]")
+    log(f"profiler: {TAKES['windows']} windows taken for the device records "
+        f"and the kernels' own times, {TAKES['empty']} of them showing none "
+        f"of the kernels sought (each then taken again, three times at most "
+        f"a reading)")
     # the cold-start path launches K3 standalone no time: its body runs as
     # K4's device code, once per tracked 1 ms step of each K4 launch
     kernels[2]["steps_inside_track_chunk"] = k4_steps
@@ -2842,24 +2990,7 @@ def main() -> int:
     return 0
 
 
-def main_path_only() -> int:
-    """--main-path: the card, the builds and phase 5 on a 12 s capture."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 2
-    card = card_line()
-    log(f"{card}; the port of {REPO}")
-    for name, (lib, sec) in build_all().items():
-        log(f"build: {name} -> {lib.name} in {sec:.2f} s")
-    samples, hand, arr = make_capture(12.0)
-    main_path(samples, hand, arr, spread_grid(), torch.device("cuda"), card)
-    return 0
-
-
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-child"]:
         sys.exit(mesh_child(sys.argv[2]))
-    if sys.argv[1:2] == ["--main-path"]:
-        sys.exit(main_path_only())
     sys.exit(main())

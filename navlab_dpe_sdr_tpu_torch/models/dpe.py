@@ -229,12 +229,12 @@ class _RawPrefetcher:
 
         def stage(k, blocks):
             if not cuda:
-                return torch.from_numpy(np.ascontiguousarray(blocks)), None
+                return dpe_real_ops.to_device(blocks, self._device), None
             slot = ring[k % len(ring)]
             if slot is None:
-                t = torch.from_numpy(blocks)
-                slot = (torch.empty((max(sizes),) + tuple(t.shape[1:]),
-                                    dtype=t.dtype, pin_memory=True), None)
+                dtype = torch.from_numpy(blocks[:0].copy()).dtype
+                slot = (torch.empty((max(sizes),) + blocks.shape[1:],
+                                    dtype=dtype, pin_memory=True), None)
             pinned, last = slot
             if last is not None:
                 last.synchronize()       # its upload has left the buffer
@@ -631,9 +631,9 @@ class DPEReceiver:
             los_enu=fp[3:6].T, r0=fp[6], pos_center=fp[7], pos_coef=fp[8],
             vel_center=fp[9], vel_coef=fp[10])
         d = self._dev
-        rawf = raw.float()
         code_mag = carr_mag = None
         if fft:
+            rawf = raw.float()
             (pos_scores, pos_arg, vel_scores, vel_arg,
              flip_used) = dpe_ops.dpe_device_step(
                 torch.complex(rawf[:, 0], rawf[:, 1]), self._code_fft0,
@@ -646,7 +646,7 @@ class DPEReceiver:
         else:
             (pos_scores, pos_arg, vel_scores, vel_arg, flip_used, code_mag,
              carr_mag) = dpe_real_ops.dpe_device_step_real(
-                rawf[:, 0], rawf[:, 1], d.chips, fp[0], ip[0], fp[1], fp[2],
+                raw[:, 0], raw[:, 1], d.chips, fp[0], ip[0], fp[1], fp[2],
                 d.time_idc, ip[1], ip[2], params, d.d_enu, d.dt_m, d.dv_enu,
                 d.dtdot, carr_fftpts=self.carr_fftpts, period=self.period,
                 n_periods=self.S // self.period, l_power=self.cfg.l_power,

@@ -183,8 +183,11 @@ class ScalarReceiver:
             """(n, first sample, device tensor [n, S m, 2], ready event):
             read n windows as int16 and queue their upload."""
             start = rf.sample_pos
-            host = read_windows_raw(rf, n * m).reshape(n, sw, 2)
-            t = torch.from_numpy(np.ascontiguousarray(host))
+            host = np.ascontiguousarray(
+                read_windows_raw(rf, n * m).reshape(n, sw, 2))
+            if not host.flags.writeable:   # a memmap window of a capture file
+                host = host.copy()
+            t = torch.from_numpy(host)
             if self._copy_stream is None:
                 return n, start, t, None
             with torch.cuda.stream(self._copy_stream):

@@ -117,8 +117,10 @@ class VectorReceiver:
     def _read_epoch(self, n: int) -> torch.Tensor:
         """The next n 1 ms windows as [n, S, 2] on the device: int16 in one
         copy where the file holds int16 I/Q."""
-        host = read_windows_raw(self.rawfile, n)
-        return torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
+        host = np.ascontiguousarray(read_windows_raw(self.rawfile, n))
+        if not host.flags.writeable:     # a memmap window of a capture file
+            host = host.copy()
+        return torch.from_numpy(host).to(self.device)
 
     def step(self) -> VTFix:
         n = self.epoch_ms

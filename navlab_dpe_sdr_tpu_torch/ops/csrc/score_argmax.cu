@@ -24,7 +24,7 @@
 // b_k = (win[k+1] - win[k-1]) / 2, c_k = (win[k+1] + win[k-1]) / 2 - win[k]
 // ("quadratic"), or hat weights on floor(idx), floor(idx)+1 inside
 // [0, W-1] ("linear"), or sum_k win[k] sinc(idx - k) over the whole window,
-// no clamp ("sinc": sinpif(x) / (pi x), 1 at x = 0). Out: best[n] = max_g s,
+// no clamp ("sinc": sin(pi x) / (pi x), 1 at x = 0). Out: best[n] = max_g s,
 // arg[n] = the first g at that max; when weighted the sums of s*[o3, o1]
 // (wsum4[n, 4]) and of s (wtot[n]); in surface mode also every s
 // (surface[n, g]). In the block-summed modes S(g) = sum_n s(n, g), added in
@@ -83,8 +83,18 @@
 //   second grid axis the tiles alone must fill the card; four points a
 //   thread still won over two and one at every shape read, down to the 382
 //   tiles of a 390 625-point grid, so kP stays 4 (make_plan).
-// - sinc reads the window as staged for "linear" (W floats a channel) and
-//   loops over all W taps; its l_power is a run-time argument.
+// - sinc: sin(pi (idx - k)) = (-1)^k sin(pi idx), so a point-channel takes
+//   one sinpif(idx) for all W taps, and sum_k win[k] sinc(idx - k) =
+//   sin(pi idx) / pi * sum_k (-1)^k win[k] / (idx - k). The window is staged
+//   with its signs, (-1)^k win[k] (W floats a channel), and two taps share
+//   one approximate reciprocal: a / da + b / db = (a db + b da) / (da db).
+//   An integer idx (sinpif exactly 0) takes win[idx] inside the window and
+//   0 outside. The tap loop runs outside the thread's kP points, so a pair
+//   of taps is read from shared memory once for all of them. The form
+//   differs from torch.sinc's rounding, not its function: scores agree to
+//   rtol 1e-5 (the earlier form, a sinpif and a division per tap and point,
+//   was ~25 instructions a tap; this one is ~4). l_power is a run-time
+//   argument.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -139,25 +149,35 @@ __device__ __forceinline__ float key_value(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
+// A grid point's fractional window index for one channel.
+template <bool kQuad>
+__device__ __forceinline__ float point_index(const float4 pa, const float4 pb, float x,
+                                             float y, float z, float t, float d2) {
+  const float u = pa.x * x + pa.y * y + pa.z * z;
+  const float rng = kQuad ? -u + (d2 - u * u) * pa.w : -u;
+  return pb.x + pb.y * (rng + t);
+}
+
+template <int kLP>
+__device__ __forceinline__ float to_power(float v, int l_power) {
+  if (kLP == 1) return v;
+  if (kLP == 2) return v * v;
+  float vp = v;
+  for (int i = 1; i < l_power; ++i) vp *= v;
+  return vp;
+}
+
 // One channel's interpolated window value at one grid point, to l_power:
-// the f32 operations of ops/score.py score_points, in their order.
+// the f32 operations of ops/score.py score_points, in their order
+// (quadratic and linear).
 template <bool kQuad, int kInterp, int kLP>
 __device__ __forceinline__ float channel_score(const float4 pa, const float4 pb,
                                                const float* __restrict__ taps,
                                                int width, int l_power, float x,
                                                float y, float z, float t, float d2) {
-  const float u = pa.x * x + pa.y * y + pa.z * z;
-  const float rng = kQuad ? -u + (d2 - u * u) * pa.w : -u;
-  const float idx = pb.x + pb.y * (rng + t);
+  const float idx = point_index<kQuad>(pa, pb, x, y, z, t, d2);
   float v;
-  if (kInterp == kSinc) {
-    v = 0.0f;
-    for (int k = 0; k < width; ++k) {
-      const float d = idx - (float)k;
-      const float s = d == 0.0f ? 1.0f : sinpif(d) / (kPi * d);
-      v += taps[k] * s;
-    }
-  } else if (kInterp == kLinear) {
+  if (kInterp == kLinear) {
     const float wmax = (float)(width - 1);
     const float k0 = floorf(idx);
     const float k1 = k0 + 1.0f;
@@ -170,11 +190,54 @@ __device__ __forceinline__ float channel_score(const float4 pa, const float4 pb,
     const float4 q = reinterpret_cast<const float4*>(taps)[(int)k0];
     v = q.x + d * (q.y + d * q.z);
   }
-  if (kLP == 1) return v;
-  if (kLP == 2) return v * v;
-  float vp = v;
-  for (int i = 1; i < l_power; ++i) vp *= v;
-  return vp;
+  return to_power<kLP>(v, l_power);
+}
+
+// One channel's sinc values at a thread's kP grid points, to l_power (taps:
+// (-1)^k win[k], stage_batch): one sinpif a point, then the taps in pairs,
+// each pair read once for all kP points.
+template <bool kQuad, int kP>
+__device__ __forceinline__ void sinc_values(const float4 pa, const float4 pb,
+                                            const float* __restrict__ taps, int width,
+                                            int l_power, const float (&x)[kP],
+                                            const float (&y)[kP], const float (&z)[kP],
+                                            const float (&t)[kP], const float (&d2)[kP],
+                                            float (&v)[kP]) {
+  float idx[kP], acc[kP];
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+    idx[j] = point_index<kQuad>(pa, pb, x[j], y[j], z[j], t[j], d2[j]);
+    acc[j] = 0.0f;
+  }
+  int k = 0;
+  float kf = 0.0f;
+  for (; k + 1 < width; k += 2, kf += 2.0f) {
+    const float ta = taps[k], tb = taps[k + 1];
+#pragma unroll
+    for (int j = 0; j < kP; ++j) {
+      const float da = idx[j] - kf, db = idx[j] - (kf + 1.0f);
+      const float num = __fmaf_rn(ta, db, tb * da);
+      acc[j] = __fmaf_rn(num, __fdividef(1.0f, da * db), acc[j]);
+    }
+  }
+  if (k < width) {
+    const float ta = taps[k];
+#pragma unroll
+    for (int j = 0; j < kP; ++j) acc[j] = __fmaf_rn(ta, __fdividef(1.0f, idx[j] - kf), acc[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kP; ++j) {
+    const float sp = sinpif(idx[j]);
+    float vj = acc[j] * (sp * (1.0f / kPi));
+    if (sp == 0.0f) {                      // an integer idx: its own tap alone
+      vj = 0.0f;
+      if (idx[j] >= 0.0f && idx[j] <= (float)(width - 1)) {
+        const int kk = (int)idx[j];
+        vj = (kk & 1) ? -taps[kk] : taps[kk];
+      }
+    }
+    v[j] = to_power<0>(vj, l_power);
+  }
 }
 
 // Parameters and windows of blocks n0 .. n0+nb-1 into shared memory.
@@ -194,7 +257,10 @@ __device__ __forceinline__ void stage_batch(const Args& a, int n0, int nb,
                                   0.0f, 0.0f);
   }
   const float* w = a.win + (size_t)n0 * C * W;
-  if (kInterp != kQuadratic) {
+  if (kInterp == kSinc) {                    // (-1)^k win[k]
+    for (int i = threadIdx.x; i < nb * C * W; i += kThreads)
+      s_tap[i] = (i % W) & 1 ? -w[i] : w[i];
+  } else if (kInterp == kLinear) {
     for (int i = threadIdx.x; i < nb * C * W; i += kThreads) s_tap[i] = w[i];
   } else {
     // two rounds of loads in flight before the first store
@@ -388,10 +454,17 @@ __global__ void __launch_bounds__(kThreads) score_kernel(const Args a) {
       for (int c = 0; c < C; ++c) {
         const float4 pa = par4[2 * c], pb = par4[2 * c + 1];
         const float* tc = taps + c * tapf;
+        if constexpr (kInterp == kSinc) {
+          float v[kP];
+          sinc_values<kQuad, kP>(pa, pb, tc, W, a.l_power, x, y, z, t, d2, v);
 #pragma unroll
-        for (int j = 0; j < kP; ++j)
-          acc[j] += channel_score<kQuad, kInterp, kLP>(pa, pb, tc, W, a.l_power, x[j],
-                                                       y[j], z[j], t[j], d2[j]);
+          for (int j = 0; j < kP; ++j) acc[j] += v[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < kP; ++j)
+            acc[j] += channel_score<kQuad, kInterp, kLP>(pa, pb, tc, W, a.l_power, x[j],
+                                                         y[j], z[j], t[j], d2[j]);
+        }
       }
 
       if (sums_blocks(kMode)) {              // one f32 add per block, ascending n

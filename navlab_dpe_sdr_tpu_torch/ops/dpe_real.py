@@ -1,291 +1,39 @@
 """Real-arithmetic windowed DPE engine on torch tensors.
 
-Port of navlab_dpe_sdr_tpu/ops/dpe_real.py: the windowed code correlation
-(per-code-period folds, the nav-bit tail fold and its exact boundary arc,
-lag windows) and the windowed carrier DFT, then manifold scoring with a
-streaming argmax (ops/score.py), batched over N blocks in one call, per
-block (`dpe_batch_blocks`) or integrated over the batch
-(`dpe_scan_integrate`), and the multi-epoch joint argmax of the survey
-solve (`score_joint_argmax`).
+Port of navlab_dpe_sdr_tpu/ops/dpe_real.py: the windowed correlator
+(ops/correlate.py, K5 on the card: per-code-period folds, the nav-bit tail
+fold and its exact boundary arc, lag windows, the windowed carrier DFT),
+then manifold scoring with a streaming argmax (ops/score.py), batched over
+N blocks in one call, per block (`dpe_batch_blocks`) or integrated over
+the batch (`dpe_scan_integrate`), and the multi-epoch joint argmax of the
+survey solve (`score_joint_argmax`).
 
-Differences from the JAX module, all in form, not in result:
-- the block axis N is written out instead of the vmap in `_batch_correlate`;
-- replicas are a direct gather from the chip table (the one-hot roll of
-  `_period_replicas` exists only because the TPU lacked gather), with the
-  chip index built from the same float32 tables, so it is bit-identical;
-- the carrier DFT always takes the 256-way mixed split
-  (`_dft_twiddles_mixed`): the branch CPU-JAX runs and the one complex_out
-  always takes (the period split is ROADMAP Queue 1 item 2);
-- integer DFT phases are int64 (same values, no overflow);
-- under a mesh (parallel/mesh.py: `mesh=` on `batch_correlate`,
-  `dpe_device_step_real`, `score_manifolds_mag`, `dpe_batch_blocks`,
-  `dpe_scan_integrate` and `score_joint_argmax`) each rank correlates its
-  share of the blocks (over 'grid') and of the channels (over 'chan'),
-  scores its rows of the grid, and one all-gather per step combines what
-  JAX's shard_map collectives combine (`_score_axis_sharded`,
-  `_constrain_chan`, `_constrain_block_axis`); every rank ends with the
-  whole results.
-
-Float32 matrix products on CUDA run in full float32, as the JAX CPU
-reference does: TF32 (about three decimal digits) is switched off here.
+Differences from the JAX module, all in form, not in result: those of the
+correlator (ops/correlate.py), and under a mesh (parallel/mesh.py: `mesh=`
+on `batch_correlate`, `dpe_device_step_real`, `score_manifolds_mag`,
+`dpe_batch_blocks`, `dpe_scan_integrate` and `score_joint_argmax`) each
+rank correlates its share of the blocks (over 'grid') and of the channels
+(over 'chan'), scores its rows of the grid, and one all-gather per step
+combines what JAX's shard_map collectives combine (`_score_axis_sharded`,
+`_constrain_chan`, `_constrain_block_axis`); every rank ends with the
+whole results.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..constants import L_CA
+# SLIVER_LIMIT is also read from this module by its callers
+from .correlate import (SLIVER_LIMIT, RealBlockOut, RealBlockOutC,
+                        windowed_correlate)
 from .dpe import CARR_WIN, CODE_WIN, ManifoldParams
 from .score import (INTERP_MODES, ceil_rows, even_rows, pick_first,
                     score_argmax, score_surface, score_surface_argmax,
                     streaming_best)
-
-torch.backends.cuda.matmul.allow_tf32 = False
-
-_SLIVER = 128  # samples around the nav-bit boundary handled exactly
-# the boundary-arc flip correction is exact only for window lags
-# |m| <= _SLIVER/2; receivers must keep code_win within this span
-SLIVER_LIMIT = _SLIVER
-_TWO_PI = float(np.float32(2.0 * np.pi))
-
-
-@functools.lru_cache(maxsize=4)
-def _chip_index_consts(period: int):
-    """floor/frac of the nominal per-sample chip index k * L_CA / period,
-    formed in float32 exactly as the JAX `_chip_lookup_consts` forms them.
-    Returns numpy (floor_base [P0] int64, frac_base [P0] float32)."""
-    l_ca = int(L_CA)
-    base0 = (np.arange(period) * float(l_ca) / period).astype(np.float32)
-    floor_base = np.floor(base0).astype(np.int64)
-    frac_base = (base0 - floor_base.astype(np.float32)).astype(np.float32)
-    return floor_base, frac_base
-
-
-def period_replicas(chips, rc_mid, period: int):
-    """One-period +/-1 replicas by a direct gather from the chip table.
-
-    chips [C, 1023] f32; rc_mid [..., C] f32 mid-block code phase ->
-    [..., C, P0] f32. The chip index is floor_base + floor(rc) + carry with
-    carry = [frac_base + frac(rc) >= 1] in float32 (not floor(base0 + rc)
-    in one f32 expression, which disagrees at chip edges)."""
-    floor_np, frac_np = _chip_index_consts(period)
-    dev = chips.device
-    floor_base = torch.from_numpy(floor_np).to(dev)
-    frac_base = torch.from_numpy(frac_np).to(dev)
-    fl = torch.floor(rc_mid)
-    frac_rc = rc_mid - fl
-    carry = (frac_base + frac_rc[..., None]) >= 1.0       # [..., C, P0]
-    chip = torch.remainder(floor_base + fl.long()[..., None] + carry.long(),
-                           int(L_CA))
-    rows = torch.arange(chips.shape[0], device=dev)[:, None]
-    return chips[rows, chip]
-
-
-class RealBlockOut(NamedTuple):
-    code_mag: torch.Tensor    # [N, C, code_win]
-    carr_mag: torch.Tensor    # [N, C, carr_win]
-    flip_used: torch.Tensor   # [N, C] bool
-
-
-class RealBlockOutC(NamedTuple):
-    """Complex (split re/im) window variant — for coherent integration."""
-    code_re: torch.Tensor     # [N, C, code_win]
-    code_im: torch.Tensor
-    carr_re: torch.Tensor     # [N, C, carr_win]
-    carr_im: torch.Tensor
-    flip_used: torch.Tensor   # [N, C] bool
-
-
-def _dft_twiddles_mixed(vel_start, fi, ri, dt_s, f_total: int, s1_n: int,
-                        s0_n: int, carr_win: int, t0):
-    """Two-stage (s0_n-way split) carrier-DFT twiddles with the wipeoff
-    folded in ([N, C, W, s1_n] and [N, C, W, s0_n]); JAX
-    `_dft_twiddles_mixed` with int64 bin phases."""
-    dev = fi.device
-    j = torch.arange(carr_win, device=dev)
-    k = torch.remainder(vel_start[..., None] + j - f_total // 2,
-                        f_total)                           # [N, C, W]
-    scale = float(np.float32(2.0 * np.pi / f_total))
-
-    s1 = torch.arange(s1_n, device=dev)
-    k256 = torch.remainder(k * s0_n, f_total)
-    ph_a = torch.remainder(k256[..., None] * s1, f_total).float()
-    t_a = (s1.float() * float(s0_n)) * dt_s
-    ang_a = ph_a * scale + _TWO_PI * fi[..., None, None] * t_a
-
-    s0 = torch.arange(s0_n, device=dev)
-    ph_b = torch.remainder(k[..., None] * s0, f_total).float()
-    t_b = t0 + s0.float() * dt_s
-    ang_b = ph_b * scale + _TWO_PI * (fi[..., None, None] * t_b
-                                      + ri[..., None, None])
-    return (torch.cos(ang_a), torch.sin(ang_a),
-            torch.cos(ang_b), torch.sin(ang_b))
-
-
-def _shifted_rows(p_repl, start, length: int, n_rows: int):
-    """[..., n_rows, length] rows r = p_repl[(start + n_rows-1-r + j) mod P0]
-    over j: one gathered span + n_rows static shifts (consecutive lags)."""
-    period = p_repl.shape[-1]
-    span = torch.arange(length + n_rows - 1, device=p_repl.device)
-    ext = torch.gather(p_repl, -1,
-                       torch.remainder(start[..., None] + span, period))
-    return ext.unfold(-1, length, 1).flip(-2)
-
-
-def windowed_correlate(raw_re, raw_im, chips, rc_mid, idx_next, fi, ri,
-                       time_idc, pos_start, vel_start, carr_fftpts: int,
-                       period: int, n_periods: int,
-                       code_win: int = CODE_WIN, carr_win: int = CARR_WIN,
-                       complex_out: bool = False):
-    """Windowed code correlation + windowed carrier DFT for N blocks.
-
-    raw_re/raw_im [N, S] f32; chips [C, 1023] f32; rc_mid/fi/ri [N, C] f32;
-    idx_next/pos_start/vel_start [N, C] int (idx_next = S for no flip);
-    time_idc [S] f32, uniform (t0 + s*dt). Returns RealBlockOut, or
-    RealBlockOutC with complex_out. Same algebra as the JAX
-    `windowed_correlate` (ops/dpe_real.py:420): carrier phase A(p) + B(tau)
-    per code period, folds as [4C, P] x [P, P0] products, exact
-    boundary-period and boundary-arc terms, flip decision at lag 0."""
-    n, s = raw_re.shape
-    c = chips.shape[0]
-    dev = raw_re.device
-    idx_next = idx_next.long()
-    pos_start = pos_start.long()
-    vel_start = vel_start.long()
-    p_repl = period_replicas(chips, rc_mid, period)         # [N, C, P0]
-
-    # per-period carrier factorization: ang(s) = A(p) + B(tau)
-    tt = time_idc[: n_periods * period].reshape(n_periods, period)
-    t_p = tt[:, 0] - time_idc[0]                            # [P]
-    t_tau = tt[0]                                           # [P0]
-    ang_a = _TWO_PI * fi[..., None] * t_p                   # [N, C, P]
-    ca_, sa_ = torch.cos(ang_a), torch.sin(ang_a)
-    ang_b = _TWO_PI * (fi[..., None] * t_tau + ri[..., None])
-    cb_, sb_ = torch.cos(ang_b), torch.sin(ang_b)           # [N, C, P0]
-
-    raw_p = raw_re.reshape(n, n_periods, period)
-    raw_ip = raw_im.reshape(n, n_periods, period)
-
-    # tail membership by period: periods after the boundary period p_b
-    # flip whole; p_b itself flips from sample offset r_off
-    p_b = torch.div(idx_next, period, rounding_mode="floor")   # [N, C]
-    r_off = idx_next - p_b * period
-    p_idx = torch.arange(n_periods, device=dev)
-    maskp = (p_idx > p_b[..., None]).float()                # [N, C, P]
-
-    wts = torch.cat([ca_, sa_, ca_ * maskp, sa_ * maskp], dim=1)  # [N,4C,P]
-    fr = torch.bmm(wts, raw_p)                              # [N, 4C, P0]
-    fq = torch.bmm(wts, raw_ip)
-    rs_re = fr[:, 0:c] + fq[:, c:2 * c]
-    rs_im = fq[:, 0:c] - fr[:, c:2 * c]
-    ts_re = fr[:, 2 * c:3 * c] + fq[:, 3 * c:4 * c]
-    ts_im = fq[:, 2 * c:3 * c] - fr[:, 3 * c:4 * c]
-
-    # exact boundary-period tail term: step(tau >= r_off) * raw(p_b, tau)
-    p_bc = p_b.clamp(0, n_periods - 1)
-    valid = ((p_b >= 0) & (p_b < n_periods)).float()
-    bidx = torch.arange(n, device=dev)[:, None]
-    raw_b_re = raw_p[bidx, p_bc]                            # [N, C, P0]
-    raw_b_im = raw_ip[bidx, p_bc]
-    ca_b = torch.gather(ca_, 2, p_bc[..., None])            # [N, C, 1]
-    sa_b = torch.gather(sa_, 2, p_bc[..., None])
-    tau_idx = torch.arange(period, device=dev)
-    gmask = valid[..., None] * (tau_idx >= r_off[..., None]).float()
-    ts_re = ts_re + gmask * (ca_b * raw_b_re + sa_b * raw_b_im)
-    ts_im = ts_im + gmask * (ca_b * raw_b_im - sa_b * raw_b_re)
-
-    # rotate by e^{-iB(tau)}: the folded baseband and its tail part
-    fold_re = rs_re * cb_ + rs_im * sb_
-    fold_im = rs_im * cb_ - rs_re * sb_
-    fold_tail_re = ts_re * cb_ + ts_im * sb_
-    fold_tail_im = ts_im * cb_ - ts_re * sb_
-
-    # window lags m_w = m0 + w; row w is p_repl[(q - m_w) mod P0]
-    m0 = pos_start - s // 2                                 # [N, C]
-    m_signed = m0[..., None] + torch.arange(code_win, device=dev)
-    lag = _shifted_rows(p_repl, m0.neg() - (code_win - 1), period,
-                        code_win)                           # [N, C, W, P0]
-
-    def corr_with(frr, fii):
-        return ((lag @ frr[..., None])[..., 0],
-                (lag @ fii[..., None])[..., 0])
-
-    nf_re, nf_im = corr_with(fold_re, fold_im)              # no-flip window
-    t_re, t_im = corr_with(fold_tail_re, fold_tail_im)      # tail part
-
-    # boundary-arc correction over +/- _SLIVER/2 samples around idx_next
-    sl_start = (idx_next - _SLIVER // 2).clamp(0, s - _SLIVER)   # [N, C]
-    sliver_pos = sl_start[..., None] + torch.arange(_SLIVER, device=dev)
-    raw_sl_re = torch.gather(raw_re, 1, sliver_pos.reshape(n, -1)
-                             ).reshape(n, c, _SLIVER)
-    raw_sl_im = torch.gather(raw_im, 1, sliver_pos.reshape(n, -1)
-                             ).reshape(n, c, _SLIVER)
-    # sample times from the endpoints (t0 + f32(s) * dt), as the JAX form
-    dt_s = (time_idc[s - 1] - time_idc[0]) / float(s - 1)
-    t_sl = time_idc[0] + sliver_pos.float() * dt_s
-    ang_sl = _TWO_PI * (fi[..., None] * t_sl + ri[..., None])
-    wc_sl, ws_sl = torch.cos(ang_sl), torch.sin(ang_sl)
-    sliver_re = raw_sl_re * wc_sl + raw_sl_im * ws_sl
-    sliver_im = raw_sl_im * wc_sl - raw_sl_re * ws_sl
-
-    in_tail_m = (sliver_pos[:, :, None, :]
-                 >= (idx_next[..., None] + m_signed)[..., None])  # [N,C,W,SL]
-    in_tail_0 = sliver_pos >= idx_next[..., None]           # [N, C, SL]
-    delta = in_tail_m.float() - in_tail_0[:, :, None, :].float()
-    sliver_repl_m = _shifted_rows(p_repl, sl_start - m0 - (code_win - 1),
-                                  _SLIVER, code_win)        # [N, C, W, SL]
-    corr_t_re = t_re + (delta * sliver_re[:, :, None, :]
-                        * sliver_repl_m).sum(-1)
-    corr_t_im = t_im + (delta * sliver_im[:, :, None, :]
-                        * sliver_repl_m).sum(-1)
-
-    fl_re = nf_re - 2.0 * corr_t_re                         # flip window
-    fl_im = nf_im - 2.0 * corr_t_im
-
-    # flip decision at lag 0, read off the folds
-    c0nf_re = (p_repl * fold_re).sum(-1)
-    c0nf_im = (p_repl * fold_im).sum(-1)
-    c0t_re = (p_repl * fold_tail_re).sum(-1)
-    c0t_im = (p_repl * fold_tail_im).sum(-1)
-    c0fl_re = c0nf_re - 2.0 * c0t_re
-    c0fl_im = c0nf_im - 2.0 * c0t_im
-    use_flip = (c0fl_re ** 2 + c0fl_im ** 2) > (c0nf_re ** 2 + c0nf_im ** 2)
-
-    w_re = torch.where(use_flip[..., None], fl_re, nf_re)
-    w_im = torch.where(use_flip[..., None], fl_im, nf_im)
-
-    # ---- carrier windowed DFT, 256-way mixed split (wipeoff in twiddles)
-    mean_re = raw_re.mean(dim=1)[:, None, None]
-    mean_im = raw_im.mean(dim=1)[:, None, None]
-    repl = p_repl.repeat(1, 1, n_periods)                   # [N, C, S]
-    cols = torch.arange(s, device=dev)
-    flip_sign = 1.0 - 2.0 * (cols >= idx_next[..., None]).float()
-    repl_chosen = torch.where(use_flip[..., None], repl * flip_sign, repl)
-    yb_re = (raw_re[:, None, :] - mean_re) * repl_chosen    # [N, C, S]
-    yb_im = (raw_im[:, None, :] - mean_im) * repl_chosen
-    s0_n = 256
-    s1_n = -(-s // s0_n)
-    pad = s1_n * s0_n - s
-    yb_re_p = F.pad(yb_re, (0, pad)).reshape(n, c, s1_n, s0_n)
-    yb_im_p = F.pad(yb_im, (0, pad)).reshape(n, c, s1_n, s0_n)
-    a_cos, a_sin, b_cos, b_sin = _dft_twiddles_mixed(
-        vel_start, fi, ri, dt_s, carr_fftpts, s1_n, s0_n, carr_win,
-        t0=time_idc[0])
-    z_re = a_cos @ yb_re_p + a_sin @ yb_im_p                # [N, C, W, s0]
-    z_im = a_cos @ yb_im_p - a_sin @ yb_re_p
-    x_re = (z_re * b_cos + z_im * b_sin).sum(-1)
-    x_im = (z_im * b_cos - z_re * b_sin).sum(-1)
-    if complex_out:
-        return RealBlockOutC(code_re=w_re, code_im=w_im, carr_re=x_re,
-                             carr_im=x_im, flip_used=use_flip)
-    return RealBlockOut(code_mag=torch.sqrt(w_re * w_re + w_im * w_im),
-                        carr_mag=torch.sqrt(x_re * x_re + x_im * x_im),
-                        flip_used=use_flip)
 
 
 def score_manifolds_mag(code_mag, carr_mag, params: ManifoldParams, d_enu,
@@ -352,7 +100,8 @@ def dpe_device_step_real(raw_re, raw_im, chips, rc_mid, idx_next, fi, ri,
     """One block's fused DPE step (the JAX `dpe_device_step_real`):
     `windowed_correlate` at N = 1, then both score surfaces.
 
-    raw_re/raw_im [S] f32; rc_mid/fi/ri [C] f32; idx_next/pos_start/
+    raw_re/raw_im [S] int16 (the I and Q of an [S, 2] block) or f32;
+    rc_mid/fi/ri [C] f32; idx_next/pos_start/
     vel_start [C] int. Returns (pos_scores [G], pos_arg, vel_scores [G],
     vel_arg, flip_used [C], code_mag [C, code_win], carr_mag [C, carr_win]).
 
@@ -399,10 +148,12 @@ def pack_params(fpk, ipk, start: int) -> np.ndarray:
 
 
 def unpack_params(pk):
-    """pk [N, 15, C] f32 tensor -> (fpk [N,11,C] f32, ipk [N,3,C] int64).
-    The start row is read on the host, from the packed numpy array, so
-    slicing the capture never waits on the device."""
-    return pk[:, :FPK_ROWS], pk[:, FPK_ROWS:START_ROW].long()
+    """pk [N, 15, C] f32 tensor -> (fpk [N,11,C], ipk [N,3,C]), two views:
+    the int rows stay float32 (integers held exactly), as K5 reads them,
+    and the plain correlator and the FFT engine cast them themselves. The
+    start row is read on the host, from the packed numpy array, so slicing
+    the capture never waits on the device."""
+    return pk[:, :FPK_ROWS], pk[:, FPK_ROWS:START_ROW]
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -439,8 +190,10 @@ def batch_correlate(raw_all_i16, start: int, fpk, ipk, chips, time_idc,
     if hi > lo:
         raw = raw_all_i16[start + lo:start + hi]             # [n, S, 2]
         fp, ip = fpk[lo:hi, :, cs], ipk[lo:hi, :, cs]
+        # views all: K5 reads the int16 pairs and the parameter rows as
+        # they lie
         part = windowed_correlate(
-            raw[..., 0].float(), raw[..., 1].float(), chips[cs], fp[:, 0],
+            raw[..., 0], raw[..., 1], chips[cs], fp[:, 0],
             ip[:, 0], fp[:, 1], fp[:, 2], time_idc, ip[:, 1], ip[:, 2],
             carr_fftpts, period, n_periods, code_win=code_win,
             carr_win=carr_win, complex_out=complex_out)
@@ -639,11 +392,9 @@ def dpe_batch_blocks(raw_all_i16, pk: np.ndarray, chips, time_idc,
     channels over 'chan'), the coherent sums on every rank, each rank's
     grid rows scored, (max, first index) and weighted sums combined over
     'grid', the flips and windows gathered over 'chan': every rank returns
-    the same rows, those of the single-device call but for the last bits
-    of windows whose blocks a rank correlated apart from the whole batch
-    (on the card cuBLAS picks a product's algorithm by its batch count;
-    the CPU's windows do not change) and, with the channels split, the
-    order of the channel sum."""
+    the same rows, those of the single-device call (the correlator's
+    windows do not depend on which blocks share its call), but for the
+    order of the channel sum when the channels split."""
     if group_k > 1 and n_blocks % group_k:
         raise ValueError(f"n_blocks {n_blocks} % group_k {group_k} != 0")
     start = int(pk[0, START_ROW, 0])

@@ -35,9 +35,11 @@ windows are staged, and leave a point-channel 4 operations and one 16-byte
 read where the weight form has 11 and three.
 
 `interp="sinc"` is sum_k win[k] sinc(idx - k) over the whole window, no
-clamp (the JAX `_interp_weights`). `torch.sinc` and the kernel's `sinpif`
-round differently, so for sinc alone kernel and plain version agree to
-rtol 1e-5 on scores, not to the bit.
+clamp (the JAX `_interp_weights`). The kernel takes one sine per
+point-channel, sin(pi (idx - k)) = (-1)^k sin(pi idx), and two taps over
+one approximate reciprocal; `torch.sinc` takes a sine and a division per
+tap. They round differently, so for sinc alone kernel and plain version
+agree to rtol 1e-5 on scores, not to the bit.
 
 `ceil_rows`, `even_rows` and `pick_first` split rows among a mesh's ranks
 and combine their (max, first index); they live here, so that the ops layer

@@ -1,0 +1,249 @@
+#!/usr/bin/env python3
+"""The port's batched main path (chip_smoke.py phase 5) and the device side
+of one 50-block dispatch of each kind, read by one routine for any tree that
+holds the port:
+
+    python3 profile_dispatch.py [--tree DIR] [--label NAME]
+
+--tree is the directory whose navlab_dpe_sdr_tpu_torch is imported (this
+script's own by default), so two trees are set side by side by running this
+one script on each, alternating (parent, change, change, parent), each in
+a process of its own. On a 12 s capture of the seeded 8-PRN scenario it runs
+DPEReceiver.run_batched as phase 5 does: 100 warm-up blocks, 200 blocks per
+block and 200 in coherent groups of 5 (lookahead 50, pipeline depth 4, the
+capture on the card), with the wall, real-time factor and fix errors of
+each; then one more dispatch of each kind under torch.profiler
+(`dispatch_record`): kernel launches, device-busy ms, its share of the
+profiled wall, the device ms of K1 ("score_kernel") and K5 ("windowed_"),
+and how many times the window was taken. The last line is a JSON object of
+those numbers. Needs a CUDA card; imports nothing of JAX.
+
+chip_smoke.py reads its own device records through `device_profile`,
+`profile_seeing` and `dispatch_record` from here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import copy
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+FS = 2.5e6
+S = 50000
+T = 0.02                  # seconds per block
+N_BLOCKS = 50             # blocks per dispatch (the lookahead)
+K1_K5 = ("score_kernel", "windowed_")     # K1/K2's and K5's kernel names
+# profiler windows taken ("windows"), and how many of them showed none of
+# the kernels sought ("empty"; the window is then taken again)
+TAKES = collections.Counter()
+
+
+def device_profile(fn, lead_in: int = 0):
+    """Run fn() under torch.profiler and synchronize; with lead_in > 0,
+    lead_in calls first, each its own synchronized range, and only the last
+    call counted: the profiler can lose the first device records of a window
+    (a 50-block dispatch's first seven kernels, or all eight, on an H100
+    with torch 2.11), and a lead-in call absorbs them. Returns (kernel
+    launches, device-busy ms: kernels and copies summed, wall ms of the
+    counted call, {kernel name: (ms, launches)}); launches 0 when the
+    profiler showed no device activity in it."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(lead_in + 1):
+            with record_function(f"profiled call {i}"):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+    # device records only: not the calls' own ranges, which the profiler
+    # also draws on the device's timeline
+    events = [e for e in prof.events()
+              if not e.name.startswith("profiled call ")]
+    cuda = torch.autograd.DeviceType.CUDA
+    counted = [e for e in events if e.device_type == cuda]
+    if lead_in:
+        mark = [e.time_range for e in prof.events()
+                if e.name == f"profiled call {lead_in}"
+                and e.device_type != cuda][0]
+        counted = [e for e in counted
+                   if mark.start <= e.time_range.start <= mark.end]
+    launches, busy, by_name = 0, 0.0, {}
+    for e in counted:
+        ms = e.time_range.elapsed_us() / 1e3
+        busy += ms
+        seen = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (seen[0] + ms, seen[1] + 1)
+        if "memcpy" not in e.name.lower() and "memset" not in e.name.lower():
+            launches += 1
+    return launches, busy, wall, by_name
+
+
+def profile_seeing(fn, names):
+    """device_profile(fn) after two lead-in calls, taken again (three times
+    at most) while the counted call shows no kernel whose name holds one of
+    `names`. Returns device_profile's four values and the number of times
+    the window was taken (TAKES counts them all)."""
+    for takes in range(1, 4):
+        res = device_profile(fn, lead_in=2)
+        TAKES["windows"] += 1
+        if all(any(n in k for k in res[3]) for n in names):
+            break
+        TAKES["empty"] += 1
+    return res + (takes,)
+
+
+def dispatch_record(fn, kernels=K1_K5) -> dict:
+    """The device side of one fn() (profile_seeing): kernel launches,
+    device-busy ms, the profiled wall and the busy share of it, each
+    kernel name's ms and launches, and the times the window was taken;
+    launches 0 when the profiler showed no device activity."""
+    launches, busy, wall, by_name, takes = profile_seeing(fn, kernels)
+    own = {k: [sum(v[0] for n, v in by_name.items() if k in n),
+               sum(v[1] for n, v in by_name.items() if k in n)]
+           for k in kernels}
+    return dict(launches=launches, busy_ms=busy, wall_ms=wall,
+                share=busy / wall, kernels=own, takes=takes)
+
+
+def record_line(what: str, rec: dict, card: str) -> str:
+    """One log line of a dispatch_record."""
+    if rec["launches"] == 0:
+        return (f"device side of {what}: not measured (the profiler showed "
+                f"no device activity)")
+    return (f"device side of {what} (one run under torch.profiler after two "
+            f"lead-in runs, outside the timed segments; window taken "
+            f"{rec['takes']} time(s)): {rec['launches']} kernel launches, "
+            f"device busy {rec['busy_ms']:.3f} ms of {rec['wall_ms']:.3f} ms "
+            f"of profiled wall (share {rec['share']:.3f}), of which "
+            + ", ".join(f"{k} {ms:.4f} ms in {n} launch(es) "
+                        f"({ms / rec['busy_ms']:.3f} of device busy)"
+                        for k, (ms, n) in rec["kernels"].items())
+            + f" [{card}]")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def main_path(first, hand, arr, grid, dev, card, log=print) -> dict:
+    """Phase 5 on `first` (>= 600 blocks of int16 I/Q): the warm-up, the
+    two timed segments and the device record of one more dispatch of each
+    kind. Returns {"segments": {name: {...}}, "dispatch": {name: {...}},
+    "fixes": [300, 8] of the warm-up and the segments, "counts": the launch
+    counts of the timed segments}."""
+    from navlab_dpe_sdr_tpu_torch.io.rawfile import SampleFile
+    from navlab_dpe_sdr_tpu_torch.models.dpe import DPEConfig, DPEReceiver
+    from navlab_dpe_sdr_tpu_torch.ops import _build
+
+    rx = DPEReceiver(SampleFile(samples=first, fs=FS), copy.deepcopy(hand),
+                     grid=grid, eph=copy.deepcopy(arr),
+                     config=DPEConfig(ekf_mode="alpha", ekf_alpha=0.3),
+                     device=dev)
+    raw_dev = torch.from_numpy(first.view(np.int16).reshape(-1, S, 2)
+                               ).to(dev)
+    run = dict(lookahead=N_BLOCKS, raw_blocks_dev=raw_dev, pipeline=True,
+               pipeline_depth=4)
+    t0 = time.perf_counter()
+    rx.run_batched(50, start_block=0, **run)
+    rx.run_batched(50, start_block=50, group_k=5, **run)
+    torch.cuda.synchronize()
+    log(f"warm-up: 100 blocks in {time.perf_counter() - t0:.2f} s")
+
+    out = dict(segments={}, dispatch={})
+    _build.reset_launch_counts()
+    for name, start, group_k in (("per-block", 100, 1),
+                                 ("grouped K=5", 300, 5)):
+        before = _build.launch_counts()
+        n_fix0 = len(rx.fixes)
+        t0 = time.perf_counter()
+        rx.run_batched(200, start_block=start, group_k=group_k, **run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = _build.launch_counts()
+        k1 = after["score_argmax"] - before["score_argmax"]
+        k5 = (after.get("windowed_correlate", 0)
+              - before.get("windowed_correlate", 0))
+        err = np.array([np.linalg.norm(f.x_ecef[:3] - hand.x_ecef[:3])
+                        for f in rx.fixes[n_fix0:]])
+        seg = dict(fixes=len(err), k1=k1, k5=k5, wall_s=wall,
+                   rtf=200 * T / wall, median_m=float(np.median(err)),
+                   p95_m=float(np.percentile(err, 95)),
+                   finite=bool(np.isfinite(err).all()))
+        out["segments"][name] = seg
+        log(f"main path {name}: 200 blocks, K1 {k1} and K5 {k5} launches "
+            f"({200 // N_BLOCKS} dispatches), {seg['fixes']} fixes, error "
+            f"median {seg['median_m']:.2f} m p95 {seg['p95_m']:.2f} m, wall "
+            f"{wall:.3f} s, {seg['rtf']:.2f}x real time [{card}]")
+    out["counts"] = _build.launch_counts()
+    total = sum(s["wall_s"] for s in out["segments"].values())
+    log(f"main path: 400 blocks in {total:.3f} s, {400 * T / total:.2f}x "
+        f"real time [{card}]")
+    out["fixes"] = np.stack([f.x_ecef for f in rx.fixes])
+    names = tuple(k for k in K1_K5
+                  if k != "windowed_" or out["counts"].get(
+                      "windowed_correlate", 0))
+    for name, start, group_k in (("per-block", 500, 1),
+                                 ("grouped K=5", 550, 5)):
+        rec = dispatch_record(
+            lambda: rx.run_batched(50, start_block=start, group_k=group_k,
+                                   **run), names)
+        out["dispatch"][name] = rec
+        log(record_line(f"one 50-block dispatch, {name}", rec, card))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(pathlib.Path(__file__).parent),
+                    help="directory holding the navlab_dpe_sdr_tpu_torch "
+                         "to measure")
+    ap.add_argument("--label", default="", help="name printed in the JSON")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_dispatch: no CUDA device", file=sys.stderr)
+        return 2
+    tree = pathlib.Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16
+    from navlab_dpe_sdr_tpu_torch.io.scenario import make_scenario
+    from navlab_dpe_sdr_tpu_torch.models.grid import spread_grid
+    import navlab_dpe_sdr_tpu_torch as pkg
+    assert pathlib.Path(pkg.__file__).resolve().is_relative_to(tree), \
+        pkg.__file__
+
+    card = card_line()
+    print(f"{card}; the port of {tree}", flush=True)
+    sim, hand, arr = make_scenario(nav_data=True, cn0_dbhz=47.0)
+    n = 600 * S                                   # 12 s
+    samples = np.empty(n, DTYPE_IQ16)
+    for s0 in range(0, n, int(FS)):
+        iq = sim.generate(min(int(FS), n - s0), start_sample=s0)
+        samples["i"][s0:s0 + len(iq)] = np.clip(np.round(iq.real), -32768,
+                                               32767)
+        samples["q"][s0:s0 + len(iq)] = np.clip(np.round(iq.imag), -32768,
+                                               32767)
+    res = main_path(samples, hand, arr, spread_grid(),
+                    torch.device("cuda"), card,
+                    log=lambda m: print(m, flush=True))
+    print(json.dumps(dict(label=args.label, tree=str(tree), card=card,
+                          segments=res["segments"],
+                          dispatch=res["dispatch"])), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,8 +14,10 @@ from navlab_dpe_sdr_tpu.io.synth import synth_simple
 from navlab_dpe_sdr_tpu.libgnss.cacode import ca_code
 from navlab_dpe_sdr_tpu.ops import dpe as jdpe
 from navlab_dpe_sdr_tpu.ops import dpe_real as jreal
+from navlab_dpe_sdr_tpu_torch.ops import correlate as tcorr
 from navlab_dpe_sdr_tpu_torch.ops import dpe as tdpe
 from navlab_dpe_sdr_tpu_torch.ops import dpe_real as treal
+from navlab_dpe_sdr_tpu_torch.ops import score as tscore
 
 torch.set_num_threads(2)
 
@@ -46,17 +48,19 @@ def test_period_replicas_bit_identical():
                    1022.999], np.float32)
     ref = np.asarray(jreal._period_replicas(jnp.asarray(chips),
                                             jnp.asarray(rc), PERIOD))
-    out = treal.period_replicas(_t(chips), _t(rc), PERIOD).numpy()
+    out = tcorr.period_replicas(_t(chips), _t(rc), PERIOD).numpy()
     np.testing.assert_array_equal(out, ref)
     # a leading block axis gathers the same rows
-    out2 = treal.period_replicas(_t(chips), _t(np.stack([rc, rc[::-1]])),
+    out2 = tcorr.period_replicas(_t(chips), _t(np.stack([rc, rc[::-1]])),
                                  PERIOD).numpy()
     np.testing.assert_array_equal(out2[0], ref)
 
 
-def _windowed_inputs(n_blocks=3):
+def _windowed_inputs(n_blocks=3, code_win=tdpe.CODE_WIN,
+                     carr_win=tdpe.CARR_WIN):
     """test_windowed_matches_direct's inputs (4 PRNs, nav-bit boundary at
-    0 / mid-period / exact period multiple / S), one noise seed per block."""
+    0 / mid-period / exact period multiple / S), one noise seed per block,
+    the windows centred for code_win / carr_win."""
     rcs = [400.25, 250.0, 12.7, 900.9]
     fis = [1500.0, -2200.0, 300.0, -40.0]
     idx_next = np.array([0, 13 * PERIOD + PERIOD // 2, 13 * PERIOD, S],
@@ -78,13 +82,20 @@ def _windowed_inputs(n_blocks=3):
         rc_mid=rc_mid, idx_next=idx_next, fi=np.asarray(fis, np.float32),
         ri=np.full(c, 0.3, np.float32),
         time_idc=(np.arange(S) / FS).astype(np.float32),
-        pos_start=np.full(c, S // 2 - tdpe.CODE_WIN // 2, np.int32),
-        vel_start=np.full(c, FPTS // 2 - tdpe.CARR_WIN // 2, np.int32))
+        pos_start=np.full(c, S // 2 - code_win // 2, np.int32),
+        vel_start=np.full(c, FPTS // 2 - carr_win // 2, np.int32))
 
 
 @pytest.mark.parametrize("complex_out", [False, True])
-def test_windowed_correlate_matches_jax(complex_out):
-    a = _windowed_inputs()
+@pytest.mark.parametrize("code_win,carr_win,n_blocks", [
+    (tdpe.CODE_WIN, tdpe.CARR_WIN, 3),      # the defaults
+    (12, 36, 3),                            # the main path's auto_windows
+    (12, 36, 1)])                           # the per-block step's N
+def test_windowed_correlate_matches_jax(complex_out, code_win, carr_win,
+                                        n_blocks):
+    """The dispatcher on CPU tensors (windowed_correlate_plain) against the
+    JAX windowed_correlate, block by block."""
+    a = _windowed_inputs(n_blocks, code_win, carr_win)
     n = a["raw_re"].shape[0]
     ref = [jreal.windowed_correlate(
         jnp.asarray(a["raw_re"][b]), jnp.asarray(a["raw_im"][b]),
@@ -92,7 +103,8 @@ def test_windowed_correlate_matches_jax(complex_out):
         jnp.asarray(a["idx_next"]), jnp.asarray(a["fi"]),
         jnp.asarray(a["ri"]), jnp.asarray(a["time_idc"]),
         jnp.asarray(a["pos_start"]), jnp.asarray(a["vel_start"]),
-        FPTS, PERIOD, S // PERIOD, complex_out=complex_out)
+        FPTS, PERIOD, S // PERIOD, code_win=code_win, carr_win=carr_win,
+        complex_out=complex_out)
         for b in range(n)]
 
     def per_block(x):
@@ -103,7 +115,7 @@ def test_windowed_correlate_matches_jax(complex_out):
         per_block(a["rc_mid"]), per_block(a["idx_next"]),
         per_block(a["fi"]), per_block(a["ri"]), _t(a["time_idc"]),
         per_block(a["pos_start"]), per_block(a["vel_start"]),
-        FPTS, PERIOD, S // PERIOD, tdpe.CODE_WIN, tdpe.CARR_WIN,
+        FPTS, PERIOD, S // PERIOD, code_win, carr_win,
         complex_out=complex_out)
     assert type(out).__name__ == type(ref[0]).__name__
     # idx_next == 0 is a degenerate tie (flip and no-flip windows are
@@ -129,6 +141,42 @@ def test_windowed_correlate_matches_jax(complex_out):
         code_r = np.stack([np.asarray(r.code_mag) for r in ref])
     np.testing.assert_array_equal(np.argmax(code_o, -1),
                                   np.argmax(code_r, -1))
+
+
+@pytest.mark.parametrize("complex_out", [False, True])
+def test_plain_correlator_is_batch_invariant(complex_out):
+    """On the CPU a block's windows and flip are the same bits whether it
+    is correlated alone, in a share of the batch or in the whole batch, and
+    a channel's over a subset of the channels (a mesh rank's block and
+    channel shares). The samples are int16 I/Q views, as a dispatch passes
+    them."""
+    a = _windowed_inputs(n_blocks=6, code_win=12, carr_win=36)
+    raw = np.stack([a["raw_re"], a["raw_im"]], -1)
+    raw = _t(np.clip(np.round(raw), -32768, 32767).astype(np.int16))
+    n, c = raw.shape[0], len(PRNS)
+    per = {k: _t(np.tile(a[k], (n, 1))) for k in (
+        "rc_mid", "idx_next", "fi", "ri", "pos_start", "vel_start")}
+    # a code phase of its own for each block
+    per["rc_mid"] += _t(np.linspace(0.0, 3.0, n, dtype=np.float32))[:, None]
+
+    def corr(lo, hi, cs=slice(None)):
+        p = {k: v[lo:hi, cs] for k, v in per.items()}
+        return treal.windowed_correlate(
+            raw[lo:hi, :, 0], raw[lo:hi, :, 1], _t(a["chips"])[cs],
+            p["rc_mid"], p["idx_next"], p["fi"], p["ri"], _t(a["time_idc"]),
+            p["pos_start"], p["vel_start"], FPTS, PERIOD, S // PERIOD, 12, 36,
+            complex_out=complex_out)
+
+    whole = corr(0, n)
+    for parts in (2, 3, 6):
+        shares = [corr(lo, hi) for lo, hi in tscore.even_rows(n, parts)]
+        for name, f in zip(whole._fields, zip(*shares)):
+            assert torch.equal(torch.cat(f), getattr(whole, name)), (parts,
+                                                                      name)
+    sub = corr(0, n, slice(1, 3))
+    for name in whole._fields:
+        assert torch.equal(getattr(sub, name), getattr(whole, name)[:, 1:3]), \
+            name
 
 
 @pytest.mark.parametrize("group_k", [2, 5])

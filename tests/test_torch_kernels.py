@@ -1,13 +1,17 @@
-"""The cold-start slice's CUDA kernels against their plain PyTorch versions
-on the card: K3 (correlate_window, and its windows mode), K4 (track_chunk:
-1 ms, coherent windows of m code periods, the batch_k schedule), K2
-(score_surface), and the receivers that run them. Marked `cuda`; they skip
-without a card.
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card: K3 (correlate_window, and its windows mode), K4 (track_chunk: 1 ms,
+coherent windows of m code periods, the batch_k schedule), K2
+(score_surface), K5 (the windowed correlator), K1's sinc interpolation, and
+the receivers that run them. Marked `cuda`; they skip without a card.
 
-The kernels do the plain versions' f32 operations in the same order (sums
+K2, K3 and K4 do the plain versions' f32 operations in the same order (sums
 included: the plain sums follow the kernel's threads per channel,
 ops/track.KERNEL_THREADS, and WINDOW_LANES for the coherent/batched kernel;
--fmad=false), so every comparison is equality, bit for bit. This file
+-fmad=false), so those comparisons are equality, bit for bit. K5 sums in
+its own fixed order (windows within 1e-5 of each channel's window maximum,
+flips and code argmaxes equal; across batch splits and channel subsets,
+bit for bit), and K1's sinc takes one sine a point-channel (rtol 1e-5
+against torch.sinc). This file
 imports nothing of JAX or of the JAX package, so it runs on a machine with
 the card alone:
 
@@ -24,12 +28,15 @@ from navlab_dpe_sdr_tpu_torch.constants import F_CA, F_L1
 from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16, SampleFile
 from navlab_dpe_sdr_tpu_torch.io.scenario import make_scenario
 from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_table
-from navlab_dpe_sdr_tpu_torch.models.grid import spread_grid, uniform_grid
+from navlab_dpe_sdr_tpu_torch.models.grid import (_mesh4, spread_grid,
+                                                  uniform_grid)
 from navlab_dpe_sdr_tpu_torch.models import dpe as tdpe
 from navlab_dpe_sdr_tpu_torch.models import scalar as tscalar
 from navlab_dpe_sdr_tpu_torch.models import vector as tvector
 from navlab_dpe_sdr_tpu_torch.ops import acquisition as tacq
 from navlab_dpe_sdr_tpu_torch.ops import _build, score, track, tracking
+from navlab_dpe_sdr_tpu_torch.ops import correlate
+from navlab_dpe_sdr_tpu_torch.ops import dpe_real
 
 FS = 2.5e6
 S = 2500
@@ -375,3 +382,250 @@ def test_per_block_step_on_card_matches_cpu(capture, dev):
         runs.append(rx)
     for a, b in zip(*(r.fixes for r in runs)):
         np.testing.assert_allclose(b.x_ecef, a.x_ecef, rtol=0, atol=1e-6)
+
+
+# -- K5: the windowed correlator ---------------------------------------------
+
+K5_BLOCKS = 50
+# channels 0-3 carry a nav-bit boundary at 0 (a degenerate tie: the flip and
+# no-flip windows are sign-equal up to the arc), mid-period, an exact
+# period multiple and S (none); the others keep the receiver's
+K5_BOUNDARIES = (0, 13 * 2500 + 1250, 13 * 2500, 50000)
+
+
+@pytest.fixture(scope="module")
+def k5_inputs():
+    """50 blocks of the 8-PRN scenario as int16 [N, S, 2] and the packed
+    parameters the batched receiver prepares for them (numpy)."""
+    s = 50000
+    sim, hand, arr = make_scenario(nav_data=True, cn0_dbhz=47.0)
+    iq = sim.generate(K5_BLOCKS * s)
+    samples = np.empty(K5_BLOCKS * s, DTYPE_IQ16)
+    samples["i"] = np.clip(np.round(iq.real), -32768, 32767)
+    samples["q"] = np.clip(np.round(iq.imag), -32768, 32767)
+    rx = tdpe.DPEReceiver(SampleFile(samples=samples, fs=FS),
+                          copy.deepcopy(hand), grid=spread_grid(),
+                          eph=copy.deepcopy(arr), device="cpu")
+    preps = rx._prepare_batch(K5_BLOCKS)
+    ipk = np.stack([p[1] for p in preps])
+    ipk[:, 0, :len(K5_BOUNDARIES)] = K5_BOUNDARIES
+    pk = dpe_real.pack_params(np.stack([p[0] for p in preps]), ipk, 0)
+    kw = dict(carr_fftpts=rx.carr_fftpts, period=rx.period,
+              n_periods=s // rx.period, code_win=rx.code_win,
+              carr_win=rx.carr_win)
+    return samples.view(np.int16).reshape(K5_BLOCKS, s, 2), pk, \
+        rx._dev.chips.numpy(), kw
+
+
+def _k5_args(k5_inputs, dev, dtype="int16", fs=FS):
+    """args(lo, hi, channels) -> the correlator's arguments for blocks
+    lo..hi-1, as batch_correlate passes them (views all). float32: the
+    samples as float32 [N, S, 2] times 0.3 (the per-block step uploads a
+    complex or arg_pi4 block as float32 pairs; the scale makes the sums
+    inexact)."""
+    raw_np, pk, chips_np, kw = k5_inputs
+    raw = torch.from_numpy(raw_np).to(dev)
+    if dtype == "float32":
+        raw = raw.float() * 0.3
+    fpk, ipk = dpe_real.unpack_params(dpe_real.to_device(pk, dev))
+    chips = torch.from_numpy(chips_np).to(dev)
+    time_idc = torch.from_numpy(
+        (np.arange(raw.shape[1]) / fs).astype(np.float32)).to(dev)
+
+    def args(lo, hi, cs=slice(None)):
+        r, f, i = raw[lo:hi], fpk[lo:hi, :, cs], ipk[lo:hi, :, cs]
+        return (r[..., 0], r[..., 1], chips[cs], f[:, 0], i[:, 0], f[:, 1],
+                f[:, 2], time_idc, i[:, 1], i[:, 2])
+
+    return args, kw
+
+
+def _hold_k5_to_plain(got, want, keep):
+    """Windows within 1e-5 of each channel's window maximum, flips and
+    code-window argmaxes equal, over the channels `keep` selects."""
+    for name in got._fields[:-1]:
+        g, w = getattr(got, name)[:, keep], getattr(want, name)[:, keep]
+        rel = ((g - w).abs() / w.abs().amax(-1, keepdim=True)).max().item()
+        assert rel < 1e-5, (name, rel)
+    assert torch.equal(got.flip_used[:, keep], want.flip_used[:, keep])
+    if isinstance(got, correlate.RealBlockOutC):
+        mags = [torch.hypot(o.code_re, o.code_im) for o in (got, want)]
+    else:
+        mags = [o.code_mag for o in (got, want)]
+    assert torch.equal(mags[0].argmax(-1)[:, keep],
+                       mags[1].argmax(-1)[:, keep])
+
+
+def _hold_k5_across_splits(args, kw, n, complex_out, parts, channels):
+    """The n blocks correlated whole, as each of `parts` grid ranks would
+    share them, and over the channel slice `channels`: equal to the bit."""
+    whole = correlate.windowed_correlate(*args(0, n), **kw,
+                                         complex_out=complex_out)
+    for k in parts:
+        shares = [correlate.windowed_correlate(*args(lo, hi), **kw,
+                                               complex_out=complex_out)
+                  for lo, hi in score.even_rows(n, k)]
+        for name, f in zip(whole._fields, zip(*shares)):
+            assert torch.equal(torch.cat(f), getattr(whole, name)), (k, name)
+    sub = correlate.windowed_correlate(*args(0, n, channels), **kw,
+                                       complex_out=complex_out)
+    for name in whole._fields:
+        assert torch.equal(getattr(sub, name),
+                           getattr(whole, name)[:, channels]), name
+
+
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+@pytest.mark.parametrize("complex_out", [False, True])
+@pytest.mark.parametrize("n", [K5_BLOCKS, 8, 1])
+def test_windowed_correlate_kernel_matches_plain(k5_inputs, n, complex_out,
+                                                 dtype, dev):
+    """K5 against windowed_correlate_plain on the same card tensors at the
+    main path's shapes (N = 50, the integrated fix's 8, the per-block
+    step's 1), from int16 pairs and from float32 samples (the kernel's
+    other instance, whose block mean is a float sum): windows within 1e-5
+    of each channel's window maximum, flips and code-window argmaxes equal,
+    but on the degenerate idx_next = 0 channel."""
+    args, kw = _k5_args(k5_inputs, dev, dtype)
+    before = _build.launch_counts()["windowed_correlate"]
+    got = correlate.windowed_correlate(*args(0, n), **kw,
+                                       complex_out=complex_out)
+    assert _build.launch_counts()["windowed_correlate"] == before + 1
+    want = correlate.windowed_correlate_plain(*args(0, n), **kw,
+                                              complex_out=complex_out)
+    _hold_k5_to_plain(got, want, slice(1, None))
+    assert bool(got.flip_used[:, 3].eq(False).all())        # idx_next = S
+
+
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+@pytest.mark.parametrize("complex_out", [False, True])
+def test_windowed_correlate_kernel_is_batch_invariant(k5_inputs, complex_out,
+                                                      dtype, dev):
+    """A block's K5 windows and flip are the same bits whether it is
+    correlated in the whole 50, in a grid rank's share (25 + 25,
+    17 + 17 + 16, 13 + 13 + 12 + 12), alone, or over 4 of the 8
+    channels; from int16 pairs and from float32 samples."""
+    args, kw = _k5_args(k5_inputs, dev, dtype)
+    _hold_k5_across_splits(args, kw, K5_BLOCKS, complex_out,
+                           (2, 3, 4, K5_BLOCKS), slice(2, 6))
+
+
+def _k5_at_period(period, n, c, seed=17):
+    """Seeded inputs of n blocks of 20 periods at a front end of period
+    kHz: each channel's chips at its code phase on its carrier, under
+    noise, as int16 pairs, with the parameters packed as pack_params packs
+    them (nav-bit boundaries at random samples past the first eighth of
+    the block: one near its start is a near tie of the flip decision)."""
+    rng = np.random.default_rng(seed)
+    fs, p = period * 1e3, 20
+    s = p * period
+    carr_fftpts = 8 * (1 << s.bit_length())
+    code_win, carr_win = 12, 36
+    chips = rng.choice([-1.0, 1.0], (c, 1023)).astype(np.float32)
+    rc = rng.uniform(0.0, 1023.0, (n, c))
+    fi = rng.uniform(-3000.0, 3000.0, (n, c))
+    ri = rng.uniform(0.0, 1.0, (n, c))
+    t = np.arange(s) / fs
+    tau = np.arange(s) % period
+    iq = rng.normal(0.0, 20.0, (n, s)) + 1j * rng.normal(0.0, 20.0, (n, s))
+    for k in range(n):
+        for ch in range(c):
+            code = chips[ch, np.floor(tau * 1023.0 / period
+                                      + rc[k, ch]).astype(int) % 1023]
+            iq[k] += 6.0 * code * np.exp(2j * np.pi * (fi[k, ch] * t
+                                                       + ri[k, ch]))
+    raw = np.stack([iq.real, iq.imag], axis=-1).round().astype(np.int16)
+    fpk = np.zeros((n, dpe_real.FPK_ROWS, c))
+    fpk[:, 0], fpk[:, 1], fpk[:, 2] = rc, fi, ri
+    ipk = np.stack([rng.integers(s // 8, s + 1, (n, c)),
+                    s // 2 - code_win // 2 + rng.integers(-4, 5, (n, c)),
+                    carr_fftpts // 2 - carr_win // 2
+                    + rng.integers(-12, 13, (n, c))], axis=1)
+    kw = dict(carr_fftpts=carr_fftpts, period=period, n_periods=p,
+              code_win=code_win, carr_win=carr_win)
+    return raw, dpe_real.pack_params(fpk, ipk, 0), chips, kw
+
+
+@pytest.mark.parametrize("complex_out", [False, True])
+@pytest.mark.parametrize("period", [1023, 16368])
+def test_windowed_correlate_kernel_takes_odd_and_long_periods(
+        period, complex_out, dev):
+    """K5 at an odd period (a 1.023 MHz front end: the block's integer
+    mean sum stays aligned) and a long one (16.368 MHz: the folds leave
+    shared memory for a scratch in device memory) against its plain
+    version, and across block splits and a channel subset, bit for bit."""
+    inputs = _k5_at_period(period, 4, 4)
+    for dtype in ("int16", "float32"):
+        args, kw = _k5_args(inputs, dev, dtype, fs=period * 1e3)
+        got = correlate.windowed_correlate(*args(0, 4), **kw,
+                                           complex_out=complex_out)
+        want = correlate.windowed_correlate_plain(*args(0, 4), **kw,
+                                                  complex_out=complex_out)
+        _hold_k5_to_plain(got, want, slice(None))
+        _hold_k5_across_splits(args, kw, 4, complex_out, (2, 4),
+                               slice(1, 3))
+
+
+def test_windowed_correlate_kernel_refuses_a_period_beyond_its_memory(dev):
+    """A period whose thread block would need more shared memory than the
+    card gives one (25 000 samples: a 25 MHz front end) raises before any
+    launch."""
+    period, p, c = 25000, 20, 1
+    s = p * period
+    raw = torch.zeros((1, s, 2), dtype=torch.int16, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    par = torch.zeros((1, c), **f32)
+    before = _build.launch_counts()["windowed_correlate"]
+    with pytest.raises(ValueError, match="shared memory"):
+        correlate.windowed_correlate(
+            raw[..., 0], raw[..., 1], torch.ones((c, 1023), **f32), par,
+            par + s, par, par, torch.zeros(s, **f32), par + s // 2, par,
+            carr_fftpts=8 * (1 << s.bit_length()), period=period,
+            n_periods=p, code_win=12, carr_win=36)
+    assert _build.launch_counts()["windowed_correlate"] == before
+
+
+def _sinc_inputs(rng, manifold, n, width, off3, off1, dev):
+    win = np.abs(rng.standard_normal((n, 8, width))).astype(np.float32) + 0.1
+    win[:, :, width // 2 - 1:width // 2 + 2] += [4.0, 10.0, 4.0]
+    los = rng.standard_normal((n, 8, 3))
+    los /= np.linalg.norm(los, axis=2, keepdims=True)
+    cen = width / 2.0 + rng.standard_normal((n, 8)) * 0.4
+    if manifold == "pos":
+        coefs, r0 = np.full((n, 8), FS / 2.99792458e8), np.full((n, 8), 2.2e7)
+    else:
+        coefs, r0 = np.full((n, 8), -1.1), None
+    return [None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+        for a in (win, los, cen, coefs, r0, off3, off1)]
+
+
+@pytest.mark.parametrize("manifold,width,spacing", [("pos", 12, 0.25),
+                                                     ("vel", 36, 0.02)])
+def test_sinc_kernel_holds_to_torch_sinc(manifold, width, spacing, dev):
+    """K1's one-sine sinc form against torch.sinc at the survey's zoom
+    shape (33^4 points, 25 epochs, block-summed): best within rtol 1e-5,
+    argmax equal or a tie within 1e-6; and on a grid where every index is
+    an integer (integer centres, zero coefficients), per block and summed,
+    within rtol 1e-5."""
+    rng = np.random.default_rng(11)
+    ax = np.arange(33) - 16.0
+    args = _sinc_inputs(rng, manifold, 25, width, *_mesh4(ax * spacing,
+                                                          ax * spacing), dev)
+    kw = dict(interp="sinc", block_sum=True)
+    got = score.score_argmax(*args, **kw)
+    want = score.score_argmax_plain(*args, **kw)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
+    if int(got[1]) != int(want[1]):
+        idx = [int(got[1]), int(want[1])]
+        at = score.score_points(*args[:5], args[5][idx], args[6][idx],
+                                "sinc", 1).sum(dim=0)
+        assert abs(float(at[0] - at[1])) <= 1e-6 * abs(float(at[1])), at
+    args[2] = torch.round(args[2])
+    args[3] = torch.zeros_like(args[3])
+    torch.testing.assert_close(score.score_argmax(*args, **kw)[0],
+                               score.score_argmax_plain(*args, **kw)[0],
+                               rtol=1e-5, atol=0.0)
+    one = [None if a is None else a[:1] for a in args[:5]] + args[5:]
+    torch.testing.assert_close(
+        score.score_surface(*one, interp="sinc"),
+        score.score_surface_plain(*one, interp="sinc"), rtol=1e-5, atol=0.0)

@@ -11,7 +11,7 @@ Tolerances: without a channel split every rank's fixes equal the
 single-device port's to the bit on the CPU (the grid slices score each
 point with the same arithmetic, the combine keeps the first occurrence,
 and the CPU correlates a rank's share of the blocks to the same bits as
-the whole batch; on the card cuBLAS may not, see chip_smoke.py phase 25);
+the whole batch, as K5 does on the card: chip_smoke.py phase 25);
 against the JAX mesh, fixes atol 1e-6 as in
 the JAX tests. A channel split changes the order of the channel sum:
 fixes atol 1e-6, weighted atol 1e-3, step argmaxes equal or a tie within

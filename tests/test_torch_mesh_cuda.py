@@ -2,11 +2,11 @@
 two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one device), each
 held to the single-device run on the card (no channel split): fixes and
 flips to the bit. At world size 1 nothing is split; on two ranks each
-correlates 3 or 2 of a dispatch's 5 blocks, whose windows may differ from
-the whole batch's in the last bits (chip_smoke.py phase 25 counts them),
-and no argmax of these 10 blocks lands on a tie, so the fixes stay equal.
-Marked `cuda`; they skip without a card. This file imports nothing of JAX
-or of the JAX package, so it runs on a machine with the card alone:
+correlates 3 or 2 of a dispatch's 5 blocks, and K5's windows do not
+depend on which blocks share its launch, so they are the whole batch's
+bits (chip_smoke.py phase 25 holds that at full width). Marked `cuda`;
+they skip without a card. This file imports nothing of JAX or of the JAX
+package, so it runs on a machine with the card alone:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_mesh_cuda.py
 """

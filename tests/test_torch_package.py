@@ -42,11 +42,12 @@ def test_port_modules_listed():
 
 
 def test_importing_the_port_leaves_jax_out():
-    """Every module of the port, and chip_smoke (its main() runs only under
-    __main__), in a fresh interpreter: neither jax nor the JAX package may
-    come along."""
+    """Every module of the port, chip_smoke and profile_dispatch (their
+    main() runs only under __main__), in a fresh interpreter: neither jax
+    nor the JAX package may come along."""
     code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES + ['chip_smoke']!r}:\n"
+            f"for m in {PORT_MODULES + ['chip_smoke', 'profile_dispatch']!r}"
+            ":\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k.startswith('jax') or "
             "k == 'navlab_dpe_sdr_tpu' or "
@@ -58,12 +59,13 @@ def test_importing_the_port_leaves_jax_out():
 
 
 def test_port_sources_name_no_module_of_the_jax_package():
-    """No import statement of the port or of chip_smoke.py names
-    navlab_dpe_sdr_tpu (only navlab_dpe_sdr_tpu_torch), or jax."""
+    """No import statement of the port, of chip_smoke.py or of
+    profile_dispatch.py names navlab_dpe_sdr_tpu (only
+    navlab_dpe_sdr_tpu_torch), or jax."""
     pat = re.compile(r"^\s*(from|import)\s+(navlab_dpe_sdr_tpu|jax|jaxlib)"
                      r"(\.|\s|$)", re.M)
     files = sorted(pathlib.Path(port.__path__[0]).rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "profile_dispatch.py"]
     assert len(files) > 25
     names = {str(f.relative_to(REPO)) for f in files}
     for f in ("cli.py", "console.py", "__main__.py"):
@@ -162,7 +164,7 @@ def test_build_dir_falls_back_to_the_user_cache(monkeypatch, tmp_path):
                     'touch "$2"\n')
     fake.chmod(0o755)
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
-    for name in ("score_argmax", "track_chunk"):
+    for name in ("score_argmax", "track_chunk", "windowed_correlate"):
         lib = _build.build(name)
         assert lib.parent == want and lib.is_file(), lib
         assert lib.name.startswith(f"lib{name}_")
@@ -180,4 +182,4 @@ def test_build_dir_falls_back_to_the_user_cache(monkeypatch, tmp_path):
     want = {p.resolve() for p in (*_build.CSRC.glob("*.cu"),
                                   *native.glob("*.cpp"))}
     assert shipped == want
-    assert len(shipped) == 4
+    assert len(shipped) == 5

@@ -11,6 +11,7 @@ installed:
 import copy
 import threading
 import time
+import warnings
 
 import numpy as np
 import pytest
@@ -164,6 +165,34 @@ def test_file_mode_reader_error_leaves_no_thread(scenario):
     assert len(rx.fixes) == 8
     assert _wait_for(lambda: not [t for t in threading.enumerate()
                                   if t.name == "raw-prefetch"])
+
+
+def test_file_mode_reads_a_capture_file_without_warnings(scenario, tmp_path,
+                                                         monkeypatch):
+    """Batches staged from a capture file (a read-only memmap) are copied
+    before torch takes them (torch warns on a non-writable array, once a
+    process, so the test watches torch.from_numpy itself); the fixes are
+    those of the samples in memory."""
+    samples, hand, arr, grid = scenario
+    path = tmp_path / "cap.dat"
+    samples[:50000 * 8].tofile(path)
+    rxs = [_receiver(scenario, "cpu"),
+           DPEReceiver(SampleFile(str(path), fs=FS), copy.deepcopy(hand),
+                       grid=grid, config=DPEConfig(ekf_mode="alpha"),
+                       eph=copy.deepcopy(arr), device="cpu")]
+    from_numpy = torch.from_numpy
+
+    def writable_only(a):
+        assert a.flags.writeable, "a read-only batch reached torch"
+        return from_numpy(a)
+
+    monkeypatch.setattr(torch, "from_numpy", writable_only)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for rx in rxs:
+            rx.run_batched(8, lookahead=4)
+    for fa, fb in zip(*(rx.fixes for rx in rxs)):
+        np.testing.assert_array_equal(fa.x_ecef, fb.x_ecef)
 
 
 @pytest.mark.cuda

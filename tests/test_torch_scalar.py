@@ -13,6 +13,7 @@ its own handoff, takes the same argmaxes.
 """
 
 import copy
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -175,6 +176,36 @@ def test_short_chain_into_dpe_matches_jax(capture):
         assert np.linalg.norm(ft.x_ecef[:3] - hand.x_ecef[:3]) < 15.0
     for a, b in zip(dj.flip_log, dt.flip_log):
         np.testing.assert_array_equal(b, np.asarray(a))
+
+
+def test_track_reads_a_capture_file_without_warnings(capture, tmp_path,
+                                                     monkeypatch):
+    """Tracking from a capture file (a read-only memmap) copies each window
+    before torch takes it (torch warns on a non-writable array, once a
+    process, so the test watches torch.from_numpy itself), and logs what
+    tracking from the samples in memory logs."""
+    samples, hand, _ = capture
+    path = tmp_path / "cap.dat"
+    samples[:int(0.1 * FS)].tofile(path)
+    rxs = [_receiver(tscalar, samples, hand, seeded=True)]
+    rxs.append(tscalar.ScalarReceiver(SampleFile(str(path), fs=FS),
+                                      hand.prn_list, device="cpu"))
+    rxs[1].state = rxs[0].state
+    from_numpy = torch.from_numpy
+
+    def writable_only(a):
+        assert a.flags.writeable, "a read-only window reached torch"
+        return from_numpy(a)
+
+    monkeypatch.setattr(torch, "from_numpy", writable_only)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for rx in rxs:
+            rx.track(6, chunk_ms=2)
+    for prn in hand.prn_list:
+        for k in ("cp", "rc", "fi", "iP", "qP"):
+            np.testing.assert_array_equal(rxs[1].channels[prn].col(k),
+                                          rxs[0].channels[prn].col(k))
 
 
 def test_unported_scalar_modes_raise(capture):
