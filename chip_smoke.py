@@ -215,8 +215,9 @@ from navlab_dpe_sdr_tpu_torch.ops import tracking
 from navlab_dpe_sdr_tpu_torch.ops import dpe as dpe_ops
 from navlab_dpe_sdr_tpu_torch.ops import dpe_real
 from navlab_dpe_sdr_tpu_torch.ops.acquisition import deep_dopplers
-from profile_dispatch import (K1_K5, TAKES, card_line, device_profile,
-                              dispatch_record, profile_seeing, record_line)
+from profile_dispatch import (K1_K5, TAKES, card_line, clock_parts, cuda_ms,
+                              dispatch_record, k5_clock_split, k5_inputs,
+                              kernel_device_ms, record_line)
 from profile_dispatch import main_path as dispatch_main_path
 
 SEED = 20261016
@@ -303,42 +304,6 @@ def bound(ops: float, nbytes: float) -> dict:
 def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call, CUDA events around `reps` calls after
-    one warm call."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def kernel_device_ms(fn, reps: int, name: str, per_call: int = 1):
-    """The device's own ms per launch of the kernels whose name holds
-    `name` (per call of fn when each call launches `per_call` of them),
-    from torch.profiler over `reps` calls of fn (per launch the profiler
-    recorded: it can drop one, and now and then a whole window, which is
-    taken again, three times at most); None when it showed none."""
-    fn()
-
-    def loop():
-        for _ in range(reps):
-            fn()
-
-    for _ in range(3):
-        found = [v for k, v in device_profile(loop)[3].items() if name in k]
-        count = sum(n for _, n in found)
-        TAKES["windows"] += 1
-        if count:
-            return sum(ms for ms, _ in found) / count * per_call
-        TAKES["empty"] += 1
-    return None
 
 
 def device_record(what: str, fn, kernels, card: str) -> None:
@@ -570,30 +535,17 @@ def check_k5(first, hand, arr, grid, dev, card):
     whose nav-bit boundary is sample 0, a degenerate tie); the 50 blocks
     correlated as 2, 3, 4 and 50 grid ranks share them, and over 4 of the 8
     channels, bit for bit, from either (and how many elements the plain
-    version's 25/25 split changes). Times
-    at each N: CUDA events around the wrapper, the kernels' own from
-    torch.profiler (code and carrier kernel apart at N = 50), the plain
-    version; the bound at N = 50. Returns the kernels line's K5 entry."""
-    rx = receiver(first, hand, arr, grid, "cpu")
-    preps = rx._prepare_batch(N_BLOCKS)
-    pk = dpe_real.pack_params(np.stack([p[0] for p in preps]),
-                              np.stack([p[1] for p in preps]), 0)
-    d = device_state(grid, rx._dev.chips.numpy(), S, FS, dev)
-    cap = torch.from_numpy(first[:S * N_BLOCKS].view(np.int16)
-                           .reshape(N_BLOCKS, S, 2)).to(dev)
-    fpk, ipk = dpe_real.unpack_params(dpe_real.to_device(pk, dev))
-    kw = dict(carr_fftpts=rx.carr_fftpts, period=rx.period,
-              n_periods=S // rx.period, code_win=rx.code_win,
-              carr_win=rx.carr_win)
-    samples = {"int16": cap, "float32": cap.float() * 0.3}
+    version's 25/25 split changes). At each N: CUDA events around the
+    wrapper, the kernel's own time from torch.profiler, the plain version,
+    the bound and the kernel's share of it, and the clock64() split of one
+    more launch (mean thousands of SM clocks a thread block: the code
+    phase, up to the code windows out, and the carrier phase; that
+    launch's windows must equal the unclocked one's). Returns the kernels
+    line's K5 entry (its bound at N = 50)."""
+    args, kw, n_chan = k5_inputs(first, hand, arr, grid, dev)
+    samples = ("int16", "float32")
 
-    def args(lo, hi, cs=slice(None), dtype="int16"):
-        raw = samples[dtype][lo:hi]
-        f, i = fpk[lo:hi, :, cs], ipk[lo:hi, :, cs]
-        return (raw[..., 0], raw[..., 1], d.chips[cs], f[:, 0], i[:, 0],
-                f[:, 1], f[:, 2], d.time_idc, i[:, 1], i[:, 2])
-
-    res = dict(err=0.0)
+    res = dict(err=0.0, cluster=correlate.windowed_cluster())
     for n in (N_BLOCKS, 8, 1):
         worst = dict.fromkeys(samples, 0.0)
         for dtype, cplx in itertools.product(samples, (False, True)):
@@ -627,32 +579,38 @@ def check_k5(first, hand, arr, grid, dev, card):
             return correlate.windowed_correlate_plain(*a, **kw)
 
         k_ms, p_ms = cuda_ms(kernel, 20), cuda_ms(plain, 5)
-        d_ms = kernel_device_ms(kernel, 10, "windowed_", per_call=2)
+        d_ms = kernel_device_ms(kernel, 10, "windowed_")
+        b = k5_bound(a, kernel(), kw)
+        kc = k5_clock_split(correlate, a, kw)
+        code_kc = sum(kc[k] for k in correlate.CLOCK_NAMES[:7])
+        carr_kc = sum(kc[k] for k in correlate.CLOCK_NAMES[7:-1])
         key = "" if n == N_BLOCKS else f"_n{n}"
         res.update({f"ms{key}": k_ms, f"plain_ms{key}": p_ms,
-                    f"device_ms{key}": d_ms})
-        log(f"K5 windowed_correlate N={n} C={len(rx.prn_list)} S={S} "
-            f"windows {rx.code_win}/{rx.carr_win}: magnitude and complex "
+                    f"device_ms{key}": d_ms,
+                    f"kclocks_code{key}": code_kc,
+                    f"kclocks_carrier{key}": carr_kc})
+        if n == N_BLOCKS:
+            res["bound"] = b
+        else:
+            res[f"bound_ms{key}"] = b["bound_ms"]
+        share = ("not measured" if d_ms is None
+                 else f"{100.0 * b['bound_ms'] / d_ms:.2f} %")
+        log(f"K5 windowed_correlate N={n} C={n_chan} S={S} "
+            f"windows {kw['code_win']}/{kw['carr_win']}, one cluster launch of "
+            f"R={res['cluster']} thread blocks a (block, channel): "
+            f"magnitude and complex "
             f"within rel {worst['int16']:.3e} (int16 samples), "
             f"{worst['float32']:.3e} (float32) of each channel's window "
             f"maximum (limit 1e-5), flips equal ({n_flips} of {a[4].numel()} "
             f"flipped; {a[4].numel() - n_keep} degenerate boundary-0 "
             f"channel(s) left out), code argmaxes equal; wrapper "
-            f"{k_ms:.4f} ms, kernels' own {fmt_ms(d_ms)}, plain "
-            f"{p_ms:.4f} ms [{card}]")
-        if n == N_BLOCKS:
-            res["bound"] = k5_bound(a, kernel(), kw)
-            by_name = profile_seeing(kernel, ("windowed_",))[3]
-            split = {k: ms for k, (ms, _) in by_name.items()
-                     if "windowed_" in k}
-            res["device_ms_code"] = sum(v for k, v in split.items()
-                                        if "code" in k) or None
-            res["device_ms_carrier"] = sum(v for k, v in split.items()
-                                           if "carrier" in k) or None
-            log(f"K5 N={n}: code kernel {fmt_ms(res['device_ms_code'])}, "
-                f"carrier kernel {fmt_ms(res['device_ms_carrier'])} (one "
-                f"profiled call); bound {res['bound']['bound_ms']:.4f} ms "
-                f"({res['bound']['bound_by']}) [{card}]")
+            f"{k_ms:.4f} ms, kernel's own {fmt_ms(d_ms)}, plain "
+            f"{p_ms:.4f} ms; bound {b['bound_ms']:.5f} ms ({b['bound_by']}), "
+            f"share of bound {share} [{card}]")
+        log(f"K5 N={n} clock split (thousands of SM clocks a thread block, "
+            f"mean over blocks and ranks): code phase {code_kc:.3f}, "
+            f"carrier phase {carr_kc:.3f}; " + ", ".join(
+                f"{k} {v:.3f}" for k, v in kc.items()) + f" [{card}]")
 
     for dtype, cplx in itertools.product(samples, (False, True)):
         whole = correlate.windowed_correlate(
@@ -798,22 +756,6 @@ def track_bound(steps, s, raw, code_table, lf, li):
     return bound(steps * s * n_chan * OPS_PER_SAMPLE_CHANNEL,
                  tensor_bytes(raw, code_table, lf, li)
                  + 2 * n_chan * (16 + 5 + 40) * 4)
-
-
-def clock_parts(kernel, n_upd: int, n_chan: int, dev, logf):
-    """More launches of kernel(clocks) with the kernel's clock buffer
-    (whose logs must equal logf, the path's, unless logf is None): (clocked
-    ms a launch, the clock in MHz, us per update of each of
-    track.CLOCK_NAMES, mean over channels)."""
-    clocks = torch.zeros((n_chan, track.N_CLOCKS), dtype=torch.int64,
-                         device=dev)
-    _, lfc, _ = kernel(clocks)           # warms this instantiation
-    assert logf is None or torch.equal(lfc, logf), \
-        "the clocked kernel logs differently"
-    clocked_ms = cuda_ms(lambda: kernel(clocks), 3)
-    clk = clocks.cpu().numpy().astype(np.float64).mean(axis=0)
-    us = clk / clk[-1] * clocked_ms * 1e3 / n_upd
-    return clocked_ms, clk[-1] / clocked_ms / 1e3, us
 
 
 def clock_split(kernel, n_upd: int, n_chan: int, dev, logf) -> str:

@@ -37,7 +37,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 # "score_argmax", K2 "score_surface", K3 "correlate_window" (one window) and
 # "correlate_windows" (the windows mode), K4 "track_chunk" (m = 1),
 # "track_chunk_coherent" (m > 1) and "track_chunk_batched" (batch_k > 1),
-# K5 "windowed_correlate" (one call: its code and carrier kernels).
+# K5 "windowed_correlate" (one call: its one cluster launch).
 # Each wrapper adds one right after its kernel launches, and nowhere else;
 # receivers of a fleet launch from threads of their own, so the count is
 # kept under a lock.

@@ -11,21 +11,24 @@ the carrier window: replica-wiped, mean-removed samples through the 256-way
 mixed DFT split to `carr_win` bins. Out: magnitudes (`RealBlockOut`) or
 split re/im windows (`RealBlockOutC`, for coherent sums) and the flips.
 
-On a CUDA tensor it launches the hand-written Hopper kernels of
+On a CUDA tensor it launches the hand-written Hopper kernel of
 `csrc/windowed_correlate.cu` (`windowed_correlate_cuda`); on a CPU tensor
 it runs `windowed_correlate_plain`, the same algebra in plain PyTorch
 (batched products). There is no fallback between the two. The kernel reads
 an int16 capture slice directly (its I and Q as views of [N, S, 2]) and the
 per-(block, channel) parameters by their strides, the integer ones as the
 float32 rows `pack_params` uploads them in, so a dispatch launches it alone,
-with no conversions or slicing copies before it. It takes periods up to
-~20 000 samples at 20 periods a block (front ends to ~20 MHz; the shared
-memory of a thread block sets the limit) and refuses a larger one.
+with no conversions or slicing copies before it: one launch, a cluster of
+`windowed_cluster()` thread blocks per (channel, block) that runs the code
+and the carrier phases. It takes periods up to 27 508 samples (front ends
+to 27.5 MHz; the shared memory of a thread block sets the limit) and
+power-of-two DFT lengths, and refuses others.
 
-The kernel sums every (block, channel) window inside one thread block in
-an order fixed by its thread count, so a block's windows and flip are the
-same bits whichever blocks or channels share the launch: a mesh rank's
-share of a batch correlates to one device's bits (parallel/mesh.py). The
+The kernel sums every (block, channel) window over the thread blocks of its
+own cluster in an order fixed by the cluster size and the thread count, so
+a block's windows and flip are the same bits whichever blocks or channels
+share the launch: a mesh rank's share of a batch correlates to one
+device's bits (parallel/mesh.py). The
 plain version on the card, whose cuBLAS products pick their algorithm by
 the batch count, is not; on the CPU it is. Kernel and plain version agree
 within 1e-5 of each channel's window maximum, with equal flips and code
@@ -68,6 +71,26 @@ _SLIVER = 128  # samples around the nav-bit boundary handled exactly
 SLIVER_LIMIT = _SLIVER
 _TWO_PI = float(np.float32(2.0 * np.pi))
 S0_SPLIT = 256   # the mixed DFT split's s0 (csrc: windowed_split())
+# the kernel's clock split of a thread block (csrc: kClocks), the last the
+# block's whole time; `windowed_correlate_cuda(..., clocks=)` fills it
+CLOCK_NAMES = ("setup", "folds", "lag sums", "twiddles A", "barrier 1",
+               "rank sums", "arc", "DFT", "barrier 2",
+               "z over ranks + twiddles B", "sum over s0 + bins out",
+               "barrier 3", "whole")
+
+
+@functools.lru_cache(maxsize=4)
+def _base0(period: int) -> np.ndarray:
+    """The nominal per-sample chip index k * L_CA / period, formed in
+    float64 and rounded to float32 ([P0], as the JAX `_chip_lookup_consts`
+    forms it)."""
+    return (np.arange(period) * float(int(L_CA)) / period).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _base0_on(period: int, dev: torch.device) -> torch.Tensor:
+    """_base0(period) on `dev`, uploaded once (the kernel's replica table)."""
+    return torch.from_numpy(_base0(period)).to(dev)
 
 
 @functools.lru_cache(maxsize=4)
@@ -75,8 +98,7 @@ def _chip_index_consts(period: int):
     """floor/frac of the nominal per-sample chip index k * L_CA / period,
     formed in float32 exactly as the JAX `_chip_lookup_consts` forms them.
     Returns numpy (floor_base [P0] int64, frac_base [P0] float32)."""
-    l_ca = int(L_CA)
-    base0 = (np.arange(period) * float(l_ca) / period).astype(np.float32)
+    base0 = _base0(period)
     floor_base = np.floor(base0).astype(np.int64)
     frac_base = (base0 - floor_base.astype(np.float32)).astype(np.float32)
     return floor_base, frac_base
@@ -169,7 +191,7 @@ def windowed_correlate(raw_re, raw_im, chips, rc_mid, idx_next, fi, ri,
     complex_out.
 
     CPU tensors -> `windowed_correlate_plain`; CUDA tensors -> the K5
-    kernels (`windowed_correlate_cuda`), or an exception."""
+    kernel (`windowed_correlate_cuda`), or an exception."""
     args = (raw_re, raw_im, chips, rc_mid, idx_next, fi, ri, time_idc,
             pos_start, vel_start, carr_fftpts, period, n_periods, code_win,
             carr_win, complex_out)
@@ -337,7 +359,7 @@ class _FParam(ctypes.Structure):
 
 
 class _CorrArgs(ctypes.Structure):
-    """The kernels' arguments (CorrArgs in csrc/windowed_correlate.cu)."""
+    """The kernel's arguments (CorrArgs in csrc/windowed_correlate.cu)."""
     _fields_ = ([("raw_re", ctypes.c_void_p), ("raw_im", ctypes.c_void_p),
                  ("raw_sn", ctypes.c_longlong), ("raw_ss", ctypes.c_longlong)]
                 + [(k, ctypes.c_int) for k in (
@@ -345,12 +367,11 @@ class _CorrArgs(ctypes.Structure):
                     "n_periods", "code_win", "carr_win", "complex_out")]
                 + [("carr_fftpts", ctypes.c_longlong),
                    ("chips", ctypes.c_void_p), ("chips_sc", ctypes.c_longlong),
-                   ("time_idc", ctypes.c_void_p)]
+                   ("time_idc", ctypes.c_void_p), ("base0", ctypes.c_void_p)]
                 + [(k, _FParam) for k in ("rc", "fi", "ri", "idx_next",
                                           "pos_start", "vel_start")]
                 + [(k, ctypes.c_void_p) for k in (
-                    "code0", "code1", "carr0", "carr1", "flip", "mean",
-                    "fold")])
+                    "code0", "code1", "carr0", "carr1", "flip", "clk")])
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -359,22 +380,32 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.windowed_correlate_launch.restype = ctypes.c_int
     lib.windowed_error_string.argtypes = [ctypes.c_int]
     lib.windowed_error_string.restype = ctypes.c_char_p
-    lib.windowed_split.argtypes = []
-    lib.windowed_split.restype = ctypes.c_int
-    lib.windowed_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    for f in (lib.windowed_split, lib.windowed_cluster,
+              lib.windowed_clock_words):
+        f.argtypes = []
+        f.restype = ctypes.c_int
+    lib.windowed_shared_bytes.argtypes = [ctypes.c_int]
     lib.windowed_shared_limit.argtypes = []
-    lib.windowed_fold_scratch.argtypes = [ctypes.c_int]
-    for f in (lib.windowed_shared_bytes, lib.windowed_shared_limit,
-              lib.windowed_fold_scratch):
+    for f in (lib.windowed_shared_bytes, lib.windowed_shared_limit):
         f.restype = ctypes.c_longlong
     if lib.windowed_split() != S0_SPLIT:
         raise RuntimeError(f"csrc/windowed_correlate.cu splits the DFT "
                            f"{lib.windowed_split()} ways, the plain "
                            f"version {S0_SPLIT}")
+    if lib.windowed_clock_words() != len(CLOCK_NAMES):
+        raise RuntimeError(f"csrc/windowed_correlate.cu splits a block's "
+                           f"clocks {lib.windowed_clock_words()} ways, "
+                           f"CLOCK_NAMES {len(CLOCK_NAMES)}")
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("windowed_correlate", _bind)
+
+
+def windowed_cluster() -> int:
+    """The kernel's thread blocks per (channel, block): its cluster size
+    (builds the kernel on first use)."""
+    return _lib().windowed_cluster()
 
 
 def _pairs(raw_re, raw_im) -> bool:
@@ -404,18 +435,22 @@ def windowed_correlate_cuda(raw_re, raw_im, chips, rc_mid, idx_next, fi, ri,
                             carr_fftpts: int, period: int, n_periods: int,
                             code_win: int = CODE_WIN,
                             carr_win: int = CARR_WIN,
-                            complex_out: bool = False):
-    """K5 on the card: one call enqueues the code kernel and the carrier
-    kernel on the current stream (one launch in `_build.launch_counts()`,
-    "windowed_correlate"). Arguments as `windowed_correlate`; the
+                            complex_out: bool = False, clocks=None):
+    """K5 on the card: one call launches one kernel, a cluster per
+    (channel, block), on the current stream (one launch in
+    `_build.launch_counts()`, "windowed_correlate"). Arguments as
+    `windowed_correlate`; the
     parameters are read by their strides (slices of a packed parameter
     tensor go in as they are), all float32: idx_next, pos_start and
     vel_start as the packed rows carry them, integers held exactly. The
     samples are the I and Q views of one int16 [N, S, 2] tensor, or two
     float32 [N, S] tensors of equal strides; anything else raises, as does
-    a period whose thread block needs more shared memory than the card
-    gives one, and windows or periods the kernels do not take (the
-    launch's cudaErrorInvalidValue)."""
+    a shape whose thread block needs more shared memory than the card
+    gives one (before any launch), windows or periods the kernel does not
+    take (the launch's cudaErrorInvalidValue), and a cluster launch the
+    card refuses (its CUDA error). `clocks`, a zeroed contiguous int64
+    [N, C, R, len(CLOCK_NAMES)] tensor (R = `windowed_cluster()`), receives
+    each thread block's clock64() split; the path never passes it."""
     dev = raw_re.device
     if dev.type != "cuda":
         raise ValueError(f"windowed_correlate_cuda needs a CUDA tensor, "
@@ -441,35 +476,46 @@ def windowed_correlate_cuda(raw_re, raw_im, chips, rc_mid, idx_next, fi, ri,
     if chips.stride(1) != 1 or time_idc.stride(0) != 1:
         raise ValueError("chips rows and time_idc must be contiguous")
     lib = _lib()
-    need, limit = (lib.windowed_shared_bytes(int(period), s),
-                   lib.windowed_shared_limit())
+    need = lib.windowed_shared_bytes(int(period))
+    limit = lib.windowed_shared_limit()
     if need > limit:
         raise ValueError(f"period {period} x {n_periods}: a K5 thread block "
                          f"would need {need} bytes of shared memory, the "
-                         f"card gives one {limit} (periods up to ~20 000 "
-                         f"samples at 20 periods a block)")
+                         f"card gives one {limit} (periods up to 27 508 "
+                         f"samples)")
+    if carr_fftpts < 2 or carr_fftpts >= 1 << 32 \
+            or carr_fftpts & (carr_fftpts - 1):
+        raise ValueError(f"carr_fftpts={carr_fftpts}: the kernel takes a "
+                         f"power of two below 2^32 (the DFT phases are "
+                         f"masks)")
     shape = (n, c)
+    clk_shape = (n, c, lib.windowed_cluster(), len(CLOCK_NAMES))
+    if clocks is not None and (
+            clocks.device != dev or clocks.dtype != torch.int64
+            or tuple(clocks.shape) != clk_shape
+            or not clocks.is_contiguous()):
+        raise ValueError(f"clocks: need contiguous int64 {list(clk_shape)} "
+                         f"on {dev}")
     f32 = dict(dtype=torch.float32, device=dev)
     code = [torch.empty((n, c, code_win), **f32)
             for _ in range(2 if complex_out else 1)]
     carr = [torch.empty((n, c, carr_win), **f32)
             for _ in range(2 if complex_out else 1)]
     flip = torch.empty(shape, dtype=torch.bool, device=dev)
-    mean = torch.empty((n, c, 2), **f32)
-    fold = torch.empty((n, c, lib.windowed_fold_scratch(int(period))), **f32)
     args = _CorrArgs(
         raw_re.data_ptr(), raw_im.data_ptr(), raw_re.stride(0),
         raw_re.stride(1), int(i16), n, c, s, int(period), int(n_periods),
         int(code_win), int(carr_win), int(complex_out), int(carr_fftpts),
         chips.data_ptr(), chips.stride(0), time_idc.data_ptr(),
+        _base0_on(int(period), dev).data_ptr(),
         _fparam(rc_mid, dev, shape, "rc_mid"), _fparam(fi, dev, shape, "fi"),
         _fparam(ri, dev, shape, "ri"),
         _fparam(idx_next, dev, shape, "idx_next"),
         _fparam(pos_start, dev, shape, "pos_start"),
         _fparam(vel_start, dev, shape, "vel_start"),
         code[0].data_ptr(), code[-1].data_ptr(), carr[0].data_ptr(),
-        carr[-1].data_ptr(), flip.data_ptr(), mean.data_ptr(),
-        fold.data_ptr() if fold.numel() else None)
+        carr[-1].data_ptr(), flip.data_ptr(),
+        None if clocks is None else clocks.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.windowed_correlate_launch(ctypes.byref(args), stream)

@@ -18,8 +18,14 @@ profiled wall, the device ms of K1 ("score_kernel") and K5 ("windowed_"),
 and how many times the window was taken. The last line is a JSON object of
 those numbers. Needs a CUDA card; imports nothing of JAX.
 
-chip_smoke.py reads its own device records through `device_profile`,
-`profile_seeing` and `dispatch_record` from here.
+This is also the measurement module the other scripts share:
+chip_smoke.py, windowed_times.py and track_window_terms.py read device
+records (`device_profile`, `dispatch_record`, which retakes an empty window
+through `profile_seeing`, and `kernel_device_ms`), time a call
+(`cuda_ms`), read the kernels' clock64() splits (`clock_parts` for K4,
+`k5_clock_split` for K5), build K5's inputs at the main path's shapes
+(`k5_inputs`) and build a kernel source's variants (`patched`,
+`build_variant`) from here.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -131,12 +138,156 @@ def record_line(what: str, rec: dict, card: str) -> str:
             + f" [{card}]")
 
 
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call, CUDA events around `reps` calls after
+    one warm call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def kernel_device_ms(fn, reps: int, name: str):
+    """The device's own ms per launch of the kernels whose name holds
+    `name`, from torch.profiler over `reps` calls of fn (per launch the
+    profiler recorded: it can drop one, and now and then a whole window,
+    which is taken again, three times at most); None when it showed
+    none."""
+    fn()
+
+    def loop():
+        for _ in range(reps):
+            fn()
+
+    for _ in range(3):
+        found = [v for k, v in device_profile(loop)[3].items() if name in k]
+        count = sum(n for _, n in found)
+        TAKES["windows"] += 1
+        if count:
+            return sum(ms for ms, _ in found) / count
+        TAKES["empty"] += 1
+    return None
+
+
+def clock_parts(kernel, n_upd: int, n_chan: int, dev, logf):
+    """More launches of K4's kernel(clocks) with the kernel's clock buffer
+    (whose logs must equal logf, the path's, unless logf is None): (clocked
+    ms a launch, the clock in MHz, us per update of each of
+    track.CLOCK_NAMES, mean over channels)."""
+    from navlab_dpe_sdr_tpu_torch.ops import track
+
+    clocks = torch.zeros((n_chan, track.N_CLOCKS), dtype=torch.int64,
+                         device=dev)
+    _, lfc, _ = kernel(clocks)           # warms this instantiation
+    assert logf is None or torch.equal(lfc, logf), \
+        "the clocked kernel logs differently"
+    clocked_ms = cuda_ms(lambda: kernel(clocks), 3)
+    clk = clocks.cpu().numpy().astype(np.float64).mean(axis=0)
+    us = clk / clk[-1] * clocked_ms * 1e3 / n_upd
+    return clocked_ms, clk[-1] / clocked_ms / 1e3, us
+
+
+def k5_clock_split(correlate, a, kw) -> dict:
+    """K5's {phase: thousands of SM clocks, mean over blocks and ranks}
+    (correlate.CLOCK_NAMES) of one launch with its clock buffer, whose
+    windows must equal an unclocked launch's, and the slowest block's whole
+    ("whole max")."""
+    want = correlate.windowed_correlate_cuda(*a, **kw)
+    c = a[2].shape[0]
+    clocks = torch.zeros((a[0].shape[0], c, correlate.windowed_cluster(),
+                          len(correlate.CLOCK_NAMES)), dtype=torch.int64,
+                         device=a[0].device)
+    got = correlate.windowed_correlate_cuda(*a, **kw, clocks=clocks)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    k = clocks.reshape(-1, clocks.shape[-1]).double().cpu().numpy() / 1e3
+    out = dict(zip(correlate.CLOCK_NAMES, k.mean(axis=0).round(3).tolist()))
+    out["whole max"] = round(float(k[:, -1].max()), 3)
+    return out
+
+
+def k5_inputs(first, hand, arr, grid, dev):
+    """K5 at the main path's shapes: the first N_BLOCKS blocks of `first`
+    (int16 I/Q) with the parameters the batched receiver prepares for them
+    (windows of auto_windows). Returns (args, kw, n_chan): args(lo, hi,
+    cs=slice(None), dtype="int16") gives the correlator's arguments for
+    blocks lo..hi-1 and channels cs as batch_correlate passes them (views
+    all), from the int16 capture or from float32 samples (the capture times
+    0.3); kw its keywords."""
+    from navlab_dpe_sdr_tpu_torch.io.rawfile import SampleFile
+    from navlab_dpe_sdr_tpu_torch.models.dpe import (DPEConfig, DPEReceiver,
+                                                     device_state)
+    from navlab_dpe_sdr_tpu_torch.ops import dpe_real
+
+    rx = DPEReceiver(SampleFile(samples=first, fs=FS), copy.deepcopy(hand),
+                     grid=grid, eph=copy.deepcopy(arr),
+                     config=DPEConfig(ekf_mode="alpha", ekf_alpha=0.3),
+                     device="cpu")
+    preps = rx._prepare_batch(N_BLOCKS)
+    pk = dpe_real.pack_params(np.stack([p[0] for p in preps]),
+                              np.stack([p[1] for p in preps]), 0)
+    d = device_state(grid, rx._dev.chips.numpy(), S, FS, dev)
+    cap = torch.from_numpy(first[:S * N_BLOCKS].view(np.int16)
+                           .reshape(N_BLOCKS, S, 2)).to(dev)
+    fpk, ipk = dpe_real.unpack_params(dpe_real.to_device(pk, dev))
+    kw = dict(carr_fftpts=rx.carr_fftpts, period=rx.period,
+              n_periods=S // rx.period, code_win=rx.code_win,
+              carr_win=rx.carr_win)
+    samples = {"int16": cap, "float32": cap.float() * 0.3}
+
+    def args(lo, hi, cs=slice(None), dtype="int16"):
+        raw = samples[dtype][lo:hi]
+        f, i = fpk[lo:hi, :, cs], ipk[lo:hi, :, cs]
+        return (raw[..., 0], raw[..., 1], d.chips[cs], f[:, 0], i[:, 0],
+                f[:, 1], f[:, 2], d.time_idc, i[:, 1], i[:, 2])
+
+    return args, kw, len(rx.prn_list)
+
+
+def patched(source: str, patches) -> str:
+    """source with each (old, new) of patches applied in order; each old
+    text must occur once."""
+    for old, new in patches:
+        if source.count(old) != 1:
+            raise ValueError(f"patch text found {source.count(old)} times: "
+                             f"{old!r}")
+        source = source.replace(old, new)
+    return source
+
+
+def build_variant(text: str, source: str, name: str) -> pathlib.Path:
+    """A variant `text` of the package's csrc/<source>.cu, built by nvcc
+    with the package's flags -> <build dir>/variants/lib<source>_<hash>.so
+    (`name` only labels an error)."""
+    from navlab_dpe_sdr_tpu_torch.ops import _build
+
+    out_dir = _build.build_dir() / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+    src = out_dir / f"{source}_{digest}.cu"
+    lib = out_dir / f"lib{source}_{digest}.so"
+    if not lib.exists():
+        src.write_text(text)
+        res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                              str(lib), str(src)], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name!r}:\n"
+                               f"{res.stderr}")
+    return lib
 
 
 def main_path(first, hand, arr, grid, dev, card, log=print) -> dict:

@@ -509,7 +509,7 @@ def test_windowed_correlate_kernel_is_batch_invariant(k5_inputs, complex_out,
                            (2, 3, 4, K5_BLOCKS), slice(2, 6))
 
 
-def _k5_at_period(period, n, c, seed=17):
+def _k5_at_period(period, n, c, seed=17, code_win=12, carr_win=36):
     """Seeded inputs of n blocks of 20 periods at a front end of period
     kHz: each channel's chips at its code phase on its carrier, under
     noise, as int16 pairs, with the parameters packed as pack_params packs
@@ -519,7 +519,6 @@ def _k5_at_period(period, n, c, seed=17):
     fs, p = period * 1e3, 20
     s = p * period
     carr_fftpts = 8 * (1 << s.bit_length())
-    code_win, carr_win = 12, 36
     chips = rng.choice([-1.0, 1.0], (c, 1023)).astype(np.float32)
     rc = rng.uniform(0.0, 1023.0, (n, c))
     fi = rng.uniform(-3000.0, 3000.0, (n, c))
@@ -549,10 +548,11 @@ def _k5_at_period(period, n, c, seed=17):
 @pytest.mark.parametrize("period", [1023, 16368])
 def test_windowed_correlate_kernel_takes_odd_and_long_periods(
         period, complex_out, dev):
-    """K5 at an odd period (a 1.023 MHz front end: the block's integer
-    mean sum stays aligned) and a long one (16.368 MHz: the folds leave
-    shared memory for a scratch in device memory) against its plain
-    version, and across block splits and a channel subset, bit for bit."""
+    """K5 at an odd period (a 1.023 MHz front end: unequal rank tau
+    ranges, and the block's integer mean sum stays aligned) and a long one
+    (16.368 MHz: a rank's DFT rows take two chunks of twiddles) against its
+    plain version, and across block splits and a channel subset, bit for
+    bit."""
     inputs = _k5_at_period(period, 4, 4)
     for dtype in ("int16", "float32"):
         args, kw = _k5_args(inputs, dev, dtype, fs=period * 1e3)
@@ -565,12 +565,80 @@ def test_windowed_correlate_kernel_takes_odd_and_long_periods(
                                slice(1, 3))
 
 
+@pytest.mark.parametrize("code_win,carr_win", [(16, 48), (8, 24), (3, 1)])
+def test_windowed_correlate_kernel_takes_other_windows(code_win, carr_win,
+                                                       dev):
+    """K5 at other window widths than the main path's 12 / 36: the
+    defaults 16 / 48 (two carrier passes, 36 bins and 12), the dense
+    grid's 8 / 24 (one pass of 24) and 3 / 1 (fewer code windows and bins
+    than a cluster has thread blocks), against its plain version and
+    across block splits and a channel subset, bit for bit."""
+    inputs = _k5_at_period(2500, 4, 4, code_win=code_win, carr_win=carr_win)
+    for dtype, complex_out in ((d, x) for d in ("int16", "float32")
+                               for x in (False, True)):
+        args, kw = _k5_args(inputs, dev, dtype, fs=2500 * 1e3)
+        got = correlate.windowed_correlate(*args(0, 4), **kw,
+                                           complex_out=complex_out)
+        want = correlate.windowed_correlate_plain(*args(0, 4), **kw,
+                                                  complex_out=complex_out)
+        _hold_k5_to_plain(got, want, slice(None))
+        _hold_k5_across_splits(args, kw, 4, complex_out, (2, 4),
+                               slice(1, 3))
+
+
+@pytest.mark.parametrize("complex_out", [False, True])
+def test_windowed_correlate_kernel_one_block_equals_its_row(
+        k5_inputs, complex_out, dev):
+    """A block correlated alone (N = 1, the per-block step's launch)
+    equals its row of the N = 50 launch to the bit, from int16 pairs and
+    from float32 samples: the first, a middle and the last block."""
+    for dtype in ("int16", "float32"):
+        args, kw = _k5_args(k5_inputs, dev, dtype)
+        whole = correlate.windowed_correlate(*args(0, K5_BLOCKS), **kw,
+                                             complex_out=complex_out)
+        for b in (0, 17, K5_BLOCKS - 1):
+            one = correlate.windowed_correlate(*args(b, b + 1), **kw,
+                                               complex_out=complex_out)
+            for name in whole._fields:
+                assert torch.equal(getattr(one, name),
+                                   getattr(whole, name)[b:b + 1]), \
+                    (dtype, b, name)
+
+
+def test_windowed_correlate_kernel_takes_a_25000_sample_period(dev):
+    """K5 at a 25 MHz front end (25 000 samples a period, 20 a block: the
+    replica and the rank's twiddle rows fit one thread block's shared
+    memory) against its plain version, and across a block split and a
+    channel subset, bit for bit."""
+    inputs = _k5_at_period(25000, 2, 3)
+    args, kw = _k5_args(inputs, dev, "int16", fs=25000 * 1e3)
+    for complex_out in (False, True):
+        got = correlate.windowed_correlate(*args(0, 2), **kw,
+                                           complex_out=complex_out)
+        want = correlate.windowed_correlate_plain(*args(0, 2), **kw,
+                                                  complex_out=complex_out)
+        _hold_k5_to_plain(got, want, slice(None))
+        _hold_k5_across_splits(args, kw, 2, complex_out, (2,), slice(1, 3))
+
+
 def test_windowed_correlate_kernel_refuses_a_period_beyond_its_memory(dev):
-    """A period whose thread block would need more shared memory than the
-    card gives one (25 000 samples: a 25 MHz front end) raises before any
-    launch."""
-    period, p, c = 25000, 20, 1
-    s = p * period
+    """The first period the kernel does not take (its thread block would
+    need more shared memory than the card gives one; found by bisection
+    on the kernel's own count, above the 25 000 it takes) raises before
+    any launch, at 20 periods a block."""
+    lib = correlate._lib()
+    limit, p, c = lib.windowed_shared_limit(), 20, 1
+    lo, hi = 2500, 1 << 20                # taken, refused
+
+    def need(period):
+        return lib.windowed_shared_bytes(period)
+
+    assert need(lo) <= limit < need(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if need(mid) <= limit else (lo, mid)
+    assert hi > 25000
+    period, s = hi, p * hi
     raw = torch.zeros((1, s, 2), dtype=torch.int16, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     par = torch.zeros((1, c), **f32)

@@ -11,7 +11,7 @@ truth handoff: coherent m = 2, 8, 10 over 200 updates, m = 4 over 500 (the
 coherent cold start's 2000 ms chunk), and batch_k = 4 over 2000 steps. For
 each it prints the kernel's ms per chunk (CUDA events, 5 launches after a
 warm one), us per update, and the clock64() split of an update (more
-launches with the clock buffer; chip_smoke.clock_parts), with the card's
+launches with the clock buffer; profile_dispatch.clock_parts), with the card's
 name and power limit; the lines also go to chiprun_out/window_terms.jsonl.
 
 The sets (--set): "design", the kernel's geometry (cluster size, threads a
@@ -26,10 +26,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import pathlib
-import subprocess
 import sys
 import threading
 
@@ -42,7 +40,8 @@ from navlab_dpe_sdr_tpu_torch.io.scenario import make_scenario
 from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_table
 from navlab_dpe_sdr_tpu_torch.ops import _build, track, tracking
 
-from chip_smoke import card_line, clock_parts, cuda_ms
+from profile_dispatch import (build_variant, card_line, clock_parts, cuda_ms,
+                              patched)
 
 REPO = pathlib.Path(__file__).resolve().parent
 SRC = REPO / "navlab_dpe_sdr_tpu_torch" / "ops" / "csrc" / "track_chunk.cu"
@@ -112,33 +111,6 @@ SETS = {
 # sets whose variants compute what the plain version computes: their logs
 # and carry are held to it, bit for bit, on short runs
 CHECKED = {"design"}
-
-
-def build_variant(text: str, name: str) -> pathlib.Path:
-    """nvcc with the package's flags -> build/variants/<hash>.so."""
-    out_dir = _build.build_dir() / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    digest = hashlib.sha256(text.encode()).hexdigest()[:16]
-    src = out_dir / f"track_chunk_{digest}.cu"
-    lib = out_dir / f"libtrack_chunk_{digest}.so"
-    if not lib.exists():
-        src.write_text(text)
-        res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                              str(lib), str(src)], capture_output=True,
-                             text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name!r}:\n"
-                               f"{res.stderr}")
-    return lib
-
-
-def patched(source: str, patches) -> str:
-    for old, new in patches:
-        if source.count(old) != 1:
-            raise ValueError(f"patch text found {source.count(old)} times: "
-                             f"{old!r}")
-        source = source.replace(old, new)
-    return source
 
 
 def use_library(path: pathlib.Path) -> None:
@@ -234,7 +206,7 @@ def main() -> int:
 
     def one(name):
         try:
-            libs[name] = build_variant(variants[name], name)
+            libs[name] = build_variant(variants[name], "track_chunk", name)
         except Exception as e:        # re-raised below
             errors.append(e)
 
