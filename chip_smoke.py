@@ -43,15 +43,20 @@ Phases, one line or more each (any failure raises and exits non-zero):
    (K5 once a step); then one more per-block step under torch.profiler
    (launches, device-busy ms, K2's and K5's device ms);
 10. (run right after phase 3, before the capture is made) K1's
-   block-summed mode (score_argmax(block_sum=True): the scores of all
-   blocks summed per grid point inside the kernel) against its plain
-   version: bit-equal best, equal first index, weighted sums bitwise equal
-   across two runs, on the spread grid at N=8 and N=50, on the dense grid
-   (2 x 75^4 points, the reference's cap) at N=16 with l_power 1 and 2 and
-   at N=1 (the coherent run's launch: its blocks are summed before the
-   scorer), and on a grid laid out twice (an exact tie across tiles); sinc
-   interpolation at the survey's zoom shape (33^4 points, 25 epochs) within
-   rtol 1e-5, argmax equal or a tie within 1e-6;
+   block-summed modes (score_argmax(block_sum=True): the scores of all
+   blocks summed per grid point inside the kernel, one thread block a
+   tile) against their plain version: bit-equal best, equal first index,
+   weighted sums bitwise equal across two runs, on the spread grid at N=8
+   (the integrated fix), N=50 and N=25 (the survey's coarse joint pass),
+   and on a grid=2 and a grid=4 mesh rank's rows of that grid (191 and 96
+   tiles), each with the kernel's own time; N = 2, 7, 13 and 64, offsets
+   4 bytes off a 16-byte boundary; exact ties across tiles (the grid laid
+   out twice), within a thread's points (every point twice in a row) and
+   across threads (the same, one point on); on the dense grid (2 x 75^4
+   points, the reference's cap) at N=16 with l_power 1 and 2 and at N=1
+   (the coherent run's launch: its blocks are summed before the scorer);
+   the survey's zoom lattice (33^4 points, 25 epochs), quadratic and sinc
+   (sinc within rtol 1e-5, argmax equal or a tie within 1e-6);
 11. integrated DPE: run_integrated noncoherent on the spread grid (8 blocks
    a fix, 25 fixes), coherent on the dense grid (16 blocks a fix, 12
    fixes), and the first again read from the SampleFile through the
@@ -75,7 +80,11 @@ Phases, one line or more each (any failure raises and exits non-zero):
    5, 8 against plain over 240 steps (the kernel's other pass shapes);
    then ScalarReceiver.track(2000, batch_k=4) from the acquisition state;
 16. K3's windows mode (the open-loop correlation of vector tracking)
-   against its plain version: 20 windows x 8 channels, bit-equal;
+   against its plain version, bit-equal, one launch a call: 20 windows x 8
+   channels (the vector epoch) with the phases as four vectors and as the
+   columns of one [C, 4] tensor, and 1 and 40 windows, each timed; 2, 20
+   and 40 windows of 2500 and 2501 samples, int16 and float32, 1, 8 and 12
+   channels;
 17. the coherent cold start: acquire -> track(36 000, coh_ms=4) with the
    CLI's coherent loop defaults -> 8/8 ephemerides -> scalar PVT within
    15 m; TTFF wall and tracking real-time factor per chunk;
@@ -264,6 +273,10 @@ OPS_K5 = dict(fold=8, tail=8, lag=16, lag0=8, wipe=4, dft=8)
 KERNELS = {
     "K1": dict(name="score_argmax", route="cuda", source=SCORE_SRC,
                replaces="navlab_dpe_sdr_tpu/ops/pallas_score.py:166"),
+    "K1 block-summed": dict(name="score_argmax_sum", route="cuda",
+                            source=SCORE_SRC,
+                            replaces="navlab_dpe_sdr_tpu/ops/pallas_score.py"
+                                     ":166"),
     "K2": dict(name="score_surface", route="cuda", source=SCORE_SRC,
                replaces="navlab_dpe_sdr_tpu/ops/pallas_score.py:43"),
     "K3": dict(name="correlate_window", route="cuda", source=TRACK_SRC,
@@ -964,14 +977,18 @@ def sum_bound(args, got, manifold, interp="quadratic"):
 
 def check_sum_case(name, args, manifold, card, interp="quadratic",
                    l_power=1, reps=10, timed=True):
-    """One shape of the block-summed mode: kernel against plain (bit-equal,
-    or for sinc rtol 1e-5 and a tie within 1e-6), weighted sums bitwise
-    equal across two runs; when timed also their means within rtol 1e-4 of
-    the plain version's, wrapper ms, the kernel's own ms, plain ms and the
-    bound."""
-    kw = dict(interp=interp, l_power=l_power, block_sum=True)
-    got = score.score_argmax(*args, **kw)
-    want = score.score_argmax_plain(*args, **kw)
+    """One shape of the block-summed mode: kernel against plain (bit-equal, or for sinc rtol 1e-5 and a tie
+    within 1e-6), weighted sums bitwise equal across two runs; when timed
+    also their means within rtol 1e-4 of the plain version's, wrapper ms,
+    the kernel's own ms, plain ms and the bound. Returns the kernel's
+    result (best, arg) and, when timed, its times."""
+    kw = dict(interp=interp, l_power=l_power)
+
+    def kernel(**more):
+        return score.score_argmax(*args, **kw, **more, block_sum=True)
+
+    got = kernel()
+    want = score.score_argmax_plain(*args, **kw, block_sum=True)
     torch.cuda.synchronize()
     if interp == "sinc":
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0.0)
@@ -989,37 +1006,40 @@ def check_sum_case(name, args, manifold, card, interp="quadratic",
         assert torch.equal(got[0], want[0]), (name, got[0], want[0])
         assert torch.equal(got[1], want[1]), (name, got[1], want[1])
         verdict = "best bit-equal, arg equal"
-    wa = score.score_argmax(*args, weighted=True, **kw)
-    wb = score.score_argmax(*args, weighted=True, **kw)
+    wa = kernel(weighted=True)
+    wb = kernel(weighted=True)
     torch.cuda.synchronize()
     for x, y in zip(wa, wb):
         assert torch.equal(x, y), (name, "weighted sums differ run to run")
     assert int(wa[1]) == int(got[1])
+    n, _, w = args[0].shape
+    shape = (f"K1 block sum {name} {manifold} N={n} W={w} "
+             f"G={args[5].shape[0]} {interp} l_power={l_power}")
     if not timed:
-        log(f"K1 block sum {name} {manifold} N={args[0].shape[0]} "
-            f"G={args[5].shape[0]} {interp} l_power={l_power}: {verdict}, "
-            f"weighted sums repeat bitwise")
-        return None
-    wp = score.score_argmax_plain(*args, weighted=True, **kw)
+        log(f"{shape}: {verdict}, weighted sums repeat bitwise")
+        return got, None
+    wp = score.score_argmax_plain(*args, **kw, weighted=True, block_sum=True)
     torch.testing.assert_close(wa[2] / wa[3], wp[2] / wp[3], rtol=1e-4,
                                atol=1e-5)
-    k_ms = cuda_ms(lambda: score.score_argmax(*args, **kw), reps)
-    d_ms = kernel_device_ms(lambda: score.score_argmax(*args, **kw), reps,
-                            "score_kernel")
-    p_ms = cuda_ms(lambda: score.score_argmax_plain(*args, **kw), 1)
+    k_ms = cuda_ms(kernel, reps)
+    d_ms = kernel_device_ms(kernel, reps, "score_")
+    p_ms = cuda_ms(lambda: score.score_argmax_plain(*args, **kw,
+                                                    block_sum=True), 1)
     bnd = sum_bound(args, got, manifold, interp)
-    n, _, w = args[0].shape
-    log(f"K1 block sum {name} {manifold} N={n} W={w} G={args[5].shape[0]}"
-        f" {interp} l_power={l_power}: {verdict}, weighted sums repeat "
-        f"bitwise; wrapper {k_ms:.4f} ms, kernel's own {fmt_ms(d_ms)}, "
-        f"plain {p_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
-        f"({bnd['bound_by']}) [{card}]")
-    return dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, **bnd)
+    log(f"{shape}: {verdict}, weighted sums repeat bitwise; wrapper "
+        f"{k_ms:.4f} ms, kernel's own {fmt_ms(d_ms)}, plain {p_ms:.3f} ms, "
+        f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}"
+        + ("" if d_ms is None else
+           f"; {100.0 * bnd['bound_ms'] / d_ms:.1f} % of it by the kernel's "
+           f"own time") + f") [{card}]")
+    return got, dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, **bnd)
 
 
 def check_block_sum(grid, widths, dev, card):
-    """Phase 10: the block-summed mode and sinc. Returns the K1 sub-entries
-    of the kernels line (per call of both manifolds)."""
+    """Phase 10: the block-summed modes and sinc. Returns the K1
+    block-summed entry of the kernels line: its times at the integrated
+    fix's shape (N = 8, both manifolds) and, under keys of their own, at
+    every other shape."""
     rng = np.random.default_rng(SEED + 10)
     out = {}
 
@@ -1031,32 +1051,78 @@ def check_block_sum(grid, widths, dev, card):
         out.update({f"ms_{key}": tot["ms"], f"device_ms_{key}":
                     tot["device_ms"], f"plain_ms_{key}": tot["plain_ms"],
                     f"bound_ms_{key}": tot["bound_ms"]})
+        return tot, cases
 
-    # the spread grid at the integrated path's N = 8 and the survey's N = 50
-    for n in (8, 50):
+    # the spread grid at the integrated path's N = 8, the survey's N = 50
+    # and its coarse joint pass (25 epochs)
+    entry = None
+    for n, key in ((8, "sum_n8"), (50, "sum_n50"), (25, "sum_n25_coarse")):
         cases = []
         for manifold in ("pos", "vel"):
             args = scorer_inputs(rng, manifold, widths[manifold], grid, dev,
                                  n=n)
-            cases.append(check_sum_case("spread", args, manifold, card))
+            cases.append(check_sum_case("spread", args, manifold, card)[1])
             if n == 8:
                 for kw in (dict(l_power=2), dict(interp="linear")):
                     check_sum_case("spread", args, manifold, card, reps=3,
                                    timed=False, **kw)
-        both(f"sum_n{n}", cases)
+        tot, _ = both(key, cases)
+        if n == 8:
+            entry = dict(tot, bound=dict(
+                bound_ms=tot["bound_ms"], bound_by=cases[0]["bound_by"]))
 
-    # an exact tie across tiles: the grid laid out twice
+    # a grid=2 and a grid=4 mesh rank's rows of the spread grid (195 313
+    # and 97 657 points, 191 and 96 tiles): the block sums phase 25's ranks
+    # launch
+    for key, part, (lo, hi) in (
+            ("half", "a mesh rank's half", score.ceil_rows(grid.n_pos, 2)[0]),
+            ("quarter", "a mesh rank's quarter",
+             score.ceil_rows(grid.n_pos, 4)[0])):
+        for n in (8, 50):
+            cases = []
+            for manifold in ("pos", "vel"):
+                args = scorer_inputs(rng, manifold, widths[manifold], grid,
+                                     dev, n=n)
+                args[5], args[6] = args[5][lo:hi], args[6][lo:hi]
+                cases.append(check_sum_case(part, args, manifold, card,
+                                            reps=5)[1])
+            both(f"sum_n{n}_{key}", cases)
+
+    # N = 2, 7, 13 (a staged batch boundary inside N at these widths) and
+    # 64; the offsets 4 bytes off a 16-byte boundary (1 point a thread)
+    for n in (2, 7, 13, 64):
+        args = scorer_inputs(rng, "pos", widths["pos"], grid, dev, n=n)
+        check_sum_case("spread", args, "pos", card, reps=3, timed=False)
+    args = scorer_inputs(rng, "vel", widths["vel"], grid, dev, n=8)
+    args[5], args[6] = args[5][1:], args[6][1:]
+    check_sum_case("spread, unaligned", args, "vel", card, reps=3,
+                   timed=False)
+
+    # exact ties: the grid laid out twice (across tiles), every point twice
+    # in a row (both copies among a thread's four points), and the same one
+    # point on (copies 4T + 3 and 4T + 4 fall to threads T and T + 1)
     args = scorer_inputs(rng, "pos", widths["pos"], grid, dev, n=8)
-    args[5] = torch.cat([args[5], args[5]])
-    args[6] = torch.cat([args[6], args[6]])
-    best, arg = score.score_argmax(*args, block_sum=True)
-    want = score.score_argmax_plain(*args, block_sum=True)
-    assert torch.equal(best, want[0]) and torch.equal(arg, want[1])
-    assert int(arg) < grid.n_pos
-    log(f"K1 block sum, the spread grid twice over (G={args[5].shape[0]}): "
-        f"the tie goes to the first copy (arg {int(arg)}), as in the plain "
-        f"version")
-    del args
+    o3, o1 = args[5], args[6]
+    twice3, twice1 = o3.repeat_interleave(2, dim=0), o1.repeat_interleave(2)
+    for how, (a3, a1), first in (
+            ("the spread grid twice over", (torch.cat([o3, o3]),
+                                            torch.cat([o1, o1])), grid.n_pos),
+            ("every point twice in a row", (twice3, twice1), 0),
+            ("every point twice in a row, one point on", (
+                torch.cat([o3[-1:], twice3]), torch.cat([o1[-1:], twice1])),
+             1)):
+        args[5], args[6] = a3.contiguous(), a1.contiguous()
+        best, arg = score.score_argmax(*args, block_sum=True)
+        want = score.score_argmax_plain(*args, block_sum=True)
+        assert torch.equal(best, want[0]) and torch.equal(arg, want[1])
+        if how == "the spread grid twice over":
+            assert int(arg) < first
+        else:
+            # (index 0 of the shifted layout is the last point's first copy)
+            assert int(arg) % 2 == first or int(arg) == 0, (how, int(arg))
+        log(f"K1 block sum, {how} (G={args[5].shape[0]}): the tie goes to "
+            f"the first copy (arg {int(arg)}), as in the plain version")
+    del args, o3, o1
 
     # the dense grid (the reference's cap) with its own window widths
     dense = dense_grid()
@@ -1066,22 +1132,23 @@ def check_block_sum(grid, widths, dev, card):
     for manifold, w in (("pos", dcw), ("vel", dvw)):
         args = scorer_inputs(rng, manifold, w, dense, dev, n=16)
         assert args[5].shape[0] == 75 ** 4 > 2 ** 24
-        cases.append(check_sum_case("dense", args, manifold, card, reps=3))
+        cases.append(check_sum_case("dense", args, manifold, card,
+                                    reps=3)[1])
         check_sum_case("dense", args, manifold, card, l_power=2, reps=3,
                        timed=False)
         # one block: what the coherent integrated run launches on this grid
         one = [None if a is None else a[:1].contiguous() for a in args[:5]]
         cases_n1.append(check_sum_case("dense", one + args[5:], manifold,
-                                       card, reps=3))
+                                       card, reps=3)[1])
         del args, one
     both("sum_n16_dense", cases)
     both("sum_n1_dense", cases_n1)
     del dense
 
-    # sinc at the survey's zoom shape: 33^4 points about the coarse argmax,
-    # 25 epochs
+    # the survey's zoom lattice: 33^4 points about the coarse argmax, 25
+    # epochs, its joint passes quadratic and sinc
     ax = (np.arange(33) - 16.0)
-    cases = []
+    cases, cases_q = [], []
     for manifold, sp in (("pos", 0.25), ("vel", 0.02)):
         args = scorer_inputs(rng, manifold, widths[manifold], grid, dev,
                              n=25)
@@ -1089,10 +1156,12 @@ def check_block_sum(grid, widths, dev, card):
         args[5] = torch.from_numpy(off3.astype(np.float32)).to(dev)
         args[6] = torch.from_numpy(off1.astype(np.float32)).to(dev)
         cases.append(check_sum_case("zoom", args, manifold, card,
-                                    interp="sinc", reps=3))
-        check_sum_case("zoom", args, manifold, card, reps=3, timed=False)
+                                    interp="sinc", reps=3)[1])
+        cases_q.append(check_sum_case("zoom", args, manifold, card,
+                                      reps=3)[1])
     both("sum_sinc_zoom", cases)
-    return out
+    both("sum_n25_zoom", cases_q)
+    return dict(entry, err=0.0, **out)
 
 
 def fix_errors(fixes, truth):
@@ -1101,8 +1170,8 @@ def fix_errors(fixes, truth):
 
 
 def check_integrated(samples, hand, arr, grid, dev, card):
-    """Phase 11: integrated DPE at full width. Returns K1's and K5's
-    launches."""
+    """Phase 11: integrated DPE at full width. Returns K1's (block-summed)
+    and K5's launches."""
     first = samples[:S * 216]      # a warm fix, the timed ones, a profiled one
     raw_dev = torch.from_numpy(first.view(np.int16).reshape(-1, S, 2)).to(dev)
     cfg = DPEConfig(ekf_mode="alpha", ekf_alpha=0.3)
@@ -1134,8 +1203,9 @@ def check_integrated(samples, hand, arr, grid, dev, card):
         rx.run_integrated(n_fix, k, **timed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n_launch = _build.launch_counts()["score_argmax"]
+        n_launch = _build.launch_counts()["score_argmax_sum"]
         assert n_launch == 2 * n_fix, (name, n_launch)
+        assert _build.launch_counts()["score_argmax"] == 0
         k5 = _build.launch_counts()["windowed_correlate"]
         assert k5 == n_fix, (name, k5)
         assert len(rx.fixes) == n_fix + 1 and rx.mc == (n_fix + 1) * k
@@ -1174,7 +1244,7 @@ def check_integrated(samples, hand, arr, grid, dev, card):
 def check_survey(samples, hand, arr, grid, dev, card):
     """Phase 12: the survey solve over 25 s. A warm-up run, then the timed
     runs (quadratic and sinc zoom passes) on the receiver as it is, whose
-    K1 and K5 launches are the ones returned; then one more run of each with a
+    K1 (block-summed) and K5 launches are the ones returned; then one more run of each with a
     synchronize after every pass and joint argmax, for the wall split
     alone."""
     n_batches, k = 25, 50
@@ -1214,10 +1284,11 @@ def check_survey(samples, hand, arr, grid, dev, card):
                             raw_blocks_dev=raw_dev, zoom_interp=zoom)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n_launch = _build.launch_counts()["score_argmax"]
+        n_launch = _build.launch_counts()["score_argmax_sum"]
         # two per integrated fix, then six joint passes (coarse and two zoom
-        # passes per manifold); K5 once a batch
+        # passes per manifold), all block-summed; K5 once a batch
         assert n_launch == 2 * n_batches + 6, n_launch
+        assert _build.launch_counts()["score_argmax"] == 0
         n_k5 = _build.launch_counts()["windowed_correlate"]
         assert n_k5 == n_batches, n_k5
         assert res.n_blocks == n_batches * k and res.n_batches == n_batches
@@ -1430,37 +1501,79 @@ def check_batched(st0, samples, hand, code_table, card):
 
 
 def check_windows(samples, hand, dev, card):
-    """Phase 16: K3's windows mode against its plain version, 20 windows x
-    8 channels at the handoff phases. Returns the K3 windows entry."""
-    w = 20
-    tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)
-                           ).to(dev)
-    raw = torch.from_numpy(samples[:w * 2500].view(np.int16)
-                           .reshape(w, 2500, 2).copy()).to(dev)
-    args = [torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in
-            (hand.rc, np.asarray(hand.fc) - F_CA, hand.ri, hand.fi)]
+    """Phase 16: K3's windows mode against its plain version, bit-equal, at
+    the handoff phases: the vector epoch's shape (20 windows x 8 channels,
+    int16, S = 2500) timed, with the phases as four vectors and as the
+    columns of one [C, 4] tensor (VectorReceiver.step's one copy); W = 1
+    and 40 timed; W = 2, S = 2501 (no multiple of 16 bytes), float32
+    samples and C = 1 and 12 held to plain. Returns the K3 windows entry
+    (the vector epoch's shape) with the other times under keys of their
+    own."""
+    ph = np.stack([np.asarray(x, np.float32) for x in
+                   (hand.rc, np.asarray(hand.fc) - F_CA, hand.ri, hand.fi)],
+                  axis=1)
 
-    def kernel():
-        return track.correlate_windows_cuda(raw, *args, tab, FS)
+    def case(w, s=2500, c=8, dtype=torch.int16, timed=False, packed=False):
+        prns = list(hand.prn_list) + [1, 3, 4, 5][:max(0, c - 8)]
+        tab = torch.from_numpy(ca_table(prns[:c]).astype(np.float32)).to(dev)
+        n = w * s
+        raw = torch.from_numpy(samples[:n].view(np.int16).reshape(w, s, 2)
+                               .copy()).to(dev).to(dtype)
+        rows = np.resize(ph, (c, 4)).astype(np.float32)
+        cols = torch.from_numpy(rows).to(dev)
+        args = ([cols[:, i] for i in range(4)] if packed else
+                [cols[:, i].contiguous() for i in range(4)])
 
-    def plain():
-        return tracking.track_open_loop_plain(*args, raw, tab, FS)
+        def kernel():
+            return track.correlate_windows_cuda(raw, *args, tab, FS)
 
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    assert torch.equal(got, want), err
-    k_ms, p_ms = cuda_ms(kernel, 100), cuda_ms(plain, 3)
-    d_ms = kernel_device_ms(kernel, 20, "correlate_window_kernel")
-    c = tab.shape[0]
-    bnd = bound(w * c * (2500 * OPS_PER_SAMPLE_CHANNEL + 60),
-                tensor_bytes(raw, tab, *args, got)
-                + 2500 * 4)                              # the time table
-    log(f"K3 windows mode: {w} windows x {c} channels, bit-equal to the "
-        f"plain recurrence and combine; wrapper {k_ms:.4f} ms, kernel's own "
-        f"{fmt_ms(d_ms)}, plain {p_ms:.3f} ms, bound "
-        f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}) [{card}]")
-    return dict(err=err, ms=k_ms, plain_ms=p_ms, device_ms=d_ms, bound=bnd)
+        def plain():
+            return tracking.track_open_loop_plain(*args, raw, tab, FS)
+
+        _build.reset_launch_counts()
+        got = kernel()
+        assert _build.launch_counts()["correlate_windows"] == 1
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert torch.equal(got, want), (w, s, c, dtype, err)
+        what = (f"{w} windows x {c} channels, S = {s}, "
+                f"{str(dtype).split('.')[-1]}"
+                + (", phases as columns of one [C, 4] tensor" if packed
+                   else ""))
+        if not timed:
+            log(f"K3 windows mode: {what}: bit-equal to the plain recurrence "
+                f"and combine, one launch")
+            return None
+        k_ms, p_ms = cuda_ms(kernel, 100), cuda_ms(plain, 3)
+        d_ms = kernel_device_ms(kernel, 20, "correlate_windows_kernel")
+        bnd = bound(w * c * (s * OPS_PER_SAMPLE_CHANNEL + 60),
+                    tensor_bytes(raw, tab, *args, got)
+                    + s * 4)                              # the time table
+        log(f"K3 windows mode: {what}: bit-equal to the plain recurrence and "
+            f"combine, one launch; wrapper {k_ms:.4f} ms, kernel's own "
+            f"{fmt_ms(d_ms)}, plain {p_ms:.3f} ms, bound "
+            f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}"
+            + ("" if d_ms is None else
+               f"; {100.0 * bnd['bound_ms'] / d_ms:.2f} % of it by the "
+               f"kernel's own time") + f") [{card}]")
+        return dict(err=err, ms=k_ms, plain_ms=p_ms, device_ms=d_ms,
+                    bound=bnd)
+
+    entry = case(20, timed=True)
+    packed = case(20, timed=True, packed=True)
+    entry.update(ms_packed=packed["ms"], device_ms_packed=packed["device_ms"])
+    for w in (1, 40):
+        r = case(w, timed=True)
+        entry.update({f"ms_w{w}": r["ms"], f"device_ms_w{w}": r["device_ms"],
+                      f"bound_ms_w{w}": r["bound"]["bound_ms"]})
+    for w, s, c, dtype in ((2, 2501, 8, torch.int16),
+                           (20, 2500, 8, torch.float32),
+                           (40, 2501, 12, torch.float32),
+                           (1, 2500, 1, torch.int16),
+                           (20, 2501, 12, torch.int16)):
+        case(w, s, c, dtype)
+    return entry
 
 
 def check_coherent_cold_start(samples, hand, arr, dev, card):
@@ -1913,7 +2026,8 @@ def check_montecarlo(samples, hand, dev, card):
     reference's 50-80 m band), spacing_sweep (3 spacings), cn0_sweep
     ([45, 30] dB-Hz, 32 blocks, 8 a fix), weak_sweep (one level, 128
     blocks). Returns launches by kernel over all four."""
-    counts = dict(score_argmax=0, score_surface=0, windowed_correlate=0)
+    counts = dict(score_argmax=0, score_argmax_sum=0, score_surface=0,
+                  windowed_correlate=0)
     with tempfile.TemporaryDirectory() as tmp:
         cap = pathlib.Path(tmp) / "capture.dat"
         samples[:S * 60].tofile(cap)
@@ -1955,15 +2069,17 @@ def check_montecarlo(samples, hand, dev, card):
                 log(f"Monte-Carlo {name}: {text}; rows {rows}; wall "
                     f"{wall:.3f} s ({wall / len(res):.3f} s a run); launches "
                     f"K2 {got['score_surface']}, K1 {got['score_argmax']}, "
-                    f"K5 {got['windowed_correlate']} [{card}]")
+                    f"K1 block-summed {got['score_argmax_sum']}, K5 "
+                    f"{got['windowed_correlate']} [{card}]")
             else:
                 log(f"Monte-Carlo {name}: "
                     + "; ".join(json.dumps(dataclasses.asdict(p))
                                 for p in res)
                     + f"; wall {wall:.3f} s; launches K2 "
-                    f"{got['score_surface']}, K1 {got['score_argmax']}, K5 "
+                    f"{got['score_surface']}, K1 {got['score_argmax']}, K1 "
+                    f"block-summed {got['score_argmax_sum']}, K5 "
                     f"{got['windowed_correlate']} [{card}]")
-    assert counts["score_surface"] > 0 and counts["score_argmax"] > 0
+    assert counts["score_surface"] > 0 and counts["score_argmax_sum"] > 0
     return counts
 
 
@@ -2135,7 +2251,7 @@ def check_cli(samples, hand, dev, card):
                                   "--out", str(tmp / "integ.csv")], 200 * T)
         err = csv_errors(tmp / "integ.csv", truth, 3, header=True)
         med = float(np.median(err))
-        assert counts.get("score_argmax", 0) > 0 and len(err) == 25
+        assert counts.get("score_argmax_sum", 0) > 0 and len(err) == 25
         assert med < 15.0, med
         diff = same_fixes_csv(tmp / "integ.csv", api_csv(
             "integ_api.csv", lambda rx: rx.run_integrated(
@@ -2150,7 +2266,8 @@ def check_cli(samples, hand, dev, card):
                        str(tmp / "s.json")], 200 * T)
         res = json.loads((tmp / "s.json").read_text())
         enu = r_e2n @ (np.array(res["x_ecef"][:3]) - truth[:3])
-        assert res["n_batches"] == 4 and counts.get("score_argmax", 0) > 0
+        assert res["n_batches"] == 4 and counts.get("score_argmax_sum",
+                                                    0) > 0
         assert abs(enu[0]) < 1.5 and abs(enu[1]) < 1.5, enu
         log(f"{line}, ENU error {enu[0]:.2f} / {enu[1]:.2f} / {enu[2]:.2f} m "
             f"(limits E, N 1.5) [{card}]")
@@ -2841,13 +2958,15 @@ def main() -> int:
         samples, hand, arr, grid, dev, card)
 
     k1_by_path = {"batched": k1_launches}
+    k1s_by_path = {}
     k5_by_path = {"batched": k5_launches, "cold start":
                   counts["windowed_correlate"], "per-block": k5_steps}
-    for path, check in (("integrated", check_integrated),
-                        ("survey", check_survey),
-                        ("refined", check_refined)):
-        k1_by_path[path], k5_by_path[path] = check(samples, hand, arr, grid,
-                                                   dev, card)
+    for path, check, k1_paths in (
+            ("integrated", check_integrated, k1s_by_path),
+            ("survey", check_survey, k1s_by_path),
+            ("refined", check_refined, k1_by_path)):
+        k1_paths[path], k5_by_path[path] = check(samples, hand, arr, grid,
+                                                 dev, card)
     assert all(n > 0 for n in k1_by_path.values()), k1_by_path
 
     k4c = check_coherent(st0, samples, table0, card)
@@ -2869,7 +2988,9 @@ def main() -> int:
     k2_by_path["live fleet"], k4_by_path["live fleet"] = live["k2"], \
         live["k4"]
     mc = check_montecarlo(samples, hand, dev, card)
-    k1_by_path["montecarlo"] = mc["score_argmax"]
+    if mc["score_argmax"]:          # the sweeps' DPE runs are integrated
+        k1_by_path["montecarlo"] = mc["score_argmax"]
+    k1s_by_path["montecarlo"] = mc["score_argmax_sum"]
     k2_by_path["montecarlo"] = mc["score_surface"]
     k5_by_path.update({"fleet": fl["k5"], "live fleet": live["k5"],
                        "montecarlo": mc["windowed_correlate"]})
@@ -2877,6 +2998,7 @@ def main() -> int:
     cl = check_cli(samples, hand, dev, card)
     log(f"CLI phase: wall {time.perf_counter() - t0:.3f} s [{card}]")
     k1_by_path["cli"] = cl["score_argmax"]
+    k1s_by_path["cli"] = cl["score_argmax_sum"]
     k2_by_path["cli"] = cl["score_surface"]
     k4_by_path["cli"] = cl["track_chunk"]
     k4c_by_path["cli"] = cl["track_chunk_coherent"]
@@ -2888,19 +3010,21 @@ def main() -> int:
     k5_by_path["cli"] = cl.get("windowed_correlate", 0)
     mesh = check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes)
     k1_by_path["mesh"] = mesh.get("score_argmax", 0)
+    k1s_by_path["mesh"] = mesh.get("score_argmax_sum", 0)
     k2_by_path["mesh"] = mesh.get("score_surface", 0)
     k5_by_path["mesh"] = mesh.get("windowed_correlate", 0)
     # last: after this phase's runs torch.profiler has shown no device
     # activity in a window (an H100 with torch 2.11), so the device records
     # of phases 5, 9 and 11 come before it
     k5 = check_k5(first, hand, arr, grid, dev, card)
-    for by_path in (k1_by_path, k2_by_path, k4_by_path, k4c_by_path,
-                    k4b_by_path, k3w_by_path, k5_by_path):
+    for by_path in (k1_by_path, k1s_by_path, k2_by_path, k4_by_path,
+                    k4c_by_path, k4b_by_path, k3w_by_path, k5_by_path):
         assert all(n > 0 for n in by_path.values()), by_path
 
     # no single PyTorch call computes any of these functions: library_ms is
     # null throughout
-    rows = [("K1", k1_by_path, k1), ("K2", k2_by_path, k2),
+    rows = [("K1", k1_by_path, k1),
+            ("K1 block-summed", k1s_by_path, k1_sum), ("K2", k2_by_path, k2),
             ("K3", k3_by_path, k3), ("K4", k4_by_path, k4),
             ("K4 coherent", k4c_by_path, k4c),
             ("K4 batch_k", k4b_by_path, k4b),
@@ -2909,8 +3033,13 @@ def main() -> int:
                     max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     **r["bound"], library_ms=None, device_ms=r["device_ms"],
                     launches_by_path=by_path) for k, by_path, r in rows]
-    kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"],
-                      **k1_sum)
+    kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"])
+    kernels[1].update({k: v for k, v in k1_sum.items()
+                       if k not in ("err", "ms", "plain_ms", "device_ms",
+                                    "bound", "bound_ms")})
+    kernels[7].update({k: v for k, v in k3w.items()
+                       if k not in ("err", "ms", "plain_ms", "device_ms",
+                                    "bound")})
     kernels[-1].update({k: v for k, v in k5.items()
                         if k not in ("err", "ms", "plain_ms", "device_ms",
                                      "bound")})
@@ -2920,11 +3049,12 @@ def main() -> int:
             f"{100.0 * k['bound_ms'] / k['ms']:.2f} % of it) [{card}]")
     log(f"profiler: {TAKES['windows']} windows taken for the device records "
         f"and the kernels' own times, {TAKES['empty']} of them showing none "
-        f"of the kernels sought (each then taken again, three times at most "
-        f"a reading)")
+        f"of the kernels sought and {TAKES['miscounted']} another count of a "
+        f"kernel's launches than the calls made (each then taken again, "
+        f"three times at most a reading)")
     # the cold-start path launches K3 standalone no time: its body runs as
     # K4's device code, once per tracked 1 ms step of each K4 launch
-    kernels[2]["steps_inside_track_chunk"] = k4_steps
+    kernels[3]["steps_inside_track_chunk"] = k4_steps
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

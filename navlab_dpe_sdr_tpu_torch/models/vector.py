@@ -122,16 +122,22 @@ class VectorReceiver:
             host = host.copy()
         return torch.from_numpy(host).to(self.device)
 
+    def _phases_on_device(self):
+        """rc, fc - F_CA, ri, fi as float32 [C] on the device, in one copy:
+        the columns of one [C, 4] tensor (K3's windows mode reads them by
+        their stride)."""
+        ph = np.stack([np.asarray(x, np.float32) for x in
+                       (self.rc, self.fc - F_CA, self.ri, self.fi)], axis=1)
+        dev = torch.from_numpy(ph).to(self.device)
+        return dev[:, 0], dev[:, 1], dev[:, 2], dev[:, 3]
+
     def step(self) -> VTFix:
         n = self.epoch_ms
         sats_eci, los = self._steer_from_state()
 
-        def f32(a):
-            return torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
-
         e, p, l = trk_ops.track_open_loop(
-            f32(self.rc), f32(self.fc - F_CA), f32(self.ri), f32(self.fi),
-            self._read_epoch(n), self.code_table, self.rawfile.fs)
+            *self._phases_on_device(), self._read_epoch(n), self.code_table,
+            self.rawfile.fs)
         epl = torch.stack([e, p, l]).cpu().numpy()        # [3, n, C, 2]
         e, p, l = (x[..., 0] + 1j * x[..., 1] for x in epl)
 

@@ -34,16 +34,18 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 # Kernel launches since the last reset, keyed by kernel and mode: K1
-# "score_argmax", K2 "score_surface", K3 "correlate_window" (one window) and
+# "score_argmax" (per block) and "score_argmax_sum" (block-summed), K2
+# "score_surface", K3 "correlate_window" (one window) and
 # "correlate_windows" (the windows mode), K4 "track_chunk" (m = 1),
 # "track_chunk_coherent" (m > 1) and "track_chunk_batched" (batch_k > 1),
 # K5 "windowed_correlate" (one call: its one cluster launch).
 # Each wrapper adds one right after its kernel launches, and nowhere else;
 # receivers of a fleet launch from threads of their own, so the count is
 # kept under a lock.
-KERNEL_MODES = ("score_argmax", "score_surface", "correlate_window",
-                "correlate_windows", "track_chunk", "track_chunk_coherent",
-                "track_chunk_batched", "windowed_correlate")
+KERNEL_MODES = ("score_argmax", "score_argmax_sum", "score_surface",
+                "correlate_window", "correlate_windows", "track_chunk",
+                "track_chunk_coherent", "track_chunk_batched",
+                "windowed_correlate")
 _launches: dict[str, int] = {}
 _count_lock = threading.Lock()
 

@@ -82,7 +82,13 @@
 //   with it bit-equality with the plain version and repeatability. With no
 //   second grid axis the tiles alone must fill the card; four points a
 //   thread still won over two and one at every shape read, down to the 382
-//   tiles of a 390 625-point grid, so kP stays 4 (make_plan).
+//   tiles of a 390 625-point grid, so kP stays 4 (make_plan). Splitting N
+//   over a thread-block cluster of R = 2, 4 or 8 a tile, each rank scoring
+//   a contiguous share of n and the owners adding the partials in ascending
+//   n through distributed shared memory (the same bits for every R), was
+//   slower on an H100 at N = 8, 25 and 50 on that grid: at 2.9 blocks an SM
+//   a block n already costs what it costs in the per-block modes, and a
+//   split adds its staging, barriers and tails (PERF.md).
 // - sinc: sin(pi (idx - k)) = (-1)^k sin(pi idx), so a point-channel takes
 //   one sinpif(idx) for all W taps, and sum_k win[k] sinc(idx - k) =
 //   sin(pi idx) / pi * sum_k (-1)^k win[k] / (idx - k). The window is staged

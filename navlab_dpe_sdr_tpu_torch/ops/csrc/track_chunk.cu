@@ -78,13 +78,29 @@
 // the on-path tail (with barrier 2), the service warp's staging and tail,
 // and the whole loop.
 //
-// K3's windows mode (correlate_window_launch with n_win > 0) is the open-loop
-// correlation of vector tracking (ops/tracking.py track_open_loop, which the
-// JAX package runs as an XLA scan): one cluster per (window, channel), the
-// window's phases from the f32 recurrence rc' = mod(rc + dfc T_MS, L_CA),
-// ri' = mod(ri + fi T_MS, 1) iterated from the first window as the plain
-// version iterates it, the 18 sums combined over the nav-bit hypotheses with
-// a zero prompt carry in the kernel: [W, C, 3, 2] out of one launch.
+// K3's windows mode (correlate_windows_launch) is the open-loop correlation
+// of vector tracking (ops/tracking.py track_open_loop, which the JAX package
+// runs as an XLA scan): the window's phases from the f32 recurrence
+// rc' = mod(rc + dfc T_MS, L_CA), ri' = mod(ri + fi T_MS, 1) iterated from
+// the first window as the plain version iterates it, the 18 sums combined
+// over the nav-bit hypotheses with a zero prompt carry in the kernel:
+// [W, C, 3, 2] out of one launch. Its own kernel (correlate_windows_kernel):
+// one thread block of kWinsLanes = 256 threads per (window, channel), no
+// cluster. A block copies its code row, the time table and its window
+// into shared memory with 4-byte cp.async copies, all in flight at once,
+// while it iterates the phase recurrence (floor_mod_near: fmodf's bits
+// without its iterative reduction, which cost 2.8 us of a 40-window
+// launch on an H100 80GB HBM3 at 700 W), then correlates ~10 samples a
+// thread and reduces; one barrier, no ring. An earlier form ran the 1 ms
+// K3 cluster per (window, channel), which copied the whole window, the
+// time table and the code row into each of its 4 blocks' shared memory
+// (~15 MB from L2 for 0.2 MB of samples at 20 windows x 8 channels) behind
+// a ring barrier and two cluster barriers, for ~8 samples a thread. 256
+// lanes beat 128 and 512 at 20 and 40 windows (more blocks an SM; 512 won
+// at one window by 5 %); reading the three in place instead of staging
+// them was 4 % slower at 20 windows, 36 % at one and 5 % faster at 40
+// (H100 80GB HBM3, 700 W). Its sum order is its own (ops/track.py
+// _kernel_order_sum with WINDOWS_LANES).
 //
 // The second K4 kernel (track_window_kernel) runs the two schedules the JAX
 // package computes in XLA (ops/tracking.py _track_chunk_jit at coh_ms > 1,
@@ -141,6 +157,10 @@ constexpr int kStateI = 5;
 constexpr int kLogF = 16;
 constexpr int kLogI = 3;
 constexpr int kClocks = 6;     // wait, correlate, barrier, on-path, tail, loop
+// K3's windows mode: its own thread count, so its own sum order
+// (ops/track.py WINDOWS_LANES, track_windows_lanes()).
+constexpr int kWinsLanes = 256;   // threads (lanes) per (window, channel)
+constexpr int kWinsWarps = kWinsLanes / 32;
 constexpr int kMaxM = 10;      // code periods a coherent window holds, at most
 constexpr int kMaxSeg = kMaxM + 2;
 // The second K4 kernel (coherent windows, batch_k): its own cluster size,
@@ -314,6 +334,21 @@ __device__ __forceinline__ float floor_mod(float a, float b) {
   return m;
 }
 
+// floor_mod(a, b), b > 0, without fmodf's iterative reduction where |a| < 2 b
+// (b = 1: |a| < 2^23). fmodf's result is exact, and so is each shortcut:
+// a - b for b <= a < 2 b (Sterbenz), a - trunc(a) with a's sign (fmodf(a, 1)
+// keeps the dividend's sign, a zero's too); so the bits are floor_mod's.
+// Used by the windows mode's phase recurrence, a chain of W steps.
+__device__ __forceinline__ float floor_mod_near(float a, float b) {
+  float m;
+  if (b == 1.0f && fabsf(a) < 8388608.0f) m = copysignf(a - truncf(a), a);
+  else if (a > -b && a < b) m = a;
+  else if (a >= b && a < 2.0f * b) m = a - b;
+  else m = fmodf(a, b);
+  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
+  return m;
+}
+
 __device__ __forceinline__ float sign_of(float x) {
   return (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
 }
@@ -374,11 +409,12 @@ __device__ __forceinline__ int reduce_owner(int lane) {
 }
 
 // K3 body, first half: this thread's share of the 18 sums of the window in
-// the ring slot `win` (samples g, g + kLanes, ...), reduced over its warp;
-// the lane that ends up owning sum `own` leaves the warp's partial in
-// `red[gwarp][own]` of every block of the channel. `g` is the thread's index
-// among the channel's kLanes, `own` its reduce_owner.
-template <typename T>
+// the ring slot `win` (samples g, g + kL, ...), reduced over its warp; the
+// lane that ends up owning sum `own` leaves the warp's partial in
+// `red[gwarp][own]` of every block of the channel (kToCluster; else of its
+// own block). `g` is the thread's index among the channel's kL, `own` its
+// reduce_owner.
+template <typename T, int kL = kLanes, bool kToCluster = true>
 __device__ __forceinline__ void correlate_partial(
     const T* win, const float* s_time, const float* s_code, int n_samp, float fs,
     float rc, float dfc, float ri, float fi, int g, int own, float (*red)[kSums]) {
@@ -393,12 +429,12 @@ __device__ __forceinline__ void correlate_partial(
   const float b2 = (2.0f * kLca - rc) * ratio;
   // kUnroll samples of this thread are evaluated side by side (they do not
   // depend on one another) and then added in their order.
-  for (int s0 = g; s0 < n_samp; s0 += kUnroll * kLanes) {
+  for (int s0 = g; s0 < n_samp; s0 += kUnroll * kL) {
     float bre[kUnroll], bim[kUnroll], e[kUnroll], p[kUnroll], l[kUnroll];
     int seg[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int s = min(s0 + u * kLanes, n_samp - 1);
+      const int s = min(s0 + u * kL, n_samp - 1);
       const float t = s_time[s];
       float re, im;
       load_iq(win, s, re, im);
@@ -425,7 +461,7 @@ __device__ __forceinline__ void correlate_partial(
   }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (s0 + u * kLanes >= n_samp) break;
+      if (s0 + u * kL >= n_samp) break;
       if (seg[u] == 0) NAVLAB_ACC(0)
       else if (seg[u] == 1) NAVLAB_ACC(1)
       else NAVLAB_ACC(2)
@@ -440,7 +476,11 @@ __device__ __forceinline__ void correlate_partial(
   halve<2>(acc, 1, lane);
   if (own >= 0) {
     float* mine = &red[g >> 5][own];
-    for (int r = 0; r < kCluster; ++r) store_to_rank(mine, r, acc[0]);
+    if (kToCluster) {
+      for (int r = 0; r < kCluster; ++r) store_to_rank(mine, r, acc[0]);
+    } else {
+      *mine = acc[0];
+    }
   }
 }
 
@@ -752,49 +792,109 @@ __device__ __forceinline__ void block_setup(const Smem& m, const float* time_idc
   channel_sync();   // peers' shared memory is live
 }
 
-template <typename T, bool kWin>
+template <typename T>
 __global__ void __launch_bounds__(kBlockThreads) __cluster_dims__(4, 1, 1)
 correlate_window_kernel(const T* __restrict__ raw, const float* __restrict__ time_idc,
                         const float* __restrict__ table, const float* __restrict__ phases,
-                        int n_samp, int n_chan, float fs, int bulk, float* __restrict__ out) {
+                        int n_samp, float fs, int bulk, float* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float s_red[kWarps][kSums];
   __shared__ __align__(8) uint64_t s_full[1];
-  const int q = blockIdx.x / kCluster;           // window * n_chan + channel
-  const int c = kWin ? q % n_chan : q;
-  const int w = kWin ? q / n_chan : 0;
+  const int c = blockIdx.x / kCluster;
   const int rank = cluster_rank();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Smem m = carve<T>(smem, n_samp, 1);           // a ring of one slot
   block_setup(m, time_idc, table + (size_t)c * kCode, n_samp, s_full, 1);
   if (warp == kBlockWarps) {
-    stage_window(m.ring, raw + (size_t)w * 2 * n_samp, m.win_bytes, &s_full[0], bulk != 0,
-                 lane);
+    stage_window(m.ring, raw, m.win_bytes, &s_full[0], bulk != 0, lane);
   } else {
     const float* ph = phases + 4 * c;  // rc, dfc, ri, fi
-    float rc = ph[0], ri = ph[2];
-    for (int i = 0; i < w; ++i) {      // the recurrence of the windows before
-      rc = floor_mod(rc + ph[1] * 1e-3f, kLca);
-      ri = floor_mod(ri + ph[3] * 1e-3f, 1.0f);
-    }
     mbar_wait(&s_full[0], 0);
     correlate_partial(reinterpret_cast<const T*>(m.ring), m.time, m.code, n_samp, fs,
-                      rc, ph[1], ri, ph[3], rank * kBlockCorr + (int)threadIdx.x,
+                      ph[0], ph[1], ph[2], ph[3], rank * kBlockCorr + (int)threadIdx.x,
                       reduce_owner<kSums>(lane), s_red);
   }
   channel_sync();
   if (rank == 0 && warp == 0) {
-    if (kWin) {
-      float sums[kSums], comb[6];
-      all_sums(s_red, lane, sums);
-      polarity_combine(sums, comb);
+    const float v = finish_sum(s_red, lane);
+    if (lane < kSums) out[c * kSums + lane] = v;
+  }
+}
+
+// 4-byte asynchronous copies global -> shared of `words` words, by the
+// block's threads; the caller waits with cp_async_wait_all().
+__device__ __forceinline__ void copy_words_async(void* dst, const void* src, int words) {
+  for (int i = threadIdx.x; i < words; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                     smem_u32(reinterpret_cast<uint32_t*>(dst) + i)),
+                 "l"(__cvta_generic_to_global(reinterpret_cast<const uint32_t*>(src) + i))
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Dynamic shared memory of a windows-mode block: the code row (1024
+// floats), the time table (S floats, rounded up to an even count) and the
+// window's S sample pairs.
+size_t windows_smem(int n_samp, int raw_i16) {
+  return ((size_t)kCode + 1 + ((size_t)n_samp + 1) / 2 * 2) * sizeof(float) +
+         (size_t)n_samp * 2 * (raw_i16 ? sizeof(int16_t) : sizeof(float));
+}
+
+// K3's windows mode: one thread block of kWinsLanes threads per (window,
+// channel), no cluster (see the note at the top). The blocks of the last
+// windows, whose phase recurrence is longest, start first. A block first
+// puts its code row, the time table and its window into shared memory
+// with asynchronous copies, all in flight at once, and iterates the phase
+// recurrence up to its window meanwhile (a warp issues it once for its 32
+// lanes); each thread then correlates samples g, g + kWinsLanes, ... and
+// reduces over its warp; warp 0 adds the warps' partials in warp order and
+// combines the nav-bit hypotheses with a zero prompt carry.
+template <typename T>
+__global__ void __launch_bounds__(kWinsLanes)
+correlate_windows_kernel(const T* __restrict__ raw, const float* __restrict__ time_idc,
+                         const float* __restrict__ table, const float* __restrict__ rc0,
+                         const float* __restrict__ dfc0, const float* __restrict__ ri0,
+                         const float* __restrict__ fi0, int ph_stride, int n_samp,
+                         int n_chan, int n_win, float fs, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float s_red[kWinsWarps][kSums];
+  const int c = blockIdx.x % n_chan;
+  const int w = n_win - 1 - (int)(blockIdx.x / n_chan);
+  const int lane = threadIdx.x & 31;
+  float* s_code = reinterpret_cast<float*>(smem);
+  float* s_time = s_code + kCode + 1;
+  T* s_win = reinterpret_cast<T*>(s_time + (n_samp + 1) / 2 * 2);
+  copy_words_async(s_code, table + (size_t)c * kCode, kCode);
+  copy_words_async(s_time, time_idc, n_samp);
+  copy_words_async(s_win, raw + (size_t)w * 2 * n_samp, n_samp * (int)(2 * sizeof(T) / 4));
+  const float dfc = dfc0[(size_t)c * ph_stride], fi = fi0[(size_t)c * ph_stride];
+  float rc = rc0[(size_t)c * ph_stride], ri = ri0[(size_t)c * ph_stride];
+  for (int i = 0; i < w; ++i) {        // the recurrence of the windows before
+    rc = floor_mod_near(rc + dfc * 1e-3f, kLca);
+    ri = floor_mod_near(ri + fi * 1e-3f, 1.0f);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  correlate_partial<T, kWinsLanes, false>(s_win, s_time, s_code, n_samp, fs, rc, dfc, ri,
+                                          fi, (int)threadIdx.x, reduce_owner<kSums>(lane),
+                                          s_red);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int i = lane < kSums ? lane : kSums - 1;
+    float v = s_red[0][i];
 #pragma unroll
-      for (int i = 0; i < 6; ++i)
-        if (lane == i) out[(size_t)q * 6 + i] = comb[i];
-    } else {
-      const float v = finish_sum(s_red, lane);
-      if (lane < kSums) out[c * kSums + lane] = v;
-    }
+    for (int wp = 1; wp < kWinsWarps; ++wp) v += s_red[wp][i];
+    float sums[kSums], comb[6];
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) sums[k] = __shfl_sync(0xffffffffu, v, k);
+    polarity_combine(sums, comb);
+    const size_t q = (size_t)w * n_chan + c;
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      if (lane == k) out[q * 6 + k] = comb[k];
   }
 }
 
@@ -1587,16 +1687,16 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
   return e;
 }
 
-template <typename T, bool kWin>
+template <typename T>
 int launch_correlate(const void* raw, const float* time_idc, const float* table,
-                     const float* phases, int n_chan, int n_samp, int n_win, float fs,
-                     int bulk, float* out, cudaStream_t s) {
+                     const float* phases, int n_chan, int n_samp, float fs, int bulk,
+                     float* out, cudaStream_t s) {
   const size_t smem = slot_bytes(n_samp, sizeof(T) == 2) + table_bytes(n_samp);
   static size_t allowed = 0;       // per instantiation
-  cudaError_t e = allow_smem(correlate_window_kernel<T, kWin>, smem, allowed);
+  cudaError_t e = allow_smem(correlate_window_kernel<T>, smem, allowed);
   if (e != cudaSuccess) return (int)e;
-  correlate_window_kernel<T, kWin><<<n_win * n_chan * kCluster, kBlockThreads, smem, s>>>(
-      (const T*)raw, time_idc, table, phases, n_samp, n_chan, fs, bulk, out);
+  correlate_window_kernel<T><<<n_chan * kCluster, kBlockThreads, smem, s>>>(
+      (const T*)raw, time_idc, table, phases, n_samp, fs, bulk, out);
   return (int)cudaGetLastError();
 }
 
@@ -1721,29 +1821,76 @@ int track_window_depth(int n_samp, int m, int kb, int raw_i16) {
 // and tail (its lane 0), and the whole step loop (thread 0).
 int track_clock_words() { return kClocks; }
 
-// K3: n_win == 0: out [C, 18] (tap, seg, re/im) for one window raw [S, 2]
-// (int16 when raw_i16, else f32; 4-byte aligned); phases [C, 4] = rc, dfc,
-// ri, fi; table [C, 1023]. n_win > 0, the windows mode: raw [n_win, S, 2],
-// phases those of the first window, out [n_win, C, 3, 2] (E, P, L combined).
-// Enqueues on `stream`, allocates nothing; returns a cudaError.
+// K3: out [C, 18] (tap, seg, re/im) for one window raw [S, 2] (int16 when
+// raw_i16, else f32; 4-byte aligned); phases [C, 4] = rc, dfc, ri, fi;
+// table [C, 1023]. Enqueues on `stream`, allocates nothing; returns a
+// cudaError.
 int correlate_window_launch(const void* raw, int raw_i16, const float* time_idc,
                             const float* table, const float* phases, int n_chan,
-                            int n_samp, int n_win, float fs, float* out, void* stream) {
-  if (n_chan <= 0 || n_win < 0 || (long long)(n_win > 0 ? n_win : 1) * n_chan >
-      2147483647LL / kCluster || ring_depth(n_samp, raw_i16) < 1 ||
+                            int n_samp, float fs, float* out, void* stream) {
+  if (n_chan <= 0 || n_chan > 2147483647 / kCluster || ring_depth(n_samp, raw_i16) < 1 ||
       (uintptr_t)raw % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int bulk = bulk_ok(raw, n_samp, raw_i16);
-  if (n_win > 0)
-    return raw_i16 ? launch_correlate<int16_t, true>(raw, time_idc, table, phases, n_chan,
-                                                     n_samp, n_win, fs, bulk, out, s)
-                   : launch_correlate<float, true>(raw, time_idc, table, phases, n_chan,
-                                                   n_samp, n_win, fs, bulk, out, s);
-  return raw_i16 ? launch_correlate<int16_t, false>(raw, time_idc, table, phases, n_chan,
-                                                    n_samp, 1, fs, bulk, out, s)
-                 : launch_correlate<float, false>(raw, time_idc, table, phases, n_chan,
-                                                  n_samp, 1, fs, bulk, out, s);
+  return raw_i16 ? launch_correlate<int16_t>(raw, time_idc, table, phases, n_chan, n_samp,
+                                             fs, bulk, out, s)
+                 : launch_correlate<float>(raw, time_idc, table, phases, n_chan, n_samp,
+                                           fs, bulk, out, s);
+}
+
+// Correlating threads per (window, channel) of K3's windows mode: its plain
+// sums follow this order (ops/track.py WINDOWS_LANES).
+int track_windows_lanes() { return kWinsLanes; }
+
+// Largest window (samples) K3's windows mode takes on the current device:
+// its code row, time table and window share the shared memory a block may
+// opt in to. 0 if the device cannot be asked.
+int track_windows_max_samples(int raw_i16) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return 0;
+  const size_t fixed = sizeof(float) * kWinsWarps * kSums + 1024 + (kCode + 2) * sizeof(float);
+  if ((size_t)optin <= fixed) return 0;
+  const size_t per = sizeof(float) + 2 * (raw_i16 ? sizeof(int16_t) : sizeof(float));
+  return (int)(((size_t)optin - fixed) / per);
+}
+
+// K3's windows mode: out [n_win, C, 3, 2] (E, P, L combined over the nav-bit
+// hypotheses) of raw [n_win, S, 2] (int16 when raw_i16, else f32; 4-byte
+// aligned), one block per (window, channel). rc, dfc, ri, fi: the first
+// window's phases, [C] each at element stride ph_stride (columns of one
+// [C, 4] tensor, or four vectors). Enqueues on `stream`, allocates nothing;
+// returns a cudaError.
+int correlate_windows_launch(const void* raw, int raw_i16, const float* time_idc,
+                             const float* table, const float* rc, const float* dfc,
+                             const float* ri, const float* fi, int ph_stride, int n_chan,
+                             int n_samp, int n_win, float fs, float* out, void* stream) {
+  if (n_chan <= 0 || n_win <= 0 || n_samp <= 0 || ph_stride <= 0 ||
+      n_samp > track_windows_max_samples(raw_i16) ||
+      (long long)n_win * n_chan > 2147483647LL || (uintptr_t)raw % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned blocks = (unsigned)(n_win * n_chan);
+  const size_t smem = windows_smem(n_samp, raw_i16);
+  if (raw_i16) {
+    static size_t allowed = 48 * 1024;
+    cudaError_t e = allow_smem(correlate_windows_kernel<int16_t>, smem, allowed);
+    if (e != cudaSuccess) return (int)e;
+    correlate_windows_kernel<int16_t><<<blocks, kWinsLanes, smem, s>>>(
+        (const int16_t*)raw, time_idc, table, rc, dfc, ri, fi, ph_stride, n_samp, n_chan,
+        n_win, fs, out);
+  } else {
+    static size_t allowed = 48 * 1024;
+    cudaError_t e = allow_smem(correlate_windows_kernel<float>, smem, allowed);
+    if (e != cudaSuccess) return (int)e;
+    correlate_windows_kernel<float><<<blocks, kWinsLanes, smem, s>>>(
+        (const float*)raw, time_idc, table, rc, dfc, ri, fi, ph_stride, n_samp, n_chan,
+        n_win, fs, out);
+  }
+  return (int)cudaGetLastError();
 }
 
 // K4: n_steps windows raw [steps, S, 2] of p.m code periods each; state

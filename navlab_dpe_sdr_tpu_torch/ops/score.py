@@ -16,7 +16,8 @@ summed per grid point, in float32 and in ascending n, before the running
 On a CUDA tensor it launches the hand-written Hopper kernel
 `csrc/score_argmax.cu` (the port of ops/pallas_score.py `_chunk_kernel`);
 on a CPU tensor it runs `score_argmax_plain`, the same arithmetic in plain
-PyTorch. There is no fallback between the two.
+PyTorch. There is no fallback between the two. The kernel's launches are
+counted under "score_argmax" per block and "score_argmax_sum" block-summed.
 
 `score_surface` returns the whole [N, G] surface instead (the per-block
 step's `score_manifolds_mag`, navlab_dpe_sdr_tpu/ops/dpe_real.py:751, whose
@@ -214,8 +215,9 @@ def score_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
     mode = MODE_WEIGHTED if weighted else MODE_ARGMAX
     if block_sum:
         mode = MODE_SUM_WEIGHTED if weighted else MODE_SUM_ARGMAX
-    res = _launch("score_argmax", mode, win_mag, los_enu, centers, coefs, r0,
-                  off3, off1, interp, int(l_power))[1:]
+    res = _launch("score_argmax_sum" if block_sum else "score_argmax", mode,
+                  win_mag, los_enu, centers, coefs, r0, off3, off1, interp,
+                  int(l_power))[1:]
     return tuple(t[0] for t in res) if block_sum else res
 
 

@@ -46,6 +46,7 @@ N_LOG_F = 16         # float log rows per step at m = 1 (tracking.LOG_F_ROWS)
 N_LOG_I = 3          # int32 log rows per step: cp, ncp, lock
 MAX_COH_MS = 10      # code periods a coherent window holds, at most
 KERNEL_THREADS = 1280  # correlating threads per channel (track_threads())
+WINDOWS_LANES = 256    # the same, K3's windows mode (track_windows_lanes())
 WINDOW_LANES = 2560    # the same, coherent/batched kernel (track_window_lanes())
 MAX_PASS = 4           # 1 ms windows a batch correlates together, at most
 MAX_PASS_SEG = 12      # segments a correlation pass holds
@@ -70,7 +71,8 @@ def n_log_f(m: int) -> int:
 
 
 def correlate_window_plain(raw_re, raw_im, rc, dfc, ri, fi, code_table,
-                           time_idc, fs: float, m: int = 1, warps=None):
+                           time_idc, fs: float, m: int = 1, warps=None,
+                           lanes: int = KERNEL_THREADS):
     """Plain PyTorch K3: sums [C, 3 tap (E, P, L), m + 2 seg, 2 (re, im)]
     f32 and ncp [C] int32 of one window of m code periods raw_re/raw_im
     [S] f32, per-channel rc/dfc/ri/fi [C] f32, code_table [C, 1023] f32,
@@ -79,7 +81,8 @@ def correlate_window_plain(raw_re, raw_im, rc, dfc, ri, fi, code_table,
     The f32 operations are those of the JAX `_correlate_step(m)` (gather
     replicas at the mid-window phase rc + dfc m/2 ms, the m + 1 segment
     boundaries k L_CA at the true fc), and those of the kernels in the
-    kernels' order, sums included: the 1 ms kernels' (`_kernel_order_sum`)
+    kernels' order, sums included: the 1 ms kernels' (`_kernel_order_sum`
+    over `lanes`: KERNEL_THREADS, or WINDOWS_LANES for K3's windows mode)
     or, given `warps` (window_warps()), the coherent/batched kernel's
     (`_window_order_sum`)."""
     c = code_table.shape[0]
@@ -111,7 +114,7 @@ def correlate_window_plain(raw_re, raw_im, rc, dfc, ri, fi, code_table,
     w = (repl[:, :, :, None] * segm[:, :, None, :]).reshape(c, s, 3 * n_seg)
     bb = torch.stack([bb_re, bb_im], dim=1)                 # [C, 2, S]
     prod = bb[:, :, None, :] * w.transpose(1, 2)[:, None]   # [C, 2, 3n, S]
-    total = (_kernel_order_sum(prod) if warps is None
+    total = (_kernel_order_sum(prod, lanes) if warps is None
              else _window_order_sum(prod, warps))
     sums = total.reshape(c, 2, 3, n_seg).permute(0, 2, 3, 1)
     ncp = torch.floor((float(np.float32(s / fs)) * fc + rc)
@@ -119,21 +122,21 @@ def correlate_window_plain(raw_re, raw_im, rc, dfc, ri, fi, code_table,
     return sums.contiguous(), ncp
 
 
-def _kernel_order_sum(prod):
-    """Sum over the last axis in the kernel's order: each of KERNEL_THREADS
-    threads adds every KERNEL_THREADS-th term in turn, a warp-shuffle tree
-    reduces each warp, then the warps are added in turn. The products are
-    exact (chips are +/-1, segments 0/1), so the sums, and the closed loop
-    they drive, match the kernel's bit for bit where the elementwise
-    functions do."""
+def _kernel_order_sum(prod, lanes: int = KERNEL_THREADS):
+    """Sum over the last axis in the kernel's order: each of `lanes`
+    threads adds every lanes-th term in turn, a warp-shuffle tree reduces
+    each warp, then the warps are added in turn. The products are exact
+    (chips are +/-1, segments 0/1), so the sums, and the closed loop they
+    drive, match the kernel's bit for bit where the elementwise functions
+    do."""
     s = prod.shape[-1]
-    pad = (-s) % KERNEL_THREADS
+    pad = (-s) % lanes
     p = torch.nn.functional.pad(prod, (0, pad))
-    p = p.reshape(p.shape[:-1] + (-1, KERNEL_THREADS))
+    p = p.reshape(p.shape[:-1] + (-1, lanes))
     acc = p[..., 0, :]
     for r in range(1, p.shape[-2]):
         acc = acc + p[..., r, :]
-    acc = acc.reshape(acc.shape[:-1] + (KERNEL_THREADS // 32, 32))
+    acc = acc.reshape(acc.shape[:-1] + (lanes // 32, 32))
     for half in (16, 8, 4, 2, 1):
         acc = acc[..., :half] + acc[..., half:2 * half]
     acc = acc[..., 0]
@@ -211,7 +214,7 @@ def correlate_window(raw, rc, dfc, ri, fi, code_table, fs: float):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc_ = lib.correlate_window_launch(
             raw.data_ptr(), int(raw.dtype == torch.int16), time_idc.data_ptr(),
-            table.data_ptr(), phases.data_ptr(), c, s, 0,
+            table.data_ptr(), phases.data_ptr(), c, s,
             float(np.float32(fs)), out.data_ptr(), stream)
     _raise_on(lib, rc_, "correlate_window")
     _build.count_launch("correlate_window")
@@ -225,33 +228,62 @@ def correlate_windows_cuda(raw, rc, dfc, ri, fi, code_table, fs: float):
     rc_{w+1} = mod(rc_w + dfc T_MS, L_CA), ri_{w+1} = mod(ri_w + fi T_MS, 1)
     from rc/ri [C] (iterated in the kernel, as the plain version does), at
     the rates dfc/fi [C]; its segment sums are combined over the nav-bit
-    hypotheses with a zero prompt carry (ops/tracking.track_open_loop)."""
+    hypotheses with a zero prompt carry (ops/tracking.track_open_loop). The
+    kernel reads rc/dfc/ri/fi by one element stride: columns of one [C, 4]
+    tensor (one host-to-device copy, VectorReceiver.step) go in as they
+    are, other vectors are made contiguous first."""
     dev = raw.device
     if dev.type != "cuda":
         raise ValueError(f"correlate_windows_cuda needs a CUDA tensor, "
                          f"got {dev}")
     n_win, s = int(raw.shape[0]), int(raw.shape[1])
+    if n_win < 1:
+        raise ValueError("correlate_windows: no windows")
     c = code_table.shape[0]
     raw = _raw_operand(raw, 3)
-    phases = torch.stack([_f32(x, dev, (c,), n) for x, n in
-                          ((rc, "rc"), (dfc, "dfc"), (ri, "ri"),
-                           (fi, "fi"))], dim=1).contiguous()
+    phases = [_f32(x, dev, (c,), n, contiguous=False) for x, n in
+              ((rc, "rc"), (dfc, "dfc"), (ri, "ri"), (fi, "fi"))]
+    if len({x.stride(0) for x in phases}) != 1 or phases[0].stride(0) < 1:
+        phases = [x.contiguous() for x in phases]
     table = _f32(code_table, dev, (c, int(L_CA)), "code_table")
     time_idc = window_times(s, fs, dev)
     out = torch.empty((n_win, c, 3, 2), dtype=torch.float32, device=dev)
     lib = _lib()
-    _check_samples(lib, s, raw)
-    if n_win < 1:
-        raise ValueError("correlate_windows: no windows")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc_ = lib.correlate_window_launch(
+    most = _windows_most(lib, dev, raw.dtype == torch.int16)
+    if s > most:
+        raise ValueError(f"window of {s} {raw.dtype} samples exceeds the "
+                         f"windows mode's {most} on {dev} (shared memory)")
+
+    def launch():
+        return lib.correlate_windows_launch(
             raw.data_ptr(), int(raw.dtype == torch.int16), time_idc.data_ptr(),
-            table.data_ptr(), phases.data_ptr(), c, s, n_win,
-            float(np.float32(fs)), out.data_ptr(), stream)
+            table.data_ptr(), *(x.data_ptr() for x in phases),
+            phases[0].stride(0), c, s, n_win, float(np.float32(fs)),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc_ = launch()
+    else:                       # the launch goes to the current device
+        with torch.cuda.device(dev):
+            rc_ = launch()
     _raise_on(lib, rc_, "correlate_windows")
     _build.count_launch("correlate_windows")
     return out
+
+
+_windows_max: dict = {}
+
+
+def _windows_most(lib, dev, i16: bool) -> int:
+    """The largest window K3's windows mode takes on `dev` (the kernel asks
+    the device for its opt-in shared memory), read once a device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    most = _windows_max.get((idx, i16))
+    if most is None:
+        with torch.cuda.device(idx):
+            most = _windows_max[(idx, i16)] = lib.track_windows_max_samples(
+                int(i16))
+    return most
 
 
 class TrackParams(ctypes.Structure):
@@ -348,8 +380,11 @@ def track_chunk_cuda(stf, sti, rings, raw, code_table, fs: float,
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.correlate_window_launch.argtypes = [p, i, p, p, p, i, i, i, f, p, p]
+    lib.correlate_window_launch.argtypes = [p, i, p, p, p, i, i, f, p, p]
     lib.correlate_window_launch.restype = i
+    lib.correlate_windows_launch.argtypes = [p, i] + [p] * 6 + [i] * 4 + [
+        f, p, p]
+    lib.correlate_windows_launch.restype = i
     lib.track_chunk_launch.argtypes = ([p, i] + [p] * 10 + [i, i, i]
                                        + [TrackParams, p, p])
     lib.track_chunk_launch.restype = i
@@ -360,6 +395,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                      (lib.track_window_lanes, []),
                      (lib.track_window_cluster, []),
                      (lib.track_params_size, []), (lib.track_threads, []),
+                     (lib.track_windows_lanes, []),
+                     (lib.track_windows_max_samples, [i]),
                      (lib.track_cluster, []),
                      (lib.track_clock_words, [])):
         fn.argtypes, fn.restype = args, i
@@ -376,6 +413,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         raise RuntimeError(f"kernel sums over {lib.track_threads()} "
                            f"threads per channel, plain sum order "
                            f"assumes {KERNEL_THREADS}")
+    if lib.track_windows_lanes() != WINDOWS_LANES:
+        raise RuntimeError(f"windows mode sums over "
+                           f"{lib.track_windows_lanes()} lanes, plain sum "
+                           f"order assumes {WINDOWS_LANES}")
     if lib.track_window_lanes() != WINDOW_LANES or any(
             lib.track_window_pass(m, kb) != window_pass(m, kb)
             for m in range(1, MAX_COH_MS + 1) for kb in range(1, 13)):
@@ -433,10 +474,10 @@ def _raw_operand(raw, ndim: int):
     return raw.clone() if raw.data_ptr() % 4 else raw
 
 
-def _f32(t, dev, shape, name):
+def _f32(t, dev, shape, name, contiguous=True):
     if t.device != dev or t.dtype != torch.float32:
         raise ValueError(f"{name}: need float32 on {dev}, got {t.dtype} on "
                          f"{t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-    return t.contiguous()
+    return t.contiguous() if contiguous else t

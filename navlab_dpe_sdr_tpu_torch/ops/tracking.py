@@ -639,14 +639,16 @@ def track_open_loop_plain(rc, dfc, ri, fi, raw_chunk, code_table, fs: float):
     over W consecutive 1 ms windows raw_chunk [W, S, 2], window w at the
     phases of the f32 recurrence rc_{w+1} = mod(rc_w + dfc T_MS, L_CA),
     ri_{w+1} = mod(ri_w + fi T_MS, 1), each combined over the nav-bit
-    hypotheses with a zero prompt carry."""
+    hypotheses with a zero prompt carry. Sums in K3's windows-mode order
+    (WINDOWS_LANES lanes)."""
     s = raw_chunk.shape[1]
     time_idc = _track.window_times(s, fs, raw_chunk.device)
     out = []
     for w in range(raw_chunk.shape[0]):
         raw = raw_chunk[w].float()
         sums, ncp = correlate_window_plain(raw[:, 0], raw[:, 1], rc, dfc, ri,
-                                           fi, code_table, time_idc, fs)
+                                           fi, code_table, time_idc, fs,
+                                           lanes=_track.WINDOWS_LANES)
         e_r, p_r, l_r, _, _, _ = _polarity_combine(
             _open_loop_state(rc, ri, dfc, fi), sums[:, 0], sums[:, 1],
             sums[:, 2], ncp)

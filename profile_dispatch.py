@@ -4,6 +4,8 @@ of one 50-block dispatch of each kind, read by one routine for any tree that
 holds the port:
 
     python3 profile_dispatch.py [--tree DIR] [--label NAME]
+    python3 profile_dispatch.py --walls SECONDS [--tree DIR] [--label NAME]
+    python3 profile_dispatch.py --pairs N --parent DIR [--walls SECONDS]
 
 --tree is the directory whose navlab_dpe_sdr_tpu_torch is imported (this
 script's own by default), so two trees are set side by side by running this
@@ -17,6 +19,15 @@ each; then one more dispatch of each kind under torch.profiler
 profiled wall, the device ms of K1 ("score_kernel") and K5 ("windowed_"),
 and how many times the window was taken. The last line is a JSON object of
 those numbers. Needs a CUDA card; imports nothing of JAX.
+
+--walls SECONDS times, instead, each host-bound path over a window of at
+least SECONDS of host time (`walls`): rounds of a fresh receiver, set up and
+warmed outside the window, on the same capture. --pairs N runs this script
+with --walls 2N times, each in a process of its own, on the --parent tree
+and on this one in the order parent, change, change, parent, ... (N pairs),
+and prints each path's rate on both sides with its median and range, and
+whether the two ranges are apart ("resolved") or overlap ("unresolved", with
+the spread that hides any difference smaller than it).
 
 This is also the measurement module the other scripts share:
 chip_smoke.py, windowed_times.py and track_window_terms.py read device
@@ -50,7 +61,9 @@ T = 0.02                  # seconds per block
 N_BLOCKS = 50             # blocks per dispatch (the lookahead)
 K1_K5 = ("score_kernel", "windowed_")     # K1/K2's and K5's kernel names
 # profiler windows taken ("windows"), and how many of them showed none of
-# the kernels sought ("empty"; the window is then taken again)
+# the kernels sought ("empty") or, for a kernel's own time, another count
+# of its launches than the calls made ("miscounted"); either window is
+# then taken again
 TAKES = collections.Counter()
 
 
@@ -162,10 +175,14 @@ def card_line() -> str:
 
 def kernel_device_ms(fn, reps: int, name: str):
     """The device's own ms per launch of the kernels whose name holds
-    `name`, from torch.profiler over `reps` calls of fn (per launch the
-    profiler recorded: it can drop one, and now and then a whole window,
-    which is taken again, three times at most); None when it showed
-    none."""
+    `name`, from torch.profiler over `reps` calls of fn, each launching it
+    once. The `reps` calls are the last of three such runs in one profiler
+    window (device_profile's lead-in: the profiler can lose a window's
+    first device records). A reading is taken only from a window that
+    recorded `reps` launches of it in the counted run, or reps - 1; a
+    window that recorded another count (none, or too few: a misread at a
+    fraction of the time) is taken again, three times at most, and counted
+    in TAKES ("empty", "miscounted"). None when no window counted right."""
     fn()
 
     def loop():
@@ -173,12 +190,13 @@ def kernel_device_ms(fn, reps: int, name: str):
             fn()
 
     for _ in range(3):
-        found = [v for k, v in device_profile(loop)[3].items() if name in k]
+        found = [v for k, v in device_profile(loop, lead_in=2)[3].items()
+                 if name in k]
         count = sum(n for _, n in found)
         TAKES["windows"] += 1
-        if count:
+        if count and count in (reps, reps - 1):
             return sum(ms for ms, _ in found) / count
-        TAKES["empty"] += 1
+        TAKES["empty" if count == 0 else "miscounted"] += 1
     return None
 
 
@@ -357,16 +375,163 @@ def main_path(first, hand, arr, grid, dev, card, log=print) -> dict:
     return out
 
 
+def walls(samples, hand, arr, grid, dev, card, seconds: float,
+          log=print) -> dict:
+    """Each host-bound path's wall over a window of at least `seconds` of
+    host time, in rounds: a fresh receiver is made and warmed outside the
+    window, then the timed run (synchronized at both ends) goes into it.
+    per-block and grouped K=5: run_batched over blocks 50 .. end after 50
+    warm ones (lookahead 50, pipeline depth 4, the capture on the card);
+    integrated: run_integrated noncoherent, 8 blocks a fix, after one warm
+    fix; vector: VectorReceiver, 500 epochs after 50 warm ones. Returns
+    {path: dict(rate, unit, window_s, rounds, round_min, round_max)}: the
+    real-time factor (s of signal a s of wall) or epochs a second over the
+    whole window, and the slowest and fastest round's."""
+    from navlab_dpe_sdr_tpu_torch.io.rawfile import SampleFile
+    from navlab_dpe_sdr_tpu_torch.models.dpe import DPEConfig, DPEReceiver
+    from navlab_dpe_sdr_tpu_torch.models.vector import VectorReceiver
+
+    raw_dev = torch.from_numpy(samples.view(np.int16).reshape(-1, S, 2)
+                               ).to(dev)
+    n_all = raw_dev.shape[0]
+    run = dict(lookahead=N_BLOCKS, raw_blocks_dev=raw_dev, pipeline=True,
+               pipeline_depth=4)
+
+    def dpe():
+        return DPEReceiver(SampleFile(samples=samples, fs=FS),
+                           copy.deepcopy(hand), grid=grid,
+                           eph=copy.deepcopy(arr),
+                           config=DPEConfig(ekf_mode="alpha", ekf_alpha=0.3),
+                           device=dev)
+
+    def batched(group_k):
+        def make():
+            rx = dpe()
+            rx.run_batched(N_BLOCKS, start_block=0, group_k=group_k, **run)
+            return rx
+
+        def go(rx):
+            n = (n_all - N_BLOCKS) // N_BLOCKS * N_BLOCKS
+            rx.run_batched(n, start_block=N_BLOCKS, group_k=group_k, **run)
+            return n * T
+        return make, go
+
+    def integrated():
+        def make():
+            rx = dpe()
+            rx.run_integrated(1, 8, raw_blocks_dev=raw_dev)
+            return rx
+
+        def go(rx):
+            n_fix = (n_all - 8) // 8
+            rx.run_integrated(n_fix, 8, raw_blocks_dev=raw_dev, start_block=8)
+            return n_fix * 8 * T
+        return make, go
+
+    def vector():
+        def make():
+            vt = VectorReceiver(SampleFile(samples=samples, fs=FS),
+                                hand.prn_list, copy.deepcopy(arr),
+                                hand.x_ecef, hand.rx_time, cp=hand.cp,
+                                rc=hand.rc, fc=hand.fc, fi=hand.fi,
+                                ri=hand.ri, device=dev)
+            vt.run(50)
+            return vt
+
+        def go(vt):
+            vt.run(500)
+            return 500
+        return make, go
+
+    out = {}
+    for path, unit, (make, go) in (
+            ("per-block", "x real time", batched(1)),
+            ("grouped K=5", "x real time", batched(5)),
+            ("integrated", "x real time", integrated()),
+            ("vector", "epochs/s", vector())):
+        window = amount = 0.0
+        rates = []
+        while window < seconds:
+            obj = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = go(obj)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            window += dt
+            amount += got
+            rates.append(got / dt)
+            del obj
+        out[path] = dict(rate=amount / window, unit=unit, window_s=window,
+                         rounds=len(rates), round_min=min(rates),
+                         round_max=max(rates))
+        log(f"wall, {path}: {out[path]['rate']:.2f} {unit} over "
+            f"{window:.3f} s of host time in {len(rates)} rounds (a round "
+            f"{min(rates):.2f} to {max(rates):.2f}) [{card}]")
+    return out
+
+
+def pairs(n_pairs: int, parent: str, seconds: float) -> dict:
+    """--pairs: this script with --walls on the parent tree and on this one,
+    alternating (parent, change, change, parent, ...), a process each.
+    Returns {path: dict(parent=[rates], change=[rates], unit, verdict)}."""
+    here = pathlib.Path(__file__).resolve()
+    order = [("parent", "change"), ("change", "parent")]
+    trees = dict(parent=str(pathlib.Path(parent).resolve()),
+                 change=str(here.parent))
+    runs = dict(parent=[], change=[])
+    for i in range(n_pairs):
+        for side in order[i % 2]:
+            res = subprocess.run(
+                [sys.executable, str(here), "--tree", trees[side], "--label",
+                 side, "--walls", str(seconds)], capture_output=True,
+                text=True)
+            print(res.stdout.rstrip(), flush=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"--walls on {side} failed:\n{res.stderr}")
+            runs[side].append(json.loads(res.stdout.strip().splitlines()[-1])
+                              ["walls"])
+    out = {}
+    card = card_line()
+    for path in runs["change"][0]:
+        a = [r[path]["rate"] for r in runs["parent"]]
+        b = [r[path]["rate"] for r in runs["change"]]
+        med_a, med_b = float(np.median(a)), float(np.median(b))
+        apart = min(b) > max(a) or max(b) < min(a)
+        spread = 100.0 * (max(a + b) - min(a + b)) / med_a
+        verdict = (f"resolved: the change {100.0 * (med_b / med_a - 1):+.1f} %"
+                   if apart else f"unresolved: the ranges overlap, spread "
+                   f"{spread:.1f} % of the parent's median")
+        out[path] = dict(parent=a, change=b, unit=runs["change"][0][path]
+                         ["unit"], verdict=verdict)
+        print(f"pairs, {path} ({out[path]['unit']}): parent median "
+              f"{med_a:.2f} ({min(a):.2f} to {max(a):.2f}), change median "
+              f"{med_b:.2f} ({min(b):.2f} to {max(b):.2f}), {n_pairs} "
+              f"pairs; {verdict} [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).parent),
                     help="directory holding the navlab_dpe_sdr_tpu_torch "
                          "to measure")
     ap.add_argument("--label", default="", help="name printed in the JSON")
+    ap.add_argument("--walls", type=float, default=0.0,
+                    help="time each host-bound path over this many seconds")
+    ap.add_argument("--pairs", type=int, default=0,
+                    help="alternate --walls on --parent and this tree")
+    ap.add_argument("--parent", help="the tree set against this one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_dispatch: no CUDA device", file=sys.stderr)
         return 2
+    if args.pairs:
+        if not args.parent:
+            ap.error("--pairs needs --parent")
+        res = pairs(args.pairs, args.parent, args.walls or 3.0)
+        print(json.dumps(dict(pairs=res)), flush=True)
+        return 0
     tree = pathlib.Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
     from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16
@@ -387,6 +552,12 @@ def main() -> int:
                                                32767)
         samples["q"][s0:s0 + len(iq)] = np.clip(np.round(iq.imag), -32768,
                                                32767)
+    if args.walls:
+        res = walls(samples, hand, arr, spread_grid(), torch.device("cuda"),
+                    card, args.walls, log=lambda m: print(m, flush=True))
+        print(json.dumps(dict(label=args.label, tree=str(tree), card=card,
+                              walls=res)), flush=True)
+        return 0
     res = main_path(samples, hand, arr, spread_grid(),
                     torch.device("cuda"), card,
                     log=lambda m: print(m, flush=True))

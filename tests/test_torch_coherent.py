@@ -550,3 +550,58 @@ def test_coherent_cold_start_end_to_end():
     _, _, x_ecef, _, _ = rx.nav_solution()
     assert np.linalg.norm(x_ecef[:3] - hand.x_ecef[:3]) < 15.0
     assert np.linalg.norm(x_ecef[4:7]) < 0.5
+
+
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+@pytest.mark.parametrize("n_samp", [S, S + 1])
+@pytest.mark.parametrize("n_win", [1, 3, 20])
+def test_open_loop_windows_order_matches_jax_op_by_op(n_win, n_samp, dtype):
+    """track_open_loop_plain sums in K3's windows-mode order
+    (track.WINDOWS_LANES lanes, `_kernel_order_sum`): E/P/L within 1e-4 of
+    the prompt peak of the JAX scan run op by op (the limit of
+    test_open_loop_matches_jax), for windows of S and S + 1 samples (a
+    window that is no multiple of the lanes' 16-byte pairs), int16 and
+    float32 samples."""
+    sim, hand, _ = make_scenario(nav_data=True)
+    iq = sim.generate(n_samp * n_win)
+    raw = np.stack([np.round(iq.real), np.round(iq.imag)], -1).reshape(
+        n_win, n_samp, 2)
+    raw = raw.astype(np.int16) if dtype == "int16" else (
+        raw * 0.3).astype(np.float32)
+    tab = ca_table(hand.prn_list).astype(np.float32)
+    args = [np.asarray(x, np.float32) for x in
+            (hand.rc, np.asarray(hand.fc) - F_CA, hand.ri, hand.fi)]
+    with jax.disable_jit():
+        ref = jt.track_open_loop(*map(jnp.asarray, args), jnp.asarray(raw),
+                                 jnp.asarray(tab), FS, unroll=1)
+    got = tt.track_open_loop_plain(*map(_t, args), _t(raw), _t(tab), FS)
+    peak = np.abs(np.asarray(ref[1])).max()
+    for k, r in enumerate(ref):
+        assert got[:, :, k].shape == (n_win, 8, 2)
+        assert np.abs(np.asarray(r) - got[:, :, k].numpy()).max() \
+            < 1e-4 * peak
+
+
+@pytest.mark.parametrize("lanes", [256, 1280])
+def test_kernel_order_sum_simulates_the_lanes(lanes):
+    """`_kernel_order_sum(prod, lanes)` (K3's windows mode at 256 lanes, the
+    1 ms kernels at 1280) equals the kernel's order simulated lane by lane
+    in float32: lane i adds samples i, i + lanes, ... in turn, each warp's
+    32 lanes are halved 16, 8, 4, 2, 1, the warps are added in turn."""
+    from navlab_dpe_sdr_tpu_torch.ops import track as ttrack
+    rng = np.random.default_rng(lanes)
+    for n in (S, S + 1):
+        prod = (rng.standard_normal((3, n)) * 100).astype(np.float32)
+        got = ttrack._kernel_order_sum(torch.from_numpy(prod), lanes).numpy()
+        for row in range(prod.shape[0]):
+            acc = np.zeros(lanes, np.float32)
+            for s0 in range(0, n, lanes):
+                part = prod[row, s0:s0 + lanes]
+                acc[:part.size] = (acc[:part.size] + part).astype(np.float32)
+            tot = None
+            for w in range(lanes // 32):
+                v = acc[32 * w:32 * w + 32]
+                for half in (16, 8, 4, 2, 1):
+                    v = (v[:half] + v[half:2 * half]).astype(np.float32)
+                tot = v[0] if tot is None else np.float32(tot + v[0])
+            assert got[row] == tot, (n, row)

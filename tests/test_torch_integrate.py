@@ -116,6 +116,46 @@ def test_block_sum_matches_jax_accumulate(with_r0, l_power, interp,
     _check_sum(out, ref, weighted, 2e-5 if interp == "sinc" else 1e-5)
 
 
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 50])
+@pytest.mark.parametrize("interp", ["quadratic", "linear"])
+def test_block_sum_matches_jax_accumulate_over_n(interp, n):
+    """N = 1 (one block: no sum), 2, 7, 8 (the integrated fix) and 50 (a
+    survey batch): the plain block sum, which the card's kernel is held to
+    bit for bit, against the JAX `_score_axis_accumulate` at the tolerance
+    above."""
+    args = _inputs(seed=100 + n, n=n, w=12, g=2003)
+    ref = _jax_accumulate(args, interp, 1, True)
+    out = _port_sum(args, interp, 1, True)
+    _check_sum(out, ref, True, 1e-5)
+
+
+@pytest.mark.parametrize("layout", ["twice over", "twice in a row",
+                                    "twice in a row, one point on"])
+def test_block_sum_tie_goes_to_first_copy(layout):
+    """Every grid point laid out twice, so that its copies tie exactly
+    (across the JAX scan's chunks and the kernel's tiles; among a thread's
+    points; across threads): the port's plain block sum takes the first
+    copy of the point the single layout takes, as the JAX
+    `_score_axis_accumulate` does."""
+    win, los, centers, coefs, r0, o3, o1 = _inputs(seed=57, n=8, w=12,
+                                                   g=1001)
+    k = int(_port_sum((win, los, centers, coefs, r0, o3, o1), "quadratic",
+                      1, False)[1])
+    if layout == "twice over":
+        o3, o1, first = np.concatenate([o3, o3]), np.concatenate([o1, o1]), k
+    else:
+        o3, o1, first = np.repeat(o3, 2, axis=0), np.repeat(o1, 2), 2 * k
+        if layout != "twice in a row":
+            o3 = np.concatenate([o3[-1:], o3])
+            o1 = np.concatenate([o1[-1:], o1])
+            first = 0 if k == 1000 else 2 * k + 1
+    args = (win, los, centers, coefs, r0, o3, o1)
+    ref = _jax_accumulate(args, "quadratic", 1, False)
+    out = _port_sum(args, "quadratic", 1, False)
+    _check_sum(out, ref, False, 1e-5)
+    assert int(out[1]) == first
+
+
 @pytest.mark.parametrize("interp", ["quadratic", "sinc"])
 @pytest.mark.parametrize("has_r0", [True, False])
 def test_score_joint_argmax_matches_jax(has_r0, interp):

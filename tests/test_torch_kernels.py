@@ -6,8 +6,9 @@ the receivers that run them. Marked `cuda`; they skip without a card.
 
 K2, K3 and K4 do the plain versions' f32 operations in the same order (sums
 included: the plain sums follow the kernel's threads per channel,
-ops/track.KERNEL_THREADS, and WINDOW_LANES for the coherent/batched kernel;
--fmad=false), so those comparisons are equality, bit for bit. K5 sums in
+ops/track.KERNEL_THREADS, WINDOWS_LANES for K3's windows mode and
+WINDOW_LANES for the coherent/batched kernel; -fmad=false), so those
+comparisons are equality, bit for bit. K5 sums in
 its own fixed order (windows within 1e-5 of each channel's window maximum,
 flips and code argmaxes equal; across batch splits and channel subsets,
 bit for bit), and K1's sinc takes one sine a point-channel (rtol 1e-5
@@ -242,21 +243,34 @@ def test_batched_track_kernel_equals_plain(capture, batch_k, skew, dtype,
 
 
 @pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
-def test_open_loop_kernel_equals_plain(capture, dtype, dev):
-    """K3's windows mode: 20 windows x 8 channels in one launch, bit-equal
-    to the plain recurrence and polarity combine."""
+@pytest.mark.parametrize("c", [1, 8, 12])
+@pytest.mark.parametrize("s", [S, S + 1])
+@pytest.mark.parametrize("n_win", [1, 2, 20, 40])
+def test_open_loop_kernel_equals_plain(capture, n_win, s, c, dtype, dev):
+    """K3's windows mode: W windows x C channels in one launch, bit-equal
+    to the plain recurrence and polarity combine (its own sum order,
+    track.WINDOWS_LANES), with the phases as four vectors and as the
+    columns of one [C, 4] tensor (VectorReceiver.step's one copy)."""
     samples, hand, _ = capture
-    tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
-    raw = torch.from_numpy(samples[:20 * S].view(np.int16).reshape(
-        20, S, 2).copy()).to(dev).to(dtype)
-    args = [torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in
-            (hand.rc, np.asarray(hand.fc) - F_CA, hand.ri, hand.fi)]
-    before = _build.launch_counts()["correlate_windows"]
-    got = tracking.track_open_loop(*args, raw, tab, FS)
-    assert _build.launch_counts()["correlate_windows"] == before + 1
-    want = tracking.track_open_loop_plain(*args, raw, tab, FS)
-    for g, w in zip(got, (want[:, :, 0], want[:, :, 1], want[:, :, 2])):
-        assert torch.equal(g, w)
+    prns = (list(hand.prn_list) + [1, 3, 4, 5])[:c]
+    tab = torch.from_numpy(ca_table(prns).astype(np.float32)).to(dev)
+    raw = torch.from_numpy(samples[:n_win * s].view(np.int16).reshape(
+        n_win, s, 2).copy()).to(dev).to(dtype)
+    ph = np.stack([np.asarray(x, np.float32) for x in
+                   (hand.rc, np.asarray(hand.fc) - F_CA, hand.ri, hand.fi)],
+                  axis=1)
+    cols = torch.from_numpy(np.resize(ph, (c, 4)).copy()).to(dev)
+    want = None
+    for args in ([cols[:, i].contiguous() for i in range(4)],
+                 [cols[:, i] for i in range(4)]):
+        before = _build.launch_counts()["correlate_windows"]
+        got = tracking.track_open_loop(*args, raw, tab, FS)
+        assert _build.launch_counts()["correlate_windows"] == before + 1
+        if want is None:
+            want = tracking.track_open_loop_plain(*args, raw, tab, FS)
+        for g, w in zip(got, (want[:, :, 0], want[:, :, 1], want[:, :, 2])):
+            assert g.shape == (n_win, c, 2)
+            assert torch.equal(g, w)
 
 
 def test_scalar_receiver_coherent_on_card_equals_plain(capture, dev):

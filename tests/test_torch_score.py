@@ -335,22 +335,69 @@ def _sum_pair(t, **kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 8, 50])
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 13, 50, 64])
 @pytest.mark.parametrize("g", [100, 777, 390_625])
 def test_kernel_block_sum_bit_equal(g, n, cuda_device):
     """The scores of all blocks summed per grid point inside the kernel
     (f32, ascending n): best and arg equal the plain version's bits, on
-    both manifolds, and the launch counts once."""
+    both manifolds, and the launch counts once, under "score_argmax_sum"."""
     for with_r0 in (True, False):
         t = _card(_inputs(rng_seed=41, n=n, c=8, w=12, g=g,
                           with_r0=with_r0), cuda_device)
         for kw in (dict(), dict(interp="linear"), dict(l_power=2)):
-            before = _build.launch_counts()["score_argmax"]
+            before = _build.launch_counts()
             got, want = _sum_pair(t, **kw)
-            assert _build.launch_counts()["score_argmax"] == before + 1
+            after = _build.launch_counts()
+            assert after["score_argmax_sum"] == before["score_argmax_sum"] + 1
+            assert after["score_argmax"] == before["score_argmax"]
             assert got[0].shape == () and got[1].dtype == torch.int32
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 7, 13, 50, 64])
+@pytest.mark.parametrize("g", [777, 390_625])
+def test_kernel_block_sum_offsets_and_weighted(g, n, cuda_device):
+    """N = 2, 7, 13, 50 and 64 (13 and up in several staged batches at
+    these widths) at the offsets as allocated and 4 bytes off a 16-byte
+    boundary (one point a thread): best and arg the plain version's bits;
+    the weighted sums repeat bitwise and keep the same arg."""
+    t = _card(_inputs(rng_seed=59, n=n, c=8, w=12, g=g + 1), cuda_device)
+    for off in ((t[5][:-1], t[6][:-1]), (t[5][1:], t[6][1:])):
+        args = (*t[:5], *off)
+        want = score.score_argmax_plain(*args, block_sum=True)
+        got = score.score_argmax(*args, block_sum=True)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+        wa = score.score_argmax(*args, weighted=True, block_sum=True)
+        wb = score.score_argmax(*args, weighted=True, block_sum=True)
+        for x, y in zip(wa, wb):
+            assert torch.equal(x, y)
+        assert torch.equal(wa[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["twice over", "twice in a row",
+                                    "twice in a row, one point on"])
+def test_kernel_block_sum_ties(layout, cuda_device):
+    """Every grid point laid out twice, so that its copies tie exactly:
+    across tiles (the grid twice over), among a thread's four points (twice
+    in a row) and across threads (the same one point on: copies 4T + 3 and
+    4T + 4). The kernel takes the first copy, as the plain version does."""
+    win, los, centers, coefs, r0, o3, o1 = _inputs(rng_seed=61, n=9,
+                                                   g=40_000)
+    if layout == "twice over":
+        o3, o1 = np.concatenate([o3, o3]), np.concatenate([o1, o1])
+    else:
+        o3, o1 = np.repeat(o3, 2, axis=0), np.repeat(o1, 2)
+        if layout != "twice in a row":
+            o3, o1 = np.concatenate([o3[-1:], o3]), np.concatenate([o1[-1:],
+                                                                    o1])
+    t = _card((win, los, centers, coefs, r0, o3, o1), cuda_device)
+    want = score.score_argmax_plain(*t, block_sum=True)
+    got = score.score_argmax(*t, block_sum=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda

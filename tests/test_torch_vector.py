@@ -137,3 +137,24 @@ def test_vector_receiver_defaults_to_cuda(capture):
         tvector.VectorReceiver(SampleFile(samples=samples, fs=FS),
                                hand.prn_list, arr, hand.x_ecef, hand.rx_time,
                                cp=hand.cp, rc=hand.rc, fc=hand.fc, fi=hand.fi)
+
+
+def test_vector_phases_one_copy_equal_four_copies(capture):
+    """VectorReceiver.step sends rc, fc - F_CA, ri, fi to the device as the
+    columns of one float32 [C, 4] array: bit for bit the four float32
+    vectors it sent one by one before, over three steered epochs, and one
+    tensor's views (a single host-to-device copy)."""
+    from navlab_dpe_sdr_tpu_torch.constants import F_CA
+
+    hand = capture[1]
+    rx = _make_rx(tvector, capture, hand.x_ecef)
+    for _ in range(3):
+        rx._steer_from_state()
+        got = rx._phases_on_device()
+        want = [torch.from_numpy(np.asarray(a, np.float32)) for a in
+                (rx.rc, rx.fc - F_CA, rx.ri, rx.fi)]
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and g.shape == w.shape
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert len({g.untyped_storage().data_ptr() for g in got}) == 1
+        rx.step()

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the coherent / batch_k tracking kernel's time goes, term by term.
+"""Where the coherent / batch_k tracking kernel's time goes, term by term,
+and the same for K3's windows mode.
 
     python3 track_window_terms.py [--set NAME]
 
@@ -17,8 +18,13 @@ name and power limit; the lines also go to chiprun_out/window_terms.jsonl.
 The sets (--set): "design", the kernel's geometry (cluster size, threads a
 block, samples side by side), each variant first held bit-equal to the
 plain version on short runs (the verdict is printed); "tail" and
-"monitor", one term of the kernel's tail taken out at a time. A variant
-that takes out work computes other numbers, so only its time is read.
+"monitor", one term of the kernel's tail taken out at a time; "windows",
+K3's windows mode (correlate_windows_kernel): its lanes per (window,
+channel) at 128, 256 and 512 and its phase recurrence by fmodf, each held
+bit-equal to the plain version (whose sums follow the variant's lanes),
+and the recurrence taken out, timed at 1, 20 and 40 windows x 8 channels
+of 2500 int16 samples (wrapper and the kernel's own time). A variant that
+takes out work computes other numbers, so only its time is read.
 Needs a CUDA card and nvcc.
 """
 
@@ -41,7 +47,7 @@ from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_table
 from navlab_dpe_sdr_tpu_torch.ops import _build, track, tracking
 
 from profile_dispatch import (build_variant, card_line, clock_parts, cuda_ms,
-                              patched)
+                              kernel_device_ms, patched)
 
 REPO = pathlib.Path(__file__).resolve().parent
 SRC = REPO / "navlab_dpe_sdr_tpu_torch" / "ops" / "csrc" / "track_chunk.cu"
@@ -107,10 +113,29 @@ SETS = {
         "no log row": [("  if (lane < kbp) {\n    const float carrier",
                         "  if (lane < 0) {\n    const float carrier")],
     },
+    # K3's windows mode (correlate_windows_kernel, the vector epoch's open
+    # loop): its lanes per (window, channel), and its phase recurrence
+    "windows": {
+        "256 lanes (as built)": [],
+        "128 lanes": [("constexpr int kWinsLanes = 256;",
+                       "constexpr int kWinsLanes = 128;")],
+        "512 lanes": [("constexpr int kWinsLanes = 256;",
+                       "constexpr int kWinsLanes = 512;")],
+        "the recurrence by fmodf": [
+            ("    rc = floor_mod_near(rc + dfc * 1e-3f, kLca);\n"
+             "    ri = floor_mod_near(ri + fi * 1e-3f, 1.0f);",
+             "    rc = floor_mod(rc + dfc * 1e-3f, kLca);\n"
+             "    ri = floor_mod(ri + fi * 1e-3f, 1.0f);")],
+        "no recurrence": [("  for (int i = 0; i < w; ++i) {        // the "
+                           "recurrence of the windows before",
+                           "  for (int i = 0; i < 0; ++i) {")],
+    },
 }
 # sets whose variants compute what the plain version computes: their logs
-# and carry are held to it, bit for bit, on short runs
-CHECKED = {"design"}
+# and carry (the windows mode: its E/P/L) are held to it, bit for bit, on
+# short runs; in "windows" all but "no recurrence"
+CHECKED = {"design", "windows"}
+WINDOWS = (1, 20, 40)      # windows a launch of K3's windows mode (C = 8)
 
 
 def use_library(path: pathlib.Path) -> None:
@@ -118,7 +143,9 @@ def use_library(path: pathlib.Path) -> None:
     where ops/track.py loads its library."""
     lib = ctypes.CDLL(str(path))
     lib.track_window_lanes.restype = ctypes.c_int
+    lib.track_windows_lanes.restype = ctypes.c_int
     track.WINDOW_LANES = lib.track_window_lanes()
+    track.WINDOWS_LANES = lib.track_windows_lanes()
     track._bind(lib)
     with _build._lock:
         _build._libs["track_chunk"] = lib
@@ -162,6 +189,36 @@ def check_plain(flat, st0, tab) -> list:
         if not same:
             bad.append(f"m={m} batch_k={kb}")
     return bad
+
+
+def check_windows_plain(flat, st0, tab) -> list:
+    """K3's windows mode of the loaded variant against the plain version,
+    bit for bit, at each of WINDOWS. Returns the counts that differ."""
+    bad = []
+    for w in WINDOWS:
+        raw = flat[:w * 2500 * 2].view(w, 2500, 2)
+        ph = (st0.rc, st0.dfc, st0.ri, st0.fi)
+        if not torch.equal(track.correlate_windows_cuda(raw, *ph, tab, FS),
+                           tracking.track_open_loop_plain(*ph, raw, tab, FS)):
+            bad.append(f"W={w}")
+    return bad
+
+
+def time_windows(flat, st0, tab):
+    """{W: dict(ms, device_ms)} of K3's windows mode for the loaded
+    library: CUDA events around the wrapper (100 calls) and the kernel's
+    own time (torch.profiler, 20 calls)."""
+    out = {}
+    for w in WINDOWS:
+        raw = flat[:w * 2500 * 2].view(w, 2500, 2)
+
+        def kernel():
+            return track.correlate_windows_cuda(raw, st0.rc, st0.dfc, st0.ri,
+                                                st0.fi, tab, FS)
+
+        out[f"W={w}"] = dict(ms=cuda_ms(kernel, 100), device_ms=kernel_device_ms(
+            kernel, 20, "correlate_windows_kernel"))
+    return out
 
 
 CASES = [("m=2", 2, 1, 200), ("m=4", 4, 1, 500), ("m=8", 8, 1, 200),
@@ -223,6 +280,22 @@ def main() -> int:
     with OUT.open("a") as f:
         for name in variants:
             use_library(libs[name])
+            if args.set == "windows":
+                bad = ([] if name == "no recurrence" else
+                       check_windows_plain(flat, st0, tab))
+                verdict = ("computes other phases" if name == "no recurrence"
+                           else f"DIFFERS from the plain version at {bad}"
+                           if bad else "bit-equal to the plain version")
+                for case, r in time_windows(flat, st0, tab).items():
+                    own = ("not measured" if r["device_ms"] is None
+                           else f"{r['device_ms']:.5f} ms")
+                    print(f"[windows] {name}: {case} x 8 channels: wrapper "
+                          f"{r['ms']:.4f} ms, kernel's own {own}; {verdict} "
+                          f"[{card}]", flush=True)
+                    f.write(json.dumps(dict(set=args.set, variant=name,
+                                            case=case, card=card, **r))
+                            + "\n")
+                continue
             if args.set in CHECKED:
                 bad = check_plain(flat, st0, tab)
                 print(f"[{args.set}] {name}: "
