@@ -158,7 +158,19 @@ Phases, one line or more each (any failure raises and exits non-zero):
    samples): windows within 1e-5 of each channel's window maximum, flips
    and code argmaxes equal; the same blocks correlated as 2, 3, 4 and 50
    grid ranks share them and over 4 of the 8 channels, equal to the bit;
-   wrapper, kernels' own and plain ms, and the bound ("K5 ..." lines).
+   wrapper, kernels' own and plain ms, and the bound ("K5 ..." lines);
+27. (run after phase 24, before phase 25) the port's bench
+   (navlab_dpe_sdr_tpu_torch/bench.run, bench.py's protocol) on the 40 s
+   capture: both dispatch signatures warmed, then 3 passes of 100 warm-up
+   blocks, 200 per-block blocks and 1700 in coherent groups of 5 (lookahead
+   50, depth 4), the scalar segment (K4 over four 2000 ms chunks), TTFF
+   twice (acquire -> track to 8/8 ephemerides within the capture ->
+   handoff -> first fix) and the parity block (K5 against the direct
+   correlator, K1 against plain over 4096 grid points): its JSON on a
+   "bench: ..." line, every key of bench.py's JSON present, both segments'
+   median error and the first fix under 15 m, 8/8 ephemerides, the
+   correlator's max rel diffs under 1e-5 with flips and code argmaxes
+   equal, and K1's under 1e-5.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 
@@ -198,7 +210,7 @@ import numpy as np
 import torch
 
 
-from navlab_dpe_sdr_tpu_torch import cli
+from navlab_dpe_sdr_tpu_torch import bench, cli
 from navlab_dpe_sdr_tpu_torch.constants import F_CA, F_L1
 from navlab_dpe_sdr_tpu_torch.io.handoff import read_handoff, write_handoff
 from navlab_dpe_sdr_tpu_torch.io.printer import FixWriter
@@ -2345,6 +2357,47 @@ def check_cli(samples, hand, dev, card):
 
 
 
+# -- phase 27: the port's bench -----------------------------------------------
+
+BENCH_BLOCKS = round(CAPTURE_S / T) - 2 * N_BLOCKS  # after the warm-up
+
+
+def check_bench(samples, hand, arr, grid, dev, card) -> dict:
+    """Phase 27: bench.run on the whole capture, held to its limits.
+    Returns the launches of its timed passes, scalar segment and timed
+    cold start, summed by kernel mode."""
+    t0 = time.perf_counter()
+    res = bench.run(samples, hand, arr, grid, BENCH_BLOCKS,
+                    lookahead=N_BLOCKS, group_k=5, depth=4, device=dev)
+    assert res["protocol"]["passes"] == 3, res["protocol"]
+    log("bench: " + json.dumps(res))
+    missing = set(bench.BENCH_PY_KEYS) - set(res)
+    assert not missing, missing
+    assert res["card"] == card and res["parity"]["backend"] == "cuda", res
+    assert res["fix_median_m"] < 15.0, res["fix_median_m"]
+    assert res["fix_median_m_grouped"] < 15.0, res["fix_median_m_grouped"]
+    ttff, par = res["ttff"], res["parity"]
+    assert ttff["eph_decoded"] == 8 and ttff["first_fix_m"] < 15.0, ttff
+    assert par["corr_code_max_rel"] < 1e-5, par
+    assert par["corr_carr_max_rel"] < 1e-5, par
+    assert par["corr_flip_equal"] and par["corr_argmax_equal"], par
+    assert par["pallas_score_max_rel"] <= 1e-5, par
+    launches = {}
+    for stage in res["launches"].values():
+        for k, v in stage.items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"bench phase: {BENCH_BLOCKS} blocks a pass, rtf median "
+        f"{res['value']:.2f}x {res['value_minmax']}, per-block segment "
+        f"{res['rtf_first_200']:.2f}x, fixes median {res['fix_median_m']:.2f}"
+        f" m (p95 {res['fix_p95_m']:.2f}), grouped "
+        f"{res['fix_median_m_grouped']:.2f} m; scalar tracking "
+        f"{res['scalar_track_rtf']:.1f}x; TTFF {ttff['ttff_s']:.3f} s for "
+        f"{ttff['signal_s']:.2f} s of signal, first fix "
+        f"{ttff['first_fix_m']:.2f} m; launches {launches}; wall "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 # -- phase 25: the mesh -------------------------------------------------------
 
 MESH_RUNS = ("batched", "integrated", "per-block", "fft", "survey")
@@ -3008,6 +3061,11 @@ def main() -> int:
                    "cli": cl["track_chunk_batched"]}
     k3w_by_path = {"vector": k3w_launches, "cli": cl["correlate_windows"]}
     k5_by_path["cli"] = cl.get("windowed_correlate", 0)
+    bl = check_bench(samples, hand, arr, grid, dev, card)
+    k1_by_path["bench"] = bl.get("score_argmax", 0)
+    k2_by_path["bench"] = bl.get("score_surface", 0)
+    k4_by_path["bench"] = bl.get("track_chunk", 0)
+    k5_by_path["bench"] = bl.get("windowed_correlate", 0)
     mesh = check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes)
     k1_by_path["mesh"] = mesh.get("score_argmax", 0)
     k1s_by_path["mesh"] = mesh.get("score_argmax_sum", 0)

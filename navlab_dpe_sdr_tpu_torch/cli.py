@@ -15,7 +15,7 @@ The same 13 subcommands, arguments and defaults as the JAX package's CLI
   console   the interactive flow console
   live      live-paced real-time run under the watchdog
   record    record a sample source to rotating capture files
-  bench     the port's benchmark (not written yet: ROADMAP Queue 1 item 6)
+  bench     the port's benchmark (bench.py's protocol: navlab_dpe_sdr_tpu_torch/bench.py)
 
 `--device cuda|cpu` (default cuda) is passed to every receiver, fleet and
 sweep a command builds; without a card `cuda` raises, and nothing moves to
@@ -29,7 +29,8 @@ the JAX CLI: no `auto` device and no `--cpu-devices` (the JAX CLI's virtual
 CPU devices are its test bed for `--mesh`; the port's test bed is gloo
 ranks); `acquire --engine real` (the all-real TPU engine) raises, and
 `auto` is `fft`; `dpe --profile-dir` writes a torch.profiler Chrome trace;
-`bench` exits naming ROADMAP Queue 1 item 6.
+`bench --blocks N` runs the port's benchmark (`bench.main`) in this process
+on `--device`, where the JAX CLI runs `bench.py` in a subprocess.
 
 `--set key=value` provides setparam-style overrides of the DPE config.
 """
@@ -914,9 +915,8 @@ def cmd_console(args):
 
 
 def cmd_bench(args):
-    raise SystemExit("bench: the port's benchmark is not written yet: "
-                     "ROADMAP Queue 1 item 6 (the port bench, bench_torch.py); "
-                     "bench.py times the JAX package")
+    from . import bench
+    return bench.main([str(args.blocks), "--device", str(args.device)])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1236,8 +1236,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sim:// source loops its capture")
     pr.set_defaults(fn=cmd_record)
 
-    pb = sub.add_parser("bench", help="the port's benchmark: not written "
-                                      "yet (ROADMAP Queue 1 item 6); exits")
+    pb = sub.add_parser("bench", help="run the benchmark (bench.py's "
+                                      "protocol on the port)")
     pb.add_argument("--blocks", type=int, default=100)
     pb.set_defaults(fn=cmd_bench)
     return p

@@ -47,6 +47,12 @@ result:
 
 Float32 matrix products on CUDA run in full float32, as the JAX CPU
 reference does: TF32 (about three decimal digits) is switched off here.
+
+`windowed_correlate_direct` is the oracle of both: the JAX
+`_windowed_correlate_direct` (dpe_real.py:176), which wipes the carrier off
+the whole block before folding. No receiver path calls it; the bench's
+parity block (navlab_dpe_sdr_tpu_torch/bench.py) holds the kernel to it on
+the card.
 """
 
 from __future__ import annotations
@@ -341,6 +347,139 @@ def windowed_correlate_plain(raw_re, raw_im, chips, rc_mid, idx_next, fi, ri,
         t0=time_idc[0])
     z_re = a_cos @ yb_re_p + a_sin @ yb_im_p                # [N, C, W, s0]
     z_im = a_cos @ yb_im_p - a_sin @ yb_re_p
+    x_re = (z_re * b_cos + z_im * b_sin).sum(-1)
+    x_im = (z_im * b_cos - z_re * b_sin).sum(-1)
+    if complex_out:
+        return RealBlockOutC(code_re=w_re, code_im=w_im, carr_re=x_re,
+                             carr_im=x_im, flip_used=use_flip)
+    return RealBlockOut(code_mag=torch.sqrt(w_re * w_re + w_im * w_im),
+                        carr_mag=torch.sqrt(x_re * x_re + x_im * x_im),
+                        flip_used=use_flip)
+
+
+def _dft_twiddles(vel_start, f_total: int, s1_n: int, s0_n: int,
+                  carr_win: int):
+    """Two-stage windowed-DFT twiddles without the wipeoff ([N, C, W, s1_n]
+    and [N, C, W, s0_n]); JAX `_dft_twiddles` with int64 bin phases."""
+    dev = vel_start.device
+    j = torch.arange(carr_win, device=dev)
+    k = torch.remainder(vel_start[..., None] + j - f_total // 2, f_total)
+    scale = float(np.float32(2.0 * np.pi / f_total))
+    s1 = torch.arange(s1_n, device=dev)
+    k256 = torch.remainder(k * s0_n, f_total)
+    ang_a = torch.remainder(k256[..., None] * s1, f_total).float() * scale
+    s0 = torch.arange(s0_n, device=dev)
+    ang_b = torch.remainder(k[..., None] * s0, f_total).float() * scale
+    return (torch.cos(ang_a), torch.sin(ang_a), torch.cos(ang_b),
+            torch.sin(ang_b))
+
+
+def windowed_correlate_direct(raw_re, raw_im, chips, rc_mid, idx_next, fi, ri,
+                              time_idc, pos_start, vel_start,
+                              carr_fftpts: int, period: int, n_periods: int,
+                              code_win: int = CODE_WIN,
+                              carr_win: int = CARR_WIN,
+                              complex_out: bool = False):
+    """The direct (unfactorized) windowed correlator, an oracle: the JAX
+    `_windowed_correlate_direct` (navlab_dpe_sdr_tpu/ops/dpe_real.py:176) in
+    plain PyTorch over N blocks, on any device. It wipes the carrier off the
+    whole [N, C, S] baseband, folds it by code period (whole and nav-bit
+    tail), correlates the folds against the lag-shifted replicas, corrects
+    the boundary arc, decides the flip from the full-length lag-0 sums, and
+    takes the carrier window by a two-stage DFT of the wiped, replica-
+    multiplied samples. Arguments and outputs are `windowed_correlate`'s.
+    No receiver path calls it: it holds the factorized forms (the plain
+    version and K5) to the straightforward algebra, at [N, C, S] memory."""
+    raw_re, raw_im = raw_re.float(), raw_im.float()
+    n, s = raw_re.shape
+    c = chips.shape[0]
+    dev = raw_re.device
+    idx_next = idx_next.long()
+    pos_start = pos_start.long()
+    vel_start = vel_start.long()
+
+    # carrier wipeoff, w = exp(-2 pi i (fi t + ri))
+    ang = _TWO_PI * (fi[..., None] * time_idc + ri[..., None])  # [N, C, S]
+    wc, ws = torch.cos(ang), torch.sin(ang)
+    bb_re = raw_re[:, None, :] * wc + raw_im[:, None, :] * ws
+    bb_im = raw_im[:, None, :] * wc - raw_re[:, None, :] * ws
+
+    p_repl = period_replicas(chips, rc_mid, period)         # [N, C, P0]
+    repl = p_repl.repeat(1, 1, n_periods)                   # [N, C, S]
+    cols = torch.arange(s, device=dev)
+    tail = (cols >= idx_next[..., None]).float()            # [N, C, S]
+
+    def fold(x):
+        return x.reshape(n, c, n_periods, period).sum(2)
+
+    fold_re, fold_im = fold(bb_re), fold(bb_im)
+    fold_tail_re, fold_tail_im = fold(bb_re * tail), fold(bb_im * tail)
+
+    # window lags; row (c, w) of the lag matrix is p[(q - m) mod P0] over q
+    m_signed = pos_start[..., None] + torch.arange(code_win, device=dev) \
+        - s // 2                                            # [N, C, W]
+    q = torch.arange(period, device=dev)
+    lag = torch.gather(
+        p_repl[:, :, None, :].expand(n, c, code_win, period), 3,
+        torch.remainder(q - m_signed[..., None], period))   # [N, C, W, P0]
+
+    def corr_with(fr, fi_):
+        return ((lag * fr[:, :, None, :]).sum(-1),
+                (lag * fi_[:, :, None, :]).sum(-1))
+
+    nf_re, nf_im = corr_with(fold_re, fold_im)              # no-flip window
+    t_re, t_im = corr_with(fold_tail_re, fold_tail_im)      # tail part
+
+    # boundary arc: samples within +/- _SLIVER/2 of idx_next change their
+    # tail membership with the lag m
+    sl_start = (idx_next - _SLIVER // 2).clamp(0, s - _SLIVER)   # [N, C]
+    sliver_pos = sl_start[..., None] + torch.arange(_SLIVER, device=dev)
+    sliver_re = torch.gather(bb_re, 2, sliver_pos)          # [N, C, SL]
+    sliver_im = torch.gather(bb_im, 2, sliver_pos)
+    in_tail_m = (sliver_pos[:, :, None, :]
+                 >= (idx_next[..., None] + m_signed)[..., None])
+    in_tail_0 = sliver_pos >= idx_next[..., None]
+    delta = in_tail_m.float() - in_tail_0[:, :, None, :].float()
+    repl2 = torch.cat([p_repl, p_repl], dim=-1)             # [N, C, 2 P0]
+    sl_q0 = torch.remainder(sl_start[..., None] - m_signed, period)
+    sliver_repl_m = torch.gather(
+        repl2[:, :, None, :].expand(n, c, code_win, 2 * period), 3,
+        sl_q0[..., None] + torch.arange(_SLIVER, device=dev))  # [N,C,W,SL]
+    corr_t_re = t_re + (delta * sliver_re[:, :, None, :]
+                        * sliver_repl_m).sum(-1)
+    corr_t_im = t_im + (delta * sliver_im[:, :, None, :]
+                        * sliver_repl_m).sum(-1)
+    fl_re = nf_re - 2.0 * corr_t_re                         # flip window
+    fl_im = nf_im - 2.0 * corr_t_im
+
+    # flip decision at lag 0 over the whole block
+    flip_sign = 1.0 - 2.0 * tail
+    c0nf_re = (bb_re * repl).sum(-1)
+    c0nf_im = (bb_im * repl).sum(-1)
+    c0fl_re = (bb_re * repl * flip_sign).sum(-1)
+    c0fl_im = (bb_im * repl * flip_sign).sum(-1)
+    use_flip = (c0fl_re ** 2 + c0fl_im ** 2) > (c0nf_re ** 2 + c0nf_im ** 2)
+    w_re = torch.where(use_flip[..., None], fl_re, nf_re)
+    w_im = torch.where(use_flip[..., None], fl_im, nf_im)
+
+    # carrier window: wiped, mean-removed, replica-multiplied samples through
+    # a two-stage DFT with integer-exact twiddle phases
+    repl_chosen = torch.where(use_flip[..., None], repl * flip_sign, repl)
+    y_base_re = (raw_re - raw_re.mean(1, keepdim=True))[:, None, :] \
+        * repl_chosen
+    y_base_im = (raw_im - raw_im.mean(1, keepdim=True))[:, None, :] \
+        * repl_chosen
+    y_re = y_base_re * wc + y_base_im * ws
+    y_im = y_base_im * wc - y_base_re * ws
+    s0_n = S0_SPLIT
+    s1_n = -(-s // s0_n)
+    pad = s1_n * s0_n - s
+    y_re_p = F.pad(y_re, (0, pad)).reshape(n, c, s1_n, s0_n)
+    y_im_p = F.pad(y_im, (0, pad)).reshape(n, c, s1_n, s0_n)
+    a_cos, a_sin, b_cos, b_sin = _dft_twiddles(vel_start, carr_fftpts, s1_n,
+                                               s0_n, carr_win)
+    z_re = a_cos @ y_re_p + a_sin @ y_im_p                  # [N, C, W, s0]
+    z_im = a_cos @ y_im_p - a_sin @ y_re_p
     x_re = (z_re * b_cos + z_im * b_sin).sum(-1)
     x_im = (z_im * b_cos - z_re * b_sin).sum(-1)
     if complex_out:

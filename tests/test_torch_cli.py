@@ -461,16 +461,24 @@ def test_cli_fleet_decode_failed_matches_jax(tiny_capture, tmp_path, live):
         assert all(s["delivered_s"] >= 0.5 for s in ts["sources"])
 
 
-def test_cli_bench_and_mesh_refuse_by_roadmap_item(tiny_capture, tmp_path):
-    """`bench` exits naming ROADMAP item 6. `--mesh grid=8` in a lone
-    process exits naming how to start the ranks; `--mesh grid=1` runs a
-    one-rank mesh: the same CSV as the run without it, and no process
-    group left behind."""
+def test_cli_bench_and_mesh_refuse_by_roadmap_item(tiny_capture, tmp_path,
+                                                    monkeypatch):
+    """`bench --blocks N` runs the port's bench in this process, handing it
+    N and the CLI's --device (`bench.main` is replaced here by a recorder;
+    the bench itself is held by tests/test_torch_bench.py). `--mesh grid=8`
+    in a lone process exits naming how to start the ranks; `--mesh grid=1`
+    runs a one-rank mesh: the same CSV as the run without it, and no
+    process group left behind."""
     import torch.distributed as dist
 
+    from navlab_dpe_sdr_tpu_torch import bench
+
     cap, hand = tiny_capture
-    with pytest.raises(SystemExit, match="item 6"):
-        run(tcli, "bench")
+    calls = []
+    monkeypatch.setattr(bench, "main", lambda argv: calls.append(argv) or 0)
+    run(tcli, "bench", "--blocks", "7")
+    run(tcli, "bench")
+    assert calls == [["7", "--device", "cpu"], ["100", "--device", "cpu"]]
     for sub in ("dpe", "survey"):
         with pytest.raises(SystemExit, match="torchrun --nproc-per-node 8"):
             run(tcli, sub, str(cap), "--handoff", str(hand), "--mesh",

@@ -78,9 +78,10 @@ def test_port_sources_name_no_module_of_the_jax_package():
 def test_importing_main_runs_nothing():
     """`import navlab_dpe_sdr_tpu_torch.__main__` (as the import test above
     does) must not start the CLI: with an argv that would exit non-zero
-    (`bench`), the import returns and prints nothing."""
+    (`dpe` on a missing file), the import returns and prints nothing."""
     code = ("import sys\n"
-            "sys.argv = ['x', '--device', 'cpu', 'bench']\n"
+            "sys.argv = ['x', '--device', 'cpu', 'dpe', '/nonexistent.dat', "
+            "'--handoff', '/nonexistent.csv']\n"
             "import navlab_dpe_sdr_tpu_torch.__main__ as m\n"
             "print(m.main.__module__)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

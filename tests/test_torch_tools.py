@@ -1,0 +1,178 @@
+"""The ported stage tools (tools/*_torch.py) on the CPU, at tiny sizes.
+
+Each tool's `main` prints its JAX original's JSON keys (taken from the
+original's source) plus `card`, "cpu" here; run without `--device cpu` on a
+host without a card, each raises naming the missing CUDA device. The spread
+grid is swapped for a 4^4 one and the bench's 50-block lookahead for 5, so
+that a tool runs in seconds here; the capture is the bench's own
+(`bench.bench_capture`), cached in a temporary directory. No new file of
+the port's bench or tools imports JAX or the JAX package.
+"""
+
+import ast
+import importlib
+import json
+import pathlib
+import re
+import sys
+
+import pytest
+import torch
+
+from navlab_dpe_sdr_tpu_torch import bench
+from navlab_dpe_sdr_tpu_torch.models.grid import uniform_grid
+
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+TOOLS = REPO / "tools"
+sys.path.insert(0, str(TOOLS))
+
+# each tool's keys as its JAX original prints them
+ORIGINAL_KEYS = {
+    "stage_timing": [
+        "variant", "warmup_s", "times_s", "ms_per_dispatch", "ms_per_block",
+        "grid_points", "code_win", "carr_win", "n_blocks", "k", "check"],
+    "perblock_decompose": [
+        "n_blocks", "repeats", "stat", "e2e_depth1", "e2e_depth1_minmax",
+        "e2e_depth2", "e2e_depth2_minmax", "e2e_depth4", "e2e_depth4_minmax",
+        "host_prep", "drain_host", "dispatch", "corr", "scoring",
+        "residual_depth4", "rtf_e2e_depth4", "rtf_dispatch_floor"],
+    "host_residue": [
+        "n_blocks", "dispatches", "wall_ms_per_dispatch", "dispatch_host_ms",
+        "drain_ms", "other_ms", "rtf_segment"],
+    "dense_bench": [
+        "grid_points", "grid_axis_n", "sec_per_block", "grid_points_per_s",
+        "grid_point_channel_evals_per_s", "realtime_factor", "backend",
+        "device", "blocks_per_dispatch", "coherent_integration_k", "memory",
+        "note"],
+    "survey_bench": [
+        "backend", "n_blocks", "n_batches", "signal_seconds", "wall_s",
+        "survey_err_m", "survey_err_enu_m", "survey_clk_err_m",
+        "survey_vel_err_ms", "per_batch_median_err_m", "per_batch_p95_err_m",
+        "sigma_pos_enu_clk_m", "sigma_vel", "zoom_interp", "fine_spacing_m",
+        "fine_n"],
+    "soak": [
+        "signal_minutes", "wall_s", "scalar_fix_first_last_m",
+        "scalar_fix_median_m", "scalar_err_drift_m_per_min",
+        "scalar_clk_drift_m_per_min", "dpe_fix_median_m",
+        "dpe_err_drift_m_per_min", "rss_first_last_mb",
+        "rss_growth_mb_per_min", "scalar_series", "dpe_series",
+        "rss_series"],
+}
+# (tool, tiny argv, module constants to shrink); dense_bench twice: per
+# block and integrated
+CASES = [
+    ("stage_timing", ["--n", "5", "--k", "1"], {}),
+    ("perblock_decompose", ["--blocks", "5", "--repeats", "1"],
+     {"LOOKAHEAD": 5, "STAGE_K": 1}),
+    ("host_residue", ["10", "2"], {"LOOKAHEAD": 5}),
+    ("dense_bench", ["--n", "3", "--blocks", "1", "--iters", "1"], {}),
+    ("dense_bench", ["--n", "3", "--integrate", "2", "--iters", "1"], {}),
+    ("survey_bench", ["--blocks", "4", "--batch", "2", "--fine-n", "3"], {}),
+    ("soak", ["--minutes", "0.01"], {"CHUNK_S": 0.2}),
+]
+
+
+def _literal_keys(path: pathlib.Path) -> set:
+    """String keys of every dict literal and `x["key"] =` in a source."""
+    keys = set()
+    for n in ast.walk(ast.parse(path.read_text())):
+        if isinstance(n, ast.Dict):
+            keys |= {k.value for k in n.keys
+                     if isinstance(k, ast.Constant)
+                     and isinstance(k.value, str)}
+        elif isinstance(n, ast.Subscript) and isinstance(n.ctx, ast.Store) \
+                and isinstance(n.slice, ast.Constant):
+            keys.add(n.slice.value)
+    return keys
+
+
+@pytest.mark.parametrize("tool", sorted(ORIGINAL_KEYS))
+def test_original_keys_are_the_originals(tool):
+    """The key lists above are the JAX tools' own: literal keys of their
+    sources, and perblock_decompose's f"e2e_depth{depth}" pair."""
+    path = TOOLS / f"{tool}.py"
+    src = path.read_text()
+    literal = _literal_keys(path)
+    for key in ORIGINAL_KEYS[tool]:
+        if re.fullmatch(r"e2e_depth\d(_minmax)?", key):
+            assert re.sub(r"depth\d", "depth{depth}", key) in src, key
+        else:
+            assert key in literal, key
+
+
+@pytest.fixture(scope="module")
+def cache_dir(tmp_path_factory):
+    """The bench capture's cache with 30 blocks, long enough for every
+    case (each reads the first blocks it needs)."""
+    d = str(tmp_path_factory.mktemp("fixtures"))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(bench, "CACHE_DIR", d)
+    try:
+        bench.bench_capture(30)
+    finally:
+        mp.undo()
+    return d
+
+
+def _tool(name):
+    return importlib.import_module(f"{name}_torch")
+
+
+@pytest.mark.parametrize("tool,argv,consts", CASES,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(CASES)])
+def test_tool_prints_original_keys_on_cpu(tool, argv, consts, cache_dir,
+                                          monkeypatch, capsys):
+    mod = _tool(tool)
+    tiny = uniform_grid(n=4, pos_spacing=10.0, vel_spacing=1.0)
+    monkeypatch.setattr(bench, "CACHE_DIR", cache_dir)
+    for m in (mod, _tool("stage_timing")):
+        if hasattr(m, "spread_grid"):
+            monkeypatch.setattr(m, "spread_grid", lambda: tiny)
+    for k, v in consts.items():
+        monkeypatch.setattr(mod, k, v)
+    assert mod.main([*argv, "--device", "cpu"]) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert lines
+    for line in lines:           # stage_timing: one line a variant
+        out = json.loads(line)
+        missing = set(ORIGINAL_KEYS[tool]) - set(out)
+        assert not missing, missing
+        assert out["card"] == "cpu"
+        if "backend" in out:
+            assert out["backend"] == "cpu"
+    if tool == "stage_timing":
+        assert [json.loads(ln)["variant"] for ln in lines] == \
+            ["full", "corr", "full_g5"]
+        full, corr = (json.loads(ln) for ln in lines[:2])
+        assert (full["code_win"], full["carr_win"]) == \
+            (corr["code_win"], corr["carr_win"])     # the same correlation
+        assert corr["grid_points"] == 256
+        assert full["device_busy_ms"] is None        # not measured here
+    if tool == "dense_bench":
+        assert out["device"] == "cpu" and out["memory"] is None
+    if tool == "soak":
+        assert out["cuda_series"] is None
+        assert len(out["scalar_series"]) == 3 and len(out["dpe_series"]) == 3
+
+
+@pytest.mark.parametrize("tool", sorted(ORIGINAL_KEYS))
+def test_tool_without_a_card_raises(tool):
+    """(bench.main's refusal: tests/test_torch_bench.py)"""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _tool(tool).main([])
+
+
+def test_bench_and_tools_import_no_jax():
+    pat = re.compile(r"^\s*(from|import)\s+(navlab_dpe_sdr_tpu|jax|jaxlib)"
+                     r"(\.|\s|$)", re.M)
+    files = [REPO / "bench_torch.py",
+             REPO / "navlab_dpe_sdr_tpu_torch" / "bench.py"]
+    files += sorted(TOOLS.glob("*_torch.py"))
+    assert len(files) == 8
+    bad = [f.name for f in files if pat.search(f.read_text())]
+    assert not bad, bad
