@@ -170,7 +170,20 @@ Phases, one line or more each (any failure raises and exits non-zero):
    "bench: ..." line, every key of bench.py's JSON present, both segments'
    median error and the first fix under 15 m, 8/8 ephemerides, the
    correlator's max rel diffs under 1e-5 with flips and code argmaxes
-   equal, and K1's under 1e-5.
+   equal, and K1's under 1e-5;
+28. (run after phase 27, before phase 25) the moving receiver at full
+   width: the dynamics envelope (tools/dynamics_envelope_torch.run_cell:
+   walk, vehicle and clock profiles of 10 s, depth {1, 4} x group_k {1,
+   5}, the spread grid, lookahead 50; walk and clock held in every cell,
+   the vehicle at depth 1 x K 1, its other cells beside DYN_r05's
+   verdicts), the vehicle per block (50 steps), the maneuver (the full
+   EKF's RMS under 5 m and 0.85 x alpha's; RTS-smoothed under 0.85 x the
+   forward run's and 4.8 m), K4 PLL-only and FLL-assisted on the 250 Hz/s
+   Doppler ramp; then K5, K1 and K2 held to their plain versions on the
+   inputs that path gave them (recorded as it called them), K4's ramp logs
+   to track_chunk_plain (PLL-only off the ramp by more than 100 Hz,
+   FLL-assisted within 25 Hz), and a paced 10 s live run through
+   tools/live_run_torch.py with no real-time miss ("dynamics ..." lines).
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 
@@ -178,8 +191,8 @@ Phase 5's run and every device record come from profile_dispatch.py, which
 also runs phase 5 alone against any tree (`--tree DIR`), so two trees are
 read by one routine.
 The line before the last is the kernels' JSON record (launches on the
-timed paths, and by path in launches_by_path, the CLI's and the mesh's
-included; error
+timed paths, and by path in launches_by_path, the CLI's, the mesh's and
+the dynamics phase's included; error
 against the plain version, ms, plain ms, the roofline
 bound of the same work and what sets it, library_ms: null where no single
 PyTorch call computes the function, device_ms: the kernel's own time from
@@ -219,8 +232,9 @@ from navlab_dpe_sdr_tpu_torch.io.frontend import (MultiSource,
                                                   SimulatedRadio)
 from navlab_dpe_sdr_tpu_torch.io.rawfile import DTYPE_IQ16, SampleFile
 from navlab_dpe_sdr_tpu_torch.io.scenario import make_scenario
-from navlab_dpe_sdr_tpu_torch.io.synth import release_workspace
-from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_table
+from navlab_dpe_sdr_tpu_torch.io.synth import (CaptureSimulator,
+                                               release_workspace)
+from navlab_dpe_sdr_tpu_torch.libgnss.cacode import ca_code, ca_table
 from navlab_dpe_sdr_tpu_torch.libgnss import frames
 from navlab_dpe_sdr_tpu_torch.models.grid import (_mesh4, dense_grid,
                                                   spread_grid)
@@ -240,6 +254,9 @@ from profile_dispatch import (K1_K5, TAKES, card_line, clock_parts, cuda_ms,
                               dispatch_record, k5_clock_split, k5_inputs,
                               kernel_device_ms, record_line)
 from profile_dispatch import main_path as dispatch_main_path
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tools"))
+import dynamics_envelope_torch as dyn_env  # noqa: E402
 
 SEED = 20261016
 FS = 2.5e6
@@ -547,6 +564,32 @@ def k5_bound(args, out, kw) -> dict:
     return bound(ops, nbytes)
 
 
+def hold_k5(a, kw):
+    """K5 against its plain version on the correlator's arguments a and
+    keywords kw: windows within 1e-5 of each channel's window maximum,
+    flips and code-window argmaxes equal (a channel whose nav-bit boundary
+    is sample 0, a degenerate tie, left out). Returns (the worst relative
+    difference, max |diff|, flips, channels kept)."""
+    keep = a[4] != 0                                   # [n, C]
+    got = correlate.windowed_correlate(*a, **kw)
+    want = correlate.windowed_correlate_plain(*a, **kw)
+    torch.cuda.synchronize()
+    worst = err = 0.0
+    for name in got._fields[:-1]:
+        g, w = getattr(got, name)[keep], getattr(want, name)[keep]
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()))
+        worst = max(worst, float(
+            (diff / w.abs().amax(-1, keepdim=True)).max()))
+    assert worst < 1e-5, (a[0].shape, kw, worst)
+    assert torch.equal(got.flip_used[keep], want.flip_used[keep])
+    mags = [torch.hypot(o.code_re, o.code_im) if kw.get("complex_out")
+            else o.code_mag for o in (got, want)]
+    assert torch.equal(mags[0].argmax(-1)[keep],
+                       mags[1].argmax(-1)[keep]), (a[0].shape, kw)
+    return worst, err, int(got.flip_used.sum()), int(keep.sum())
+
+
 def check_k5(first, hand, arr, grid, dev, card):
     """Phase 26 (run last): K5 against its plain version on
     the card at the main path's shapes: the capture's first 50 blocks with
@@ -574,27 +617,12 @@ def check_k5(first, hand, arr, grid, dev, card):
     for n in (N_BLOCKS, 8, 1):
         worst = dict.fromkeys(samples, 0.0)
         for dtype, cplx in itertools.product(samples, (False, True)):
-            a = args(0, n, dtype=dtype)
-            keep = a[4] != 0                       # [n, C]
-            got = correlate.windowed_correlate(*a, **kw, complex_out=cplx)
-            want = correlate.windowed_correlate_plain(*a, **kw,
-                                                      complex_out=cplx)
-            torch.cuda.synchronize()
-            for name in got._fields[:-1]:
-                g, w = getattr(got, name)[keep], getattr(want, name)[keep]
-                diff = (g - w).abs()
-                if dtype == "int16":
-                    res["err"] = max(res["err"], float(diff.max()))
-                worst[dtype] = max(worst[dtype], float(
-                    (diff / w.abs().amax(-1, keepdim=True)).max()))
-            assert worst[dtype] < 1e-5, (n, dtype, cplx, worst)
-            assert torch.equal(got.flip_used[keep], want.flip_used[keep])
-            mags = [torch.hypot(o.code_re, o.code_im) if cplx
-                    else o.code_mag for o in (got, want)]
-            assert torch.equal(mags[0].argmax(-1)[keep],
-                               mags[1].argmax(-1)[keep]), (n, dtype, cplx)
+            rel, err, flips, kept = hold_k5(args(0, n, dtype=dtype),
+                                            dict(kw, complex_out=cplx))
+            worst[dtype] = max(worst[dtype], rel)
             if dtype == "int16":
-                n_flips, n_keep = int(got.flip_used.sum()), int(keep.sum())
+                res["err"] = max(res["err"], err)
+                n_flips, n_keep = flips, kept
         a = args(0, n)
 
         def kernel():
@@ -2398,6 +2426,280 @@ def check_bench(samples, hand, arr, grid, dev, card) -> dict:
     return launches
 
 
+# -- phase 28: the moving receiver --------------------------------------------
+
+DYN_SECONDS = 10.0                      # each profile's capture
+DYN_CELLS = [(1, 1), (1, 5), (4, 1), (4, 5)]  # (pipeline depth, group_k)
+# DYN_r05.json's verdicts for the vehicle at 30 s (the JAX package): lost
+# from depth 2 on
+DYN_R05_VEHICLE = {(1, 1): (21.45, True), (1, 5): (26.95, True),
+                   (4, 1): (51.62, False), (4, 5): (59.09, False)}
+MOVE_VEL = np.array([10.0, -8.0, 5.0])  # tests/test_dynamics.py, ECEF m/s
+MOVE_ACC = np.array([4.0, 3.0, -2.0])   # m/s^2
+RAMP_STEPS, RAMP_FI0, RAMP_FDOT = 1200, 120.0, 250.0
+LIVE_SECONDS = 10.0
+
+
+@contextlib.contextmanager
+def recording(module, name: str, calls: list):
+    """Within the block, module.<name> appends each call's (args, kwargs)
+    to `calls` before it runs."""
+    inner = getattr(module, name)
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return inner(*a, **kw)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, inner)
+
+
+def moving_capture(n_blocks: int, seed: int, acc=None):
+    """tests/test_dynamics.py's moving receiver (~14 m/s, with acc a
+    constant acceleration) with that test's seed: (samples, handoff at the
+    truth, ephemerides, truth state)."""
+    _, hand, arr = make_scenario(nav_data=True)
+    truth = hand.x_ecef.copy()
+    truth[4:7] = MOVE_VEL
+    sim = CaptureSimulator(arr, truth, tow0=hand.rx_time, fs=FS,
+                           cn0_dbhz=47.0, nav_data=True, accel_ecef=acc,
+                           seed=seed)
+    iq = sim.generate(S * n_blocks)
+    samples = np.empty(iq.shape[0], DTYPE_IQ16)
+    samples["i"] = np.clip(np.round(iq.real), -32768, 32767)
+    samples["q"] = np.clip(np.round(iq.imag), -32768, 32767)
+    h = copy.deepcopy(hand)
+    h.x_ecef = truth.copy()
+    return samples, h, arr, truth
+
+
+def ramp_signal():
+    """tests/test_dynamics.py:178's signal: PRN 5 at 45 dB-Hz, Doppler
+    120 Hz + 250 Hz/s, seed 0: (float32 [steps, 2500, 2], code table,
+    the true Doppler a step)."""
+    n = 2500 * RAMP_STEPS
+    t = np.arange(n) / FS
+    fi_t = RAMP_FI0 + RAMP_FDOT * t
+    ph = RAMP_FI0 * t + 0.5 * RAMP_FDOT * t * t
+    rc_t = np.cumsum(np.full(n, F_CA) / FS * (1.0 + fi_t / F_L1))
+    chips = ca_code(5)[np.mod(np.floor(rc_t), 1023).astype(np.int64)]
+    amp = 32 * np.sqrt(10 ** (45.0 / 10) / FS)
+    rng = np.random.default_rng(0)
+    noise = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * (
+        32 / np.sqrt(2))
+    iq = amp * chips * np.exp(2j * np.pi * ph) + noise
+    raw = np.stack([iq.real, iq.imag], -1).astype(np.float32)
+    return (raw.reshape(RAMP_STEPS, 2500, 2),
+            ca_code(5)[None, :].astype(np.float32),
+            RAMP_FI0 + RAMP_FDOT * np.arange(RAMP_STEPS) * 1e-3)
+
+
+def rms_error(states, times, truth, acc=None):
+    """RMS distance of states' positions from the truth trajectory."""
+    errs = []
+    for x, t in zip(states, times):
+        p = truth[0:3] + truth[4:7] * t
+        if acc is not None:
+            p = p + 0.5 * acc * t * t
+        errs.append(np.linalg.norm(np.asarray(x)[0:3] - p))
+    return float(np.sqrt(np.mean(np.square(errs))))
+
+
+def check_dynamics(samples, dev, card) -> dict:
+    """Phase 28: the moving receiver at full width (tests/test_dynamics.py
+    and tools/dynamics_envelope_torch.py on the card). Counted path: (a)
+    the envelope at 10 s a profile (walk, vehicle, clock) over depth {1,
+    4} x group_k {1, 5}, spread grid, lookahead 50, through
+    dynamics_envelope_torch.run_cell on device-resident captures: walk and
+    clock held in every cell, the vehicle at depth 1 x K 1 (its other
+    cells printed beside DYN_r05's verdicts, not asserted); the vehicle
+    per block for 50 steps (tests/test_dynamics.py:25's limits); (b) the
+    maneuver: run_batched(60, lookahead=10) alpha and full EKF (full under
+    5 m RMS and 0.85 x alpha's), per block 40 steps under the full EKF and
+    rts_smooth (under 0.85 x forward and 4.8 m); K4 (1 ms mode) PLL-only
+    and FLL-assisted on the 250 Hz/s ramp. Then, not counted, (c) the
+    kernels at the path's own inputs, recorded as the path called them: K5
+    on the vehicle's first dispatch (N = 50) at phase 26's tolerance, K1
+    on that dispatch's windows, K2 on a per-block step, K4's ramp logs
+    against track_chunk_plain at K4's limits (PLL-only off the ramp by more
+    than 100 Hz, FLL-assisted within 25 Hz over the last 200 updates); (d)
+    tools/live_run_torch.py --seconds 10 on the capture: no real-time
+    miss. Returns the launches of the counted path by kernel key."""
+    t_phase = time.perf_counter()
+    grid = spread_grid()
+    caps = {p: dyn_env._capture(p, DYN_SECONDS) for p in dyn_env.PROFILES}
+    raws = {p: torch.from_numpy(c[0].view(np.int16).reshape(-1, S, 2)
+                                ).to(dev) for p, c in caps.items()}
+    man60, man40 = (moving_capture(n, 7, MOVE_ACC) for n in (60, 40))
+    ramp_raw, ramp_tab, ramp_truth = ramp_signal()
+    ramp_raw = torch.from_numpy(ramp_raw).to(dev)
+    ramp_tab = torch.from_numpy(ramp_tab).to(dev)
+    log(f"dynamics inputs: three {DYN_SECONDS:.0f} s profile captures, the "
+        f"maneuver (60 and 40 blocks), the ramp in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    _build.reset_launch_counts()
+    # (a) the envelope
+    cells, k5_calls, k1_calls = {}, [], []
+    for prof, (smp, hand, arr, vel) in caps.items():
+        for depth, gk in DYN_CELLS:
+            rec = (prof, depth, gk) == ("vehicle", 1, 1)
+            with contextlib.ExitStack() as stack:
+                if rec:
+                    stack.enter_context(recording(
+                        dpe_real, "windowed_correlate", k5_calls))
+                    stack.enter_context(recording(
+                        dpe_real, "score_argmax", k1_calls))
+                t0 = time.perf_counter()
+                r = dyn_env.run_cell(smp, hand, arr, vel, depth, gk,
+                                     lookahead=N_BLOCKS, raw_dev=raws[prof],
+                                     device=dev)
+                wall = time.perf_counter() - t0
+            cells[(prof, depth, gk)] = r
+            ref = ""
+            if prof == "vehicle":
+                m5, held = DYN_R05_VEHICLE[(depth, gk)]
+                ref = (f" (DYN_r05, the JAX package at 30 s: last 5 s "
+                       f"{m5} m, held={held})")
+            log(f"dynamics envelope {prof} depth={depth} K={gk}: median "
+                f"{r['median_m']} m, p95 {r['p95_m']} m, last 5 s "
+                f"{r['median_last5s_m']} m, held={r['held']}, "
+                f"{r['n_fixes']} fixes, wall {wall:.3f} s{ref} [{card}]")
+    for key, r in cells.items():
+        if key[0] in ("walk", "clock"):
+            assert r["held"], (key, r)
+    assert cells[("vehicle", 1, 1)]["held"], cells[("vehicle", 1, 1)]
+    del raws
+
+    # the vehicle per block (tests/test_dynamics.py:25), K2 recorded
+    smp, hand, arr, vel = caps["vehicle"]
+    k2_calls = []
+    rx = DPEReceiver(SampleFile(samples=smp, fs=FS), copy.deepcopy(hand),
+                     grid=grid, eph=copy.deepcopy(arr), device=dev)
+    with recording(dpe_real, "score_surface_argmax", k2_calls):
+        rx.run(50)
+    errs = [np.linalg.norm(f.x_ecef[0:3] - (hand.x_ecef[0:3]
+                                            + vel * (k + 1) * T))
+            for k, f in enumerate(rx.fixes)]
+    verr = [np.linalg.norm(f.x_ecef[4:7] - vel) for f in rx.fixes]
+    assert np.median(errs[5:]) < 20.0 and np.median(verr[5:]) < 2.5, (
+        errs, verr)
+    log(f"dynamics vehicle per block: 50 steps, median error "
+        f"{np.median(errs[5:]):.3f} m, velocity {np.median(verr[5:]):.3f} "
+        f"m/s (limits 20 m, 2.5 m/s) [{card}]")
+
+    # (b) the maneuver (tests/test_dynamics.py:55 and :136)
+    smp, hand, arr, truth = man60
+    rms = {}
+    for mode in ("alpha", "full"):
+        rx = DPEReceiver(SampleFile(samples=smp.copy(), fs=FS),
+                         copy.deepcopy(hand), grid=grid,
+                         eph=copy.deepcopy(arr),
+                         config=DPEConfig(ekf_mode=mode, ekf_alpha=0.3),
+                         device=dev)
+        rx.run_batched(60, lookahead=10)
+        rms[mode] = rms_error([f.x_ecef for f in rx.fixes],
+                              [f.rx_time - hand.rx_time for f in rx.fixes],
+                              truth, MOVE_ACC)
+    assert rms["full"] < 5.0 and rms["full"] < 0.85 * rms["alpha"], rms
+    smp, hand, arr, truth = man40
+    rx = DPEReceiver(SampleFile(samples=smp, fs=FS), copy.deepcopy(hand),
+                     grid=grid, eph=copy.deepcopy(arr),
+                     config=DPEConfig(ekf_mode="full"), device=dev)
+    rx.run(40)
+    times = [f.rx_time - hand.rx_time for f in rx.fixes]
+    fwd = rms_error([f.x_ecef for f in rx.fixes], times, truth, MOVE_ACC)
+    smo = rms_error(rx.ekf.rts_smooth(), times, truth, MOVE_ACC)
+    assert smo < 0.85 * fwd and smo < 4.8, (smo, fwd)
+    log(f"dynamics maneuver (~5.4 m/s^2): batched lookahead 10, RMS full "
+        f"EKF {rms['full']:.3f} m, alpha {rms['alpha']:.3f} m (limits 5 m, "
+        f"0.85 x alpha); per block 40 steps under the full EKF, forward "
+        f"{fwd:.3f} m, RTS-smoothed {smo:.3f} m (limits 0.85 x forward, "
+        f"4.8 m) [{card}]")
+
+    # the tracker under the 250 Hz/s ramp: K4, 1 ms mode
+    st_r = tracking.init_state(rc=[0.0], ri=[0.0], fc=[F_CA], fi=[RAMP_FI0],
+                               device=dev)
+    ramp = {}
+    for name, fll in (("PLL-only", 0.0), ("FLL-assisted", 8.0)):
+        loops = tracking.LoopConfig(order=2, bn_carr=10.0, bn_carr_freq=fll)
+        _, lf, li = tracking.track_chunk_packed(st_r, ramp_raw, ramp_tab, FS,
+                                                FCAID, loops)
+        ramp[name] = (loops, lf.cpu().numpy(), li.cpu().numpy())
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    log(f"dynamics path launches: {counts} [{card}]")
+
+    # (c) the kernels at the path's inputs (these launches are not counted)
+    a, kw = k5_calls[0]
+    assert a[0].shape[0] == N_BLOCKS, a[0].shape
+    rel, err, flips, kept = hold_k5(a, kw)
+    log(f"dynamics K5 on the vehicle's first dispatch (N={N_BLOCKS}): "
+        f"windows within rel {rel:.3e} of each channel's maximum (limit "
+        f"1e-5), max|diff| {err:.3e}, flips equal ({flips} flipped, "
+        f"{a[4].numel() - kept} boundary-0 channel(s) left out), code "
+        f"argmaxes equal [{card}]")
+    k1_err = 0.0
+    for a, kw in k1_calls[:2]:                 # that dispatch's two K1
+        got = score.score_argmax(*a, **kw)
+        want = score.score_argmax_plain(*a, **kw)
+        k1_err = max(k1_err, compare_scores(list(a), got, want, kw))
+    k2_err = 0.0
+    for a, kw in k2_calls[-2:]:               # the last step's two K2
+        got, best, arg = score.score_surface_argmax(*a, **kw)
+        want = score.score_surface_plain(*a, **kw)
+        assert int(arg[0]) == int(want.argmax())
+        assert float(best[0]) == float(want.max())
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+        k2_err = max(k2_err, float((got - want).abs().max()))
+    log(f"dynamics K1 on that dispatch's windows: argmax equal or a tie "
+        f"within 1e-6, max|best diff| {k1_err:.3e}; K2 on the 50th "
+        f"per-block step: surface max|diff| {k2_err:.3e} (rtol 1e-6), max "
+        f"and first index equal [{card}]")
+    rows = {k: i for i, k in enumerate(tracking.LOG_F_ROWS)}
+    for name, (loops, lf, li) in ramp.items():
+        _, lfp, lip = tracking.track_chunk_plain(st_r, ramp_raw, ramp_tab,
+                                                 FS, FCAID, loops)
+        verdict, _ = compare_logs(lf, li, lfp.cpu().numpy(),
+                                  lip.cpu().numpy(), rows)
+        fi_err = float(np.median(np.abs(lf[-200:, rows["fi"], 0]
+                                        - ramp_truth[-200:])))
+        log(f"dynamics K4 ramp {name} (bn_carr_freq "
+            f"{loops.bn_carr_freq:g}): kernel against plain {verdict}; "
+            f"median |fi error| over the last 200 updates {fi_err:.2f} Hz "
+            f"[{card}]")
+        if loops.bn_carr_freq > 0.0:
+            assert fi_err < 25.0, fi_err
+        else:
+            assert fi_err > 100.0, fi_err
+
+    # (d) a paced live run through the tool, in a fresh interpreter
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = pathlib.Path(tmp) / "cap.dat"
+        samples.tofile(cap)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, str(REPO / "tools" / "live_run_torch.py"),
+             "--seconds", f"{LIVE_SECONDS:g}", "--capture", str(cap)],
+            capture_output=True, text=True, timeout=600, cwd=str(REPO))
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-3000:])
+    live = json.loads(r.stdout.strip().splitlines()[-1])
+    assert live["rt_misses"] == 0 and live["blocks"] == round(
+        LIVE_SECONDS / T), live
+    log(f"dynamics live run (tools/live_run_torch.py --seconds "
+        f"{LIVE_SECONDS:g}): {live['blocks']} blocks, "
+        f"{live['iterations']} iterations, rt_misses {live['rt_misses']}, "
+        f"avg_compute_ms {live['avg_compute_ms']}, max_compute_ms "
+        f"{live['max_compute_ms']}, margin_x {live['margin_x']}, "
+        f"server_behind_max_ms {live['server_behind_max_ms']}; tool wall "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    log(f"dynamics phase: wall {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return counts
+
+
 # -- phase 25: the mesh -------------------------------------------------------
 
 MESH_RUNS = ("batched", "integrated", "per-block", "fft", "survey")
@@ -3066,6 +3368,11 @@ def main() -> int:
     k2_by_path["bench"] = bl.get("score_surface", 0)
     k4_by_path["bench"] = bl.get("track_chunk", 0)
     k5_by_path["bench"] = bl.get("windowed_correlate", 0)
+    dyn = check_dynamics(samples, dev, card)
+    k1_by_path["dynamics"] = dyn.get("score_argmax", 0)
+    k2_by_path["dynamics"] = dyn.get("score_surface", 0)
+    k4_by_path["dynamics"] = dyn.get("track_chunk", 0)
+    k5_by_path["dynamics"] = dyn.get("windowed_correlate", 0)
     mesh = check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes)
     k1_by_path["mesh"] = mesh.get("score_argmax", 0)
     k1s_by_path["mesh"] = mesh.get("score_argmax_sum", 0)

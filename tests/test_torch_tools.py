@@ -5,8 +5,10 @@ original's source) plus `card`, "cpu" here; run without `--device cpu` on a
 host without a card, each raises naming the missing CUDA device. The spread
 grid is swapped for a 4^4 one and the bench's 50-block lookahead for 5, so
 that a tool runs in seconds here; the capture is the bench's own
-(`bench.bench_capture`), cached in a temporary directory. No new file of
-the port's bench or tools imports JAX or the JAX package.
+(`bench.bench_capture`), cached in a temporary directory (the dynamics
+envelope synthesizes its three moving-receiver captures there; live_run
+runs the `live` subcommand in a child interpreter on 0.8 s of it). No new
+file of the port's bench or tools imports JAX or the JAX package.
 """
 
 import ast
@@ -59,6 +61,17 @@ ORIGINAL_KEYS = {
         "dpe_err_drift_m_per_min", "rss_first_last_mb",
         "rss_growth_mb_per_min", "scalar_series", "dpe_series",
         "rss_series"],
+    # the top level, a profile's and a cell's keys
+    "dynamics_envelope": [
+        "seconds", "lookahead", "hold_threshold_median_last5s_m",
+        "profiles", "speed_mps", "clock_drift", "cells", "depth", "group_k",
+        "median_m", "p95_m", "median_last5s_m", "held", "rtf", "n_fixes"],
+    # live_run.py prints no dict of its own: the JAX CLI `live` record's
+    # keys, those of LIVE_r03.json
+    "live_run": [
+        "signal_seconds", "wall_seconds", "blocks", "iterations",
+        "lookahead", "budget_ms", "avg_compute_ms", "max_compute_ms",
+        "rt_misses", "watchdog_s", "margin_x", "server_behind_max_ms", "fs"],
 }
 # (tool, tiny argv, module constants to shrink); dense_bench twice: per
 # block and integrated
@@ -71,6 +84,12 @@ CASES = [
     ("dense_bench", ["--n", "3", "--integrate", "2", "--iters", "1"], {}),
     ("survey_bench", ["--blocks", "4", "--batch", "2", "--fine-n", "3"], {}),
     ("soak", ["--minutes", "0.01"], {"CHUNK_S": 0.2}),
+    ("dynamics_envelope", ["--seconds", "0.6"],
+     {"LOOKAHEAD": 5, "SETTLE_S": 0.1, "LAST_S": 0.2}),
+    # the rest is passed through to the `live` subcommand, as
+    # tests/test_runtime.py drives the JAX CLI
+    ("live_run", ["--seconds", "0.8", "--lookahead", "10", "--watchdog",
+                  "60", "--grid", "uniform", "--grid-n", "7"], {}),
 ]
 
 
@@ -91,7 +110,14 @@ def _literal_keys(path: pathlib.Path) -> set:
 @pytest.mark.parametrize("tool", sorted(ORIGINAL_KEYS))
 def test_original_keys_are_the_originals(tool):
     """The key lists above are the JAX tools' own: literal keys of their
-    sources, and perblock_decompose's f"e2e_depth{depth}" pair."""
+    sources, and perblock_decompose's f"e2e_depth{depth}" pair; live_run's
+    are LIVE_r03.json's, all of them literal keys of the JAX CLI."""
+    if tool == "live_run":
+        keys = json.loads((REPO / "LIVE_r03.json").read_text())
+        assert sorted(keys) == sorted(ORIGINAL_KEYS[tool])
+        cli = _literal_keys(REPO / "navlab_dpe_sdr_tpu" / "cli.py")
+        assert set(keys) <= cli, set(keys) - cli
+        return
     path = TOOLS / f"{tool}.py"
     src = path.read_text()
     literal = _literal_keys(path)
@@ -116,6 +142,18 @@ def cache_dir(tmp_path_factory):
     return d
 
 
+def _all_keys(out: dict, tool: str) -> set:
+    """The keys of `out`; for dynamics_envelope also every profile's and
+    every cell's."""
+    keys = set(out)
+    if tool == "dynamics_envelope":
+        for prof in out["profiles"].values():
+            keys |= set(prof)
+            for cell in prof["cells"]:
+                keys |= set(cell)
+    return keys
+
+
 def _tool(name):
     return importlib.import_module(f"{name}_torch")
 
@@ -138,7 +176,7 @@ def test_tool_prints_original_keys_on_cpu(tool, argv, consts, cache_dir,
     assert lines
     for line in lines:           # stage_timing: one line a variant
         out = json.loads(line)
-        missing = set(ORIGINAL_KEYS[tool]) - set(out)
+        missing = set(ORIGINAL_KEYS[tool]) - _all_keys(out, tool)
         assert not missing, missing
         assert out["card"] == "cpu"
         if "backend" in out:
@@ -156,6 +194,17 @@ def test_tool_prints_original_keys_on_cpu(tool, argv, consts, cache_dir,
     if tool == "soak":
         assert out["cuda_series"] is None
         assert len(out["scalar_series"]) == 3 and len(out["dpe_series"]) == 3
+    if tool == "dynamics_envelope":
+        assert sorted(out["profiles"]) == ["clock", "vehicle", "walk"]
+        for prof in out["profiles"].values():
+            assert [(c["depth"], c["group_k"]) for c in prof["cells"]] == \
+                [(d, k) for d in (1, 2, 4) for k in (1, 5)]
+            # 30 blocks; grouped cells trimmed to whole dispatches of 5 x 5
+            assert [c["n_fixes"] for c in prof["cells"]] == [30, 5] * 3
+        assert out["profiles"]["vehicle"]["speed_mps"] == 13.75
+    if tool == "live_run":
+        assert out["blocks"] == 40 and out["iterations"] == 4
+        assert out["device"] == "cpu" and out["lookahead"] == 10
 
 
 @pytest.mark.parametrize("tool", sorted(ORIGINAL_KEYS))
@@ -173,6 +222,6 @@ def test_bench_and_tools_import_no_jax():
     files = [REPO / "bench_torch.py",
              REPO / "navlab_dpe_sdr_tpu_torch" / "bench.py"]
     files += sorted(TOOLS.glob("*_torch.py"))
-    assert len(files) == 8
+    assert len(files) == 10
     bad = [f.name for f in files if pat.search(f.read_text())]
     assert not bad, bad
