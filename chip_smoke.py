@@ -183,7 +183,19 @@ Phases, one line or more each (any failure raises and exits non-zero):
    inputs that path gave them (recorded as it called them), K4's ramp logs
    to track_chunk_plain (PLL-only off the ramp by more than 100 Hz,
    FLL-assisted within 25 Hz), and a paced 10 s live run through
-   tools/live_run_torch.py with no real-time miss ("dynamics ..." lines).
+   tools/live_run_torch.py with no real-time miss ("dynamics ..." lines);
+29. (run after phase 28, before phase 25) card against CPU, block by
+   block: the maneuver's run_batched(60, lookahead=10) under the alpha
+   filter and the full EKF, phase 5's capture for 100 blocks per block
+   and 100 in coherent groups of 5, and DPEReceiver.run(50) on the
+   vehicle profile, each once on the card and once on the CPU from the
+   same inputs on the spread grid, every K5, K1 and K2 call recorded on
+   both; every card call's inputs through the kernel on the card and the
+   plain version on the CPU (K5 within 1e-5 of each channel's maximum,
+   flips and code argmaxes equal; K1 and K2 argmax equal or a tie held on
+   both surfaces); then the free-running runs, cells equal and fixes
+   within 1e-6 m (alpha) or 1e-3 m (full EKF) up to the first parting,
+   which must be a float32 near-tie ("card vs CPU ..." lines).
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 
@@ -192,7 +204,7 @@ also runs phase 5 alone against any tree (`--tree DIR`), so two trees are
 read by one routine.
 The line before the last is the kernels' JSON record (launches on the
 timed paths, and by path in launches_by_path, the CLI's, the mesh's and
-the dynamics phase's included; error
+the dynamics phase's and the card-against-CPU phase's included; error
 against the plain version, ms, plain ms, the roofline
 bound of the same work and what sets it, library_ms: null where no single
 PyTorch call computes the function, device_ms: the kernel's own time from
@@ -465,27 +477,69 @@ def check_scorer(grid, widths, dev):
                 bound=bound(ops, nbytes))
 
 
-def compare_scores(args, got, want, kw) -> float:
-    """argmax equal (or a tie within 1e-6 relative), best within rtol 1e-5,
-    weighted means within rtol 1e-4. Returns max |best diff|."""
+def score_at(args, n: int, cells, kw):
+    """score_points of block n of the scorer arguments `args` at the grid
+    indices `cells`, on the arguments' device and dtype: [len(cells)]."""
+    win, los, cen, coe, r0, off3, off1 = args
+    idx = torch.as_tensor(cells, device=off3.device)
+    return score.score_points(
+        win[n:n + 1], los[n:n + 1], cen[n:n + 1], coe[n:n + 1],
+        None if r0 is None else r0[n:n + 1], off3[idx], off1[idx],
+        kw.get("interp", "quadratic"), kw.get("l_power", 1))[0]
+
+
+def compare_scores(args, got, want, kw, ref_args=None, ties=None) -> float:
+    """argmax equal (or a tie within 1e-6 relative that holds on both
+    surfaces: each side's scores at the other's argmax within 1e-6 of its
+    own max), best within rtol 1e-5, weighted means within rtol 1e-4.
+    ref_args: the plain version's inputs where they lie on another device
+    (the same values); ties: a list that gets (block, kernel argmax, plain
+    argmax) of each tie. Returns max |best diff|."""
     best_k, arg_k = got[0].cpu().numpy(), got[1].cpu().numpy()
     best_p, arg_p = want[0].cpu().numpy(), want[1].cpu().numpy()
     np.testing.assert_allclose(best_k, best_p, rtol=1e-5)
+    ref_args = args if ref_args is None else ref_args
     for n in np.nonzero(arg_k != arg_p)[0]:
-        a = int(arg_k[n])
-        win, los, cen, coe, r0, off3, off1 = args
-        s_at = score.score_points(
-            win[n:n + 1], los[n:n + 1], cen[n:n + 1], coe[n:n + 1],
-            None if r0 is None else r0[n:n + 1], off3[a:a + 1],
-            off1[a:a + 1], kw["interp"], kw["l_power"]).item()
-        assert abs(s_at - best_p[n]) <= 1e-6 * abs(best_p[n]), (
-            f"block {n}: kernel argmax {a} scores {s_at}, plain argmax "
-            f"{arg_p[n]} scores {best_p[n]}")
-    if kw["weighted"]:
+        a, b = int(arg_k[n]), int(arg_p[n])
+        for side, cell, best in ((ref_args, a, best_p[n]),
+                                 (args, b, best_k[n])):
+            s_at = score_at(side, n, [cell], kw).item()
+            assert abs(s_at - best) <= 1e-6 * abs(best), (
+                f"block {n}: kernel argmax {a} ({best_k[n]}), plain argmax "
+                f"{b} ({best_p[n]}); the other side scores {cell} {s_at}")
+        if ties is not None:
+            ties.append((int(n), a, b))
+    if kw.get("weighted"):
         mk = (got[2] / got[3][:, None]).cpu().numpy()
         mp = (want[2] / want[3][:, None]).cpu().numpy()
         np.testing.assert_allclose(mk, mp, rtol=1e-4, atol=1e-6)
     return float(np.abs(best_k - best_p).max())
+
+
+def hold_k2(a, kw, ref_args=None, ties=None) -> float:
+    """K2 (score_surface_argmax) against its plain version on the same
+    inputs (ref_args: those inputs on another device): the surface within
+    rtol 1e-6 and, per block, the max and its first index equal; with
+    `ties` a list, a differing index may instead be a tie that holds on
+    both surfaces (each scores the other's index within 1e-6 of its own
+    max), appended to ties as (block, kernel's, plain's). Returns max
+    |surface diff|."""
+    got, best, arg = score.score_surface_argmax(*a, **kw)
+    want = score.score_surface_plain(
+        *(a if ref_args is None else ref_args), **kw).to(got.device)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    w_best, w_arg = want.max(dim=1)           # the first index at the max
+    for n in range(got.shape[0]):
+        a_k, a_p = int(arg[n]), int(w_arg[n])
+        if a_k == a_p:
+            assert float(best[n]) == float(w_best[n]), (n, best, w_best)
+            continue
+        assert ties is not None, f"block {n}: kernel {a_k}, plain {a_p}"
+        for surf, cell, top in ((want, a_k, w_best[n]), (got, a_p, best[n])):
+            assert abs(float(surf[n, cell]) - float(top)) <= 1e-6 * abs(
+                float(top)), (n, a_k, a_p, float(surf[n, cell]), float(top))
+        ties.append((n, a_k, a_p))
+    return float((got - want).abs().max())
 
 
 def make_capture(seconds: float, cn0_dbhz: float = 47.0):
@@ -564,15 +618,23 @@ def k5_bound(args, out, kw) -> dict:
     return bound(ops, nbytes)
 
 
-def hold_k5(a, kw):
+def on_device(args, dev):
+    """args with every tensor moved to dev (the rest as it is)."""
+    return [x.to(dev) if torch.is_tensor(x) else x for x in args]
+
+
+def hold_k5(a, kw, ref=None):
     """K5 against its plain version on the correlator's arguments a and
-    keywords kw: windows within 1e-5 of each channel's window maximum,
+    keywords kw (with ref a device, the plain version on the same inputs
+    moved there): windows within 1e-5 of each channel's window maximum,
     flips and code-window argmaxes equal (a channel whose nav-bit boundary
     is sample 0, a degenerate tie, left out). Returns (the worst relative
     difference, max |diff|, flips, channels kept)."""
     keep = a[4] != 0                                   # [n, C]
     got = correlate.windowed_correlate(*a, **kw)
-    want = correlate.windowed_correlate_plain(*a, **kw)
+    want = correlate.windowed_correlate_plain(
+        *(a if ref is None else on_device(a, ref)), **kw)
+    want = type(want)(*on_device(want, got.flip_used.device))
     torch.cuda.synchronize()
     worst = err = 0.0
     for name in got._fields[:-1]:
@@ -2441,14 +2503,17 @@ LIVE_SECONDS = 10.0
 
 
 @contextlib.contextmanager
-def recording(module, name: str, calls: list):
+def recording(module, name: str, calls: list, outs: list | None = None):
     """Within the block, module.<name> appends each call's (args, kwargs)
-    to `calls` before it runs."""
+    to `calls` before it runs, and with `outs` its result to outs."""
     inner = getattr(module, name)
 
     def rec(*a, **kw):
         calls.append((a, kw))
-        return inner(*a, **kw)
+        out = inner(*a, **kw)
+        if outs is not None:
+            outs.append(out)
+        return out
 
     setattr(module, name, rec)
     try:
@@ -2646,14 +2711,7 @@ def check_dynamics(samples, dev, card) -> dict:
         got = score.score_argmax(*a, **kw)
         want = score.score_argmax_plain(*a, **kw)
         k1_err = max(k1_err, compare_scores(list(a), got, want, kw))
-    k2_err = 0.0
-    for a, kw in k2_calls[-2:]:               # the last step's two K2
-        got, best, arg = score.score_surface_argmax(*a, **kw)
-        want = score.score_surface_plain(*a, **kw)
-        assert int(arg[0]) == int(want.argmax())
-        assert float(best[0]) == float(want.max())
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
-        k2_err = max(k2_err, float((got - want).abs().max()))
+    k2_err = max(hold_k2(a, kw) for a, kw in k2_calls[-2:])  # the last step's
     log(f"dynamics K1 on that dispatch's windows: argmax equal or a tie "
         f"within 1e-6, max|best diff| {k1_err:.3e}; K2 on the 50th "
         f"per-block step: surface max|diff| {k2_err:.3e} (rtol 1e-6), max "
@@ -2698,6 +2756,269 @@ def check_dynamics(samples, dev, card) -> dict:
     log(f"dynamics phase: wall {time.perf_counter() - t_phase:.1f} s "
         f"[{card}]")
     return counts
+
+
+# -- phase 29: card against CPU, block by block ------------------------------
+
+TIE_REL = 1e-6           # a tie: two scores within this share of the peak
+K5_REL = 1e-5            # K5's windows against plain (hold_k5)
+# fixes up to the first parting: lattice cells filtered in float64, or the
+# full EKF's R, a float64 function of float32 windows (ROADMAP Queue 3)
+FIX_TOL_M, FULL_EKF_TOL_M = 1e-6, 1e-3
+
+
+@dataclasses.dataclass
+class Traced:
+    """One run of phase 29 on one device: every K5 call's (args, kwargs),
+    every scorer call's (args, kwargs) and result (K1 in a batched run, K2
+    in the per-block one), the cells of every _apply_measurement, the
+    fixes."""
+    k5: list
+    scorer: list
+    outs: list
+    cells: list
+    fixes: list
+
+
+def card_cpu_runs(first, hand, arr, grid) -> dict:
+    """Phase 29's runs: name -> (the fixes' tolerance up to the first
+    parting [m], the capture with its truth for the RMS or None, make(dev)
+    -> (receiver, drive)). Each run is made the same way on both
+    devices, from the same int16 samples, handoff and ephemerides."""
+    man = moving_capture(60, 7, MOVE_ACC)
+    veh = dyn_env._capture("vehicle", DYN_SECONDS)
+
+    def maneuver(mode):
+        def make(dev):
+            smp, h, ar, _ = man
+            rx = DPEReceiver(SampleFile(samples=smp.copy(), fs=FS),
+                             copy.deepcopy(h), grid=grid,
+                             eph=copy.deepcopy(ar),
+                             config=DPEConfig(ekf_mode=mode, ekf_alpha=0.3),
+                             device=dev)
+            return rx, lambda: rx.run_batched(60, lookahead=10)
+        return make
+
+    def main_path(dev):
+        rx = receiver(first, hand, arr, grid, dev)
+        raw = torch.from_numpy(first[:S * 200].view(np.int16)
+                               .reshape(-1, S, 2)).to(dev)
+        run = dict(lookahead=N_BLOCKS, raw_blocks_dev=raw, pipeline=True,
+                   pipeline_depth=4)
+
+        def drive():
+            rx.run_batched(100, start_block=0, **run)
+            rx.run_batched(100, start_block=100, group_k=5, **run)
+        return rx, drive
+
+    def per_block(dev):
+        smp, h, ar, _ = veh
+        rx = DPEReceiver(SampleFile(samples=smp, fs=FS), copy.deepcopy(h),
+                         grid=grid, eph=copy.deepcopy(ar), device=dev)
+        return rx, lambda: rx.run(50)
+
+    return {"maneuver alpha": (FIX_TOL_M, man, maneuver("alpha")),
+            "maneuver full EKF": (FULL_EKF_TOL_M, man, maneuver("full")),
+            "main path": (FIX_TOL_M, None, main_path),
+            "per-block step": (FIX_TOL_M, None, per_block)}
+
+
+def traced(make, dev) -> Traced:
+    """make(dev)'s run with every K5 and scorer call and every measurement
+    recorded as the path makes them."""
+    rx, drive = make(dev)
+    t = Traced([], [], [], [], [])
+    inner = rx._apply_measurement
+
+    def apply(pa, va, *a, **kw):
+        t.cells.append((pa, va))
+        return inner(pa, va, *a, **kw)
+
+    rx._apply_measurement = apply
+    with recording(dpe_real, "windowed_correlate", t.k5), \
+            recording(dpe_real, "score_argmax", t.scorer, t.outs), \
+            recording(dpe_real, "score_surface_argmax", t.scorer, t.outs):
+        drive()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t.fixes = list(rx.fixes)
+    return t
+
+
+def measurements(t: Traced) -> list:
+    """One entry a fix: {"call": the index of its position scorer call
+    (the velocity's follows), "row": its block in that call, "pos"/"vel":
+    (cell, peak)}."""
+    out = []
+    for i in range(0, len(t.scorer), 2):
+        (pa, _), (va, _) = t.scorer[i], t.scorer[i + 1]
+        assert pa[4] is not None and va[4] is None, i     # pos, then vel
+        (pb, parg), (vb, varg) = (
+            (o[-2].cpu().numpy(), o[-1].cpu().numpy())
+            for o in t.outs[i:i + 2])
+        out += [dict(call=i, row=r, pos=(int(parg[r]), float(pb[r])),
+                     vel=(int(varg[r]), float(vb[r])))
+                for r in range(len(parg))]
+    if t.cells:                     # batched: the cells the EKF was given
+        assert t.cells == [(m["pos"][0], m["vel"][0]) for m in out]
+    assert len(out) == len(t.fixes), (len(out), len(t.fixes))
+    return out
+
+
+def hold_same_inputs(t: Traced, ref) -> dict:
+    """Step 2 of phase 29: every recorded call of the card run, kernel on
+    the card against the plain version on the same inputs on `ref`: K5 by
+    hold_k5, K1 by compare_scores, K2 by hold_k2 (ties allowed where they
+    hold on both surfaces)."""
+    k5_rel = 0.0
+    for a, kw in t.k5:
+        k5_rel = max(k5_rel, hold_k5(a, kw, ref=ref)[0])
+    ties, n1, n2 = [], 0, 0
+    for (a, kw), out in zip(t.scorer, t.outs):
+        ref_a = on_device(a, ref)
+        if len(out) == 2:                      # K1 (best, arg); K2 adds
+            # the surface
+            n1 += 1
+            compare_scores(list(a), score.score_argmax(*a, **kw),
+                           score.score_argmax(*ref_a, **kw), kw, ref_a,
+                           ties)
+        else:                                             # K2
+            n2 += 1
+            hold_k2(a, kw, ref_a, ties)
+    return dict(k5=len(t.k5), k5_rel=k5_rel, k1=n1, k2=n2, ties=ties)
+
+
+def float64(args):
+    return [None if x is None else x.detach().cpu().double() for x in args]
+
+
+def classify_parting(card: Traced, cpu: Traced, mc: dict, mp: dict) -> dict:
+    """Step 3 of phase 29 at the first measurement whose cells part (the
+    card's kernels held to plain on every call's inputs before this): per
+    manifold that parted, both cells scored in float64 from the card's
+    scorer windows and from the CPU's. A float32 near-tie when each window
+    set puts its own device's cell first (within TIE_REL of the peak: the
+    float32 scorer's rounding), each gap is within what the windows'
+    difference moves the two scores (delta = card - cpu at each cell), and
+    the windows agree within K5's tolerance; anything else a fault."""
+    out = {}
+    for k, man in enumerate(("pos", "vel")):
+        (cc, pc), (cp, pp) = mc[man], mp[man]
+        if cc == cp:
+            continue
+        (ac, kw), (ap, _) = card.scorer[mc["call"] + k], \
+            cpu.scorer[mp["call"] + k]
+        r = mc["row"]
+        a64c, a64p = float64(ac), float64(ap)
+        s_c = score_at(a64c, r, [cc, cp], kw).numpy()
+        s_p = score_at(a64p, r, [cc, cp], kw).numpy()
+        gap_c, gap_p = s_c[0] - s_c[1], s_p[1] - s_p[0]
+        delta = s_c - s_p
+        eps = TIE_REL * float(np.abs(np.concatenate([s_c, s_p])).max())
+        wc, wp = a64c[0][r], a64p[0][r]
+        w_rel = float(((wc - wp).abs() / wp.abs().amax(-1, keepdim=True))
+                      .max())
+        same_params = all(torch.equal(x[r].cpu(), y[r].cpu())
+                          for x, y in zip(ac[1:5], ap[1:5]) if x is not None)
+        tie = (min(gap_c, gap_p) >= -eps and w_rel < K5_REL
+               and max(gap_c, gap_p) <= float(np.abs(delta).sum()) + eps)
+        out[man] = dict(cells=(cc, cp), peaks=(pc, pp), gaps=(gap_c, gap_p),
+                        rel_gap=max(abs(gap_c), abs(gap_p)) / abs(s_p).max(),
+                        delta=tuple(delta), w_rel=w_rel,
+                        same_params=same_params,
+                        verdict="float32 near-tie" if tie else "FAULT")
+    return out
+
+
+def check_card_vs_cpu(first, hand, arr, grid, card, dev=None,
+                      ref=None) -> dict:
+    """Phase 29: card against CPU, block by block. Four runs, each once on
+    the card and once on the CPU (the plain versions) from the same int16
+    samples, handoff, ephemerides and DPEConfig on the spread grid at full
+    width: tests/test_dynamics.py's maneuver (moving_capture(60, 7,
+    MOVE_ACC)) through run_batched(60, lookahead=10) under the alpha
+    filter and under the full EKF; phase 5's capture from the truth
+    handoff, alpha, lookahead 50, pipeline depth 4, 100 blocks per block
+    (two N = 50 dispatches) then 100 in coherent groups of 5
+    (coherent_sum's path); DPEReceiver.run(50) on the vehicle profile (K2's
+    path). Every K5, K1 and K2 call and every _apply_measurement's cells
+    are recorded on both devices. (1) Every card call's inputs go through
+    the kernel on the card and through the plain version on the CPU: K5
+    within K5_REL of each channel's window maximum, flips and code
+    argmaxes equal; K1 and K2 argmaxes equal or a tie that holds on both
+    surfaces. (2) The free-running runs: cells equal and fixes within
+    FIX_TOL_M (the full EKF: FULL_EKF_TOL_M) up to the first measurement
+    whose cells part, which is
+    classified (classify_parting) and must be a float32 near-tie. No cut:
+    the CPU runs (the plain scorer over 390 625 points a block) take most
+    of the phase's wall. dev/ref default to cuda/cpu. Returns the launches
+    of the card runs by kernel key."""
+    t_phase = time.perf_counter()
+    dev = torch.device(dev or "cuda")
+    ref = torch.device(ref or "cpu")
+    runs = card_cpu_runs(first, hand, arr, grid)
+    launches = {}
+    for name, (tol, man, make) in runs.items():
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        on_card = traced(make, dev)
+        card_s = time.perf_counter() - t0
+        for k, v in _build.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        t0 = time.perf_counter()
+        on_cpu = traced(make, ref)
+        cpu_s = time.perf_counter() - t0
+        held = hold_same_inputs(on_card, ref)
+        log(f"card vs CPU {name}: same inputs held on every call: K5 "
+            f"{held['k5']} calls (windows within rel {held['k5_rel']:.3e} of "
+            f"each channel's maximum, limit {K5_REL:g}; flips and code "
+            f"argmaxes equal), K1 {held['k1']} calls, K2 {held['k2']} calls "
+            f"(argmax equal, ties held on both surfaces: "
+            f"{held['ties'] or 'none'}) [{card}]")
+        m_c, m_p = measurements(on_card), measurements(on_cpu)
+        assert len(m_c) == len(m_p), (len(m_c), len(m_p))
+        part, worst = None, 0.0
+        for i, (a, b) in enumerate(zip(m_c, m_p)):
+            if (a["pos"][0], a["vel"][0]) != (b["pos"][0], b["vel"][0]):
+                part = i
+                break
+            gap = float(np.abs(on_card.fixes[i].x_ecef
+                               - on_cpu.fixes[i].x_ecef).max())
+            assert gap <= tol, (name, i, gap)
+            worst = max(worst, gap)
+        rms = ""
+        if man is not None:
+            truth, t_h = man[3], man[1].rx_time
+            rms = "; RMS card {:.3f} m, CPU {:.3f} m".format(*(
+                rms_error([f.x_ecef for f in t.fixes],
+                          [f.rx_time - t_h for f in t.fixes], truth,
+                          MOVE_ACC) for t in (on_card, on_cpu)))
+        head = (f"card vs CPU {name}: {len(m_c)} measurements, cells equal "
+                f"and fixes within {worst:.3e} m (limit {tol:g})")
+        if part is None:
+            log(f"{head} over all of them; first parting: none{rms}; card "
+                f"{card_s:.1f} s, CPU {cpu_s:.1f} s [{card}]")
+            continue
+        cls = classify_parting(on_card, on_cpu, m_c[part], m_p[part])
+        desc = "; ".join(
+            f"{man_}: cells card {c['cells'][0]} / CPU {c['cells'][1]}, "
+            f"peaks {c['peaks'][0]!r} / {c['peaks'][1]!r}, float64 gaps "
+            f"(own cell first) on the card's windows {c['gaps'][0]:.6g}, "
+            f"on the CPU's {c['gaps'][1]:.6g} (rel {c['rel_gap']:.3e}), "
+            f"card - CPU at the cells {c['delta'][0]:.6g} / "
+            f"{c['delta'][1]:.6g}, windows apart by {c['w_rel']:.3e} of a "
+            f"channel's maximum, parameters "
+            f"{'equal' if c['same_params'] else 'differ'}: {c['verdict']}"
+            for man_, c in cls.items())
+        log(f"{head} up to measurement {part}; first parting: block "
+            f"{on_card.fixes[part].mc} (K1/K2 and K5 held to plain at its "
+            f"inputs above), {desc}{rms}; card {card_s:.1f} s, CPU "
+            f"{cpu_s:.1f} s [{card}]")
+        assert all(c["verdict"] == "float32 near-tie"
+                   for c in cls.values()), (name, part, cls)
+    log(f"card vs CPU phase: launches {launches}, wall "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
 
 
 # -- phase 25: the mesh -------------------------------------------------------
@@ -3373,6 +3694,10 @@ def main() -> int:
     k2_by_path["dynamics"] = dyn.get("score_surface", 0)
     k4_by_path["dynamics"] = dyn.get("track_chunk", 0)
     k5_by_path["dynamics"] = dyn.get("windowed_correlate", 0)
+    cvc = check_card_vs_cpu(first, hand, arr, grid, card)
+    k1_by_path["card vs cpu"] = cvc.get("score_argmax", 0)
+    k2_by_path["card vs cpu"] = cvc.get("score_surface", 0)
+    k5_by_path["card vs cpu"] = cvc.get("windowed_correlate", 0)
     mesh = check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes)
     k1_by_path["mesh"] = mesh.get("score_argmax", 0)
     k1s_by_path["mesh"] = mesh.get("score_argmax_sum", 0)

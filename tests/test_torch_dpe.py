@@ -56,10 +56,11 @@ def scenario():
     return samples, hand, arr, grid, truth
 
 
-def _receiver(pkg, scenario, handoff=None, use_argmax=True, **kw):
+def _receiver(pkg, scenario, handoff=None, use_argmax=True, cfg=None,
+              **kw):
     samples, hand, arr, grid, _ = scenario
-    cfg = pkg.DPEConfig(ekf_mode="alpha", ekf_alpha=0.3,
-                        use_argmax=use_argmax)
+    cfg = pkg.DPEConfig(**{**dict(ekf_mode="alpha", ekf_alpha=0.3,
+                                  use_argmax=use_argmax), **(cfg or {})})
     if pkg is tmodel:
         kw.setdefault("device", "cpu")
     if handoff is None:
@@ -361,3 +362,103 @@ def test_score_manifolds_mag_matches_jax(interp, l_power):
         np.testing.assert_allclose(out[i].numpy(), np.asarray(ref[i]),
                                    rtol=1e-5)
         assert int(out[i + 1]) == int(ref[i + 1])
+
+
+# -- modes that only the JAX package's own tests set (ROADMAP Queue 1, item
+# 16): per block and through run_batched, both packages on the same capture
+
+# tests/test_atmos.py's Klobuchar set, the ionosphere eight times as strong
+ION_ALPHA = tuple(8 * a for a in (0.1118e-7, 0.2235e-7, -0.5960e-7,
+                                  -0.1192e-6))
+ION_BETA = (0.1167e6, 0.1802e6, -0.1311e6, -0.4588e6)
+
+
+def _both(scenario, cfg, per_block: bool, duty=None):
+    """(JAX receiver, port receiver) after 6 per-block steps or
+    run_batched(12, lookahead=6) (fixes from the SampleFile, through the
+    read-ahead thread), each with DPEConfig(**cfg); with duty = (T, T_big)
+    the SampleFile is duty cycled first."""
+    out = []
+    for pkg in (jmodel, tmodel):
+        rx = _receiver(pkg, scenario, cfg=cfg)
+        if duty is not None:
+            rx.rawfile.set_block(*duty, verbose=False)
+        if per_block:
+            rx.run(6)
+        else:
+            rx.run_batched(12, lookahead=6)
+        out.append(rx)
+    return out
+
+
+def _same(jrx, trx, atol=1e-6):
+    assert [f.mc for f in trx.fixes] == [f.mc for f in jrx.fixes]
+    assert [f.rx_time for f in trx.fixes] == [f.rx_time for f in jrx.fixes]
+    for fj, ft in zip(jrx.fixes, trx.fixes):
+        np.testing.assert_allclose(ft.x_ecef, fj.x_ecef, rtol=0, atol=atol)
+    for a, b in zip(jrx.flip_log, trx.flip_log):
+        np.testing.assert_array_equal(b, np.asarray(a))
+
+
+@pytest.mark.parametrize("per_block", [True, False],
+                         ids=["per-block", "batched"])
+def test_duty_cycled_matches_jax(scenario, per_block):
+    """SampleFile.set_block(0.02, 0.04): 20 ms processed out of every 40 ms
+    (tests/test_modes.py:150). Per block, `step` crosses each 20 ms gap
+    (`_advance_gap`): the cursor ends 6 x 40 ms on and every fix within
+    1e-6 m of JAX's. `run_batched` ignores the duty cycle in the JAX
+    receiver and reads contiguous blocks (a reference-side caveat, ROADMAP
+    Queue 3, not a behaviour held as correct): the batched case only
+    checks that both packages do the same, cursor and fixes."""
+    jrx, trx = _both(scenario, {}, per_block, duty=(0.02, 0.04))
+    assert trx.rawfile.sample_pos == jrx.rawfile.sample_pos
+    step = int(0.04 * FS) if per_block else int(0.02 * FS)
+    assert trx.rawfile.sample_pos == (6 if per_block else 12) * step
+    _same(jrx, trx)
+
+
+@pytest.mark.parametrize("per_block", [True, False],
+                         ids=["per-block", "batched"])
+def test_atmospheric_correction_matches_jax(scenario, per_block):
+    """DPEConfig(ion_alpha=, ion_beta=, tropo=True) (tests/test_atmos.py:68's
+    model, the port's `_atmos_m` per block and in `_prepare_batch`): fixes
+    within 1e-6 m of JAX's, and metres away from the uncorrected run's, so
+    the correction is applied."""
+    cfg = dict(ion_alpha=ION_ALPHA, ion_beta=ION_BETA, tropo=True)
+    jrx, trx = _both(scenario, cfg, per_block)
+    _same(jrx, trx)
+    plain = _receiver(tmodel, scenario)
+    plain.run(6) if per_block else plain.run_batched(12, lookahead=6)
+    moved = max(np.linalg.norm(a.x_ecef[:3] - b.x_ecef[:3])
+                for a, b in zip(plain.fixes, trx.fixes))
+    assert moved > 1.0, moved
+
+
+@pytest.mark.parametrize("per_block", [True, False],
+                         ids=["per-block", "batched"])
+@pytest.mark.parametrize("cfg", [dict(use_sat_cache=False),
+                                 dict(doppler_sign=-1.0)],
+                         ids=["no-sat-cache", "doppler-sign"])
+def test_config_switches_match_jax(scenario, cfg, per_block):
+    """DPEConfig(use_sat_cache=False) (satellite states from the orbit
+    model every block, no Hermite cache) and doppler_sign=-1.0 (the
+    opposite spectrum convention; on this capture it loses the signal, the
+    same way in both packages): fixes within 1e-6 m of JAX's."""
+    _same(*_both(scenario, cfg, per_block))
+
+
+@pytest.mark.parametrize("per_block", [True, False],
+                         ids=["per-block", "batched"])
+def test_full_ekf_process_noise_matches_jax(scenario, per_block):
+    """The full EKF with ekf_q_pos=3, ekf_q_accel=2: the measurement cells
+    equal in both packages, the fixes within 1e-3 m (its adaptive R is a
+    float64 function of float32 windows, ROADMAP Queue 3), and away from
+    the default process noise's run, so the settings reach the filter."""
+    cfg = dict(ekf_mode="full", ekf_q_pos=3.0, ekf_q_accel=2.0)
+    jrx, trx = _both(scenario, cfg, per_block)
+    _same(jrx, trx, atol=1e-3)
+    default = _receiver(tmodel, scenario, cfg=dict(ekf_mode="full"))
+    default.run(6) if per_block else default.run_batched(12, lookahead=6)
+    moved = max(np.linalg.norm(a.x_ecef[:3] - b.x_ecef[:3])
+                for a, b in zip(default.fixes, trx.fixes))
+    assert moved > 1e-2, moved

@@ -39,11 +39,12 @@ from navlab_dpe_sdr_tpu.io.synth import CaptureSimulator
 from navlab_dpe_sdr_tpu.libgnss import frames
 from navlab_dpe_sdr_tpu.libgnss.cacode import ca_code
 from navlab_dpe_sdr_tpu.models import dpe as jmodel
-from navlab_dpe_sdr_tpu.models.grid import uniform_grid
+from navlab_dpe_sdr_tpu.models.grid import spread_grid, uniform_grid
 from navlab_dpe_sdr_tpu.ops import dpe_real as jreal
 from navlab_dpe_sdr_tpu.ops import tracking as jt
 from navlab_dpe_sdr_tpu_torch.io.rawfile import SampleFile as TSampleFile
 from navlab_dpe_sdr_tpu_torch.models import dpe as tmodel
+from navlab_dpe_sdr_tpu_torch.ops import score as tscore
 from navlab_dpe_sdr_tpu_torch.ops import tracking as tt
 
 torch.set_num_threads(2)
@@ -118,7 +119,7 @@ VEL_CENTRE = int(np.flatnonzero((np.abs(GRID.dv_enu).sum(axis=1) == 0)
                                 & (GRID.dtdot == 0))[0])
 
 
-def _receiver(pkg, scen, **cfg):
+def _receiver(pkg, scen, grid=GRID, **cfg):
     samples, hand, arr, _ = scen
     cfg.setdefault("ekf_mode", "alpha")
     cfg.setdefault("ekf_alpha", 0.3)
@@ -127,7 +128,7 @@ def _receiver(pkg, scen, **cfg):
         kw = dict(device="cpu")
     else:
         rf, kw = SampleFile(samples=samples.copy(), fs=FS), {}
-    return pkg.DPEReceiver(rf, copy.deepcopy(hand), grid=GRID,
+    return pkg.DPEReceiver(rf, copy.deepcopy(hand), grid=grid,
                            eph=copy.deepcopy(arr),
                            config=pkg.DPEConfig(**cfg), **kw)
 
@@ -292,6 +293,113 @@ def test_maneuver_full_ekf_batched_matches_jax(maneuver):
     (jcells,), (tcells, hcells) = cells[jmodel], cells[tmodel]
     assert tcells == hcells == jcells
     assert len(jcells) == N_BLOCKS and jcells[0][1] != VEL_CENTRE
+
+
+def _own_scores(pkg, rows, pk, i, cells, code_win, grid):
+    """Each package's own float32 scorer (JAX `_score_chunk`, the port's
+    `score_points`) on the position windows of row i of a dispatch's packed
+    rows, at the grid indices `cells`."""
+    c = pk.shape[2]
+    win = rows[i:i + 1, 4 + c:4 + c + c * code_win].reshape(1, c, code_win)
+    f = pk[i:i + 1, :11]
+    args = [win, f[:, 3:6].transpose(0, 2, 1), f[:, 7], f[:, 8], f[:, 6],
+            grid.d_enu[cells], grid.dt_m[cells]]
+    args = [np.ascontiguousarray(a, np.float32) for a in args]
+    if pkg is jmodel:
+        s = jreal._score_chunk(*(jnp.asarray(a) for a in args), "quadratic",
+                               1)
+    else:
+        s = tscore.score_points(*(torch.from_numpy(a) for a in args),
+                                "quadratic", 1)
+    return np.asarray(s)[0].astype(np.float64)
+
+
+@pytest.fixture(scope="module")
+def maneuver60():
+    """tests/test_dynamics.py:55's own input: the maneuver's 60 blocks
+    from the truth handoff."""
+    _, hand, arr = make_scenario(nav_data=True)
+    truth = hand.x_ecef.copy()
+    truth[4:7] = VEL
+    sim = CaptureSimulator(arr, truth, tow0=hand.rx_time, fs=FS,
+                           cn0_dbhz=47.0, nav_data=True, accel_ecef=ACC,
+                           seed=7)
+    h = copy.deepcopy(hand)
+    h.x_ecef = truth.copy()
+    return _to_iq(sim.generate(S * 60)), h, arr, truth
+
+
+@pytest.mark.parametrize("case", ["7^4", "spread"])
+def test_maneuver_alpha_batched_matches_jax(case, request):
+    """(c) the maneuver through run_batched(lookahead=10) under the alpha
+    filter (the path whose card run chip_smoke.py phase 29 traces block by
+    block), on the 7^4 grid (the `maneuver` fixture) and on the spread grid
+    (tests/test_dynamics.py:55's own input and grid): the measurement cells
+    equal in every block and every fix within 1e-6 m of the JAX
+    receiver's, up to the first block whose cells part; there both
+    packages' windows (each dispatch returns them here) must hold a
+    float32 tie: each package's own scorer puts the other's position cell
+    within 1e-6 of its own cell's score. On these captures the runs part
+    at block 21 on the 7^4 grid (cells 1200 and 1249) and at block 14 on
+    the spread grid (cells 195286 and 195235), and the fixes part from
+    there (ROADMAP Queue 3). `pytest -s` prints the parting and both
+    packages' RMS error."""
+    if case == "spread":
+        scen, grid, n = request.getfixturevalue("maneuver60"), \
+            spread_grid(), 60
+    else:
+        scen, grid, n = request.getfixturevalue("maneuver"), GRID, N_BLOCKS
+    runs = []
+    for pkg in (jmodel, tmodel):
+        rx = _receiver(pkg, scen, grid=grid)
+        cells = _record(rx, "_apply_measurement", lambda a, kw, out: a[0:2])
+        dispatches, inner = [], pkg.dpe_real_ops.dpe_batch_blocks
+
+        def with_windows(*a, inner=inner, seen=dispatches, **kw):
+            out = inner(*a, **dict(kw, return_windows=True))
+            seen.append((np.asarray(a[1]), np.asarray(out)))
+            return out
+
+        pkg.dpe_real_ops.dpe_batch_blocks = with_windows
+        try:
+            rx.run_batched(n, lookahead=10,
+                           raw_blocks_dev=_capture(scen[0], pkg))
+        finally:
+            pkg.dpe_real_ops.dpe_batch_blocks = inner
+        runs.append((rx, cells, dispatches))
+    (jrx, jcells, jdisp), (trx, tcells, tdisp) = runs
+    assert len(tcells) == len(jcells) == n
+    part = next((k for k, (a, b) in enumerate(zip(jcells, tcells))
+                 if a != b), n)
+    rms = [_rms(rx, scen) for rx in (trx, jrx)]
+    print(f"\nmaneuver alpha, {case} grid: first parting at block "
+          f"{part + 1 if part < n else None} (cells port / JAX "
+          f"{tcells[part] if part < n else None} / "
+          f"{jcells[part] if part < n else None}); RMS port {rms[0]:.3f} m, "
+          f"JAX {rms[1]:.3f} m")
+    if part == n:
+        _same_fixes(jrx, trx, n)
+        return
+    for fj, ft in zip(jrx.fixes[:part], trx.fixes[:part]):
+        np.testing.assert_allclose(ft.x_ecef, fj.x_ecef, rtol=0, atol=1e-6)
+    (jpa, jva), (tpa, tva) = jcells[part], tcells[part]
+    assert jva == tva and jpa != tpa, (part, jcells[part], tcells[part])
+    d, i = divmod(part, 10)
+    np.testing.assert_array_equal(tdisp[d][0], jdisp[d][0])  # same inputs
+    for pkg, (pk, rows), own, other in (
+            (jmodel, jdisp[d], jpa, tpa), (tmodel, tdisp[d], tpa, jpa)):
+        s_own, s_other = _own_scores(pkg, rows, pk, i, [own, other],
+                                     trx.code_win, grid)
+        assert s_other >= s_own - 1e-6 * abs(s_own), (pkg.__name__, part,
+                                                      s_own, s_other)
+
+
+def _rms(rx, scen):
+    """RMS distance of rx's fixes from the accelerating truth."""
+    truth, t0 = scen[3], scen[1].rx_time
+    e = [np.linalg.norm(f.x_ecef[0:3] - _truth_at(truth, f.rx_time - t0, ACC))
+         for f in rx.fixes]
+    return float(np.sqrt(np.mean(np.square(e))))
 
 
 def test_maneuver_rts_smoother_matches_jax(maneuver, tmp_path):

@@ -68,6 +68,12 @@ ORIGINAL_KEYS = {
         "median_m", "p95_m", "median_last5s_m", "held", "rtf", "n_fixes"],
     # live_run.py prints no dict of its own: the JAX CLI `live` record's
     # keys, those of LIVE_r03.json
+    # a row's keys and the --all table's (grid_points_per_s, sec_per_block
+    # and devices are scaling_bench's, held by the row tests below)
+    "scaling_table": [
+        "mesh", "chan", "grid", "n_chan_sig", "cores", "efficiency_vs_1dev",
+        "grid_points_per_block", "grid_scale", "rows",
+        "best_efficiency_per_devices", "metric", "methodology", "regimes"],
     "live_run": [
         "signal_seconds", "wall_seconds", "blocks", "iterations",
         "lookahead", "budget_ms", "avg_compute_ms", "max_compute_ms",
@@ -222,6 +228,85 @@ def test_bench_and_tools_import_no_jax():
     files = [REPO / "bench_torch.py",
              REPO / "navlab_dpe_sdr_tpu_torch" / "bench.py"]
     files += sorted(TOOLS.glob("*_torch.py"))
-    assert len(files) == 10
+    assert len(files) == 11
     bad = [f.name for f in files if pat.search(f.read_text())]
     assert not bad, bad
+
+
+ROW_KEYS = {"grid_points_per_s", "sec_per_block", "devices", "mesh",
+            "n_chan_sig", "cores"}
+
+
+@pytest.mark.parametrize("chan", [1, 2])
+def test_scaling_table_two_ranks_on_cpu(chan, capsys):
+    """`scaling_table_torch.py --device cpu --devices 2 --c 2 --iters 1`:
+    two gloo ranks, each pinned to a core, print one row; with --chan 2
+    the two ranks split the channels."""
+    tool = _tool("scaling_table")
+    assert tool.main(["--device", "cpu", "--devices", "2", "--c", "2",
+                      "--iters", "1", "--chan", str(chan)]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    row = json.loads(lines[0])
+    assert ROW_KEYS <= set(row)
+    assert row["devices"] == 2 and row["cores"] == 2
+    assert row["mesh"] == {"chan": chan, "grid": 2 // chan}
+    assert row["n_chan_sig"] == 2 and row["grid_points_per_s"] > 0
+
+
+def test_scaling_table_all_writes_the_table(tmp_path, monkeypatch, capsys):
+    """--all over 1 and 2 ranks and one grid scale: every row with its
+    efficiency against one rank, the best efficiency per rank count."""
+    tool = _tool("scaling_table")
+    monkeypatch.setattr(tool, "GRID_SCALES", (1,))
+    monkeypatch.setattr(tool, "RANK_COUNTS", (1, 2))
+    out = tmp_path / "scaling.json"
+    assert tool.main(["--device", "cpu", "--all", "--iters", "1",
+                      "--out", str(out)]) == 0
+    table = json.loads(out.read_text())
+    (regime,) = table["regimes"]
+    assert regime["grid_points_per_block"] == 2 * 390625
+    rows = regime["rows"]
+    assert [(r["devices"], r["mesh"]["chan"]) for r in rows] == \
+        [(1, 1), (2, 1), (2, 2)]
+    assert rows[0]["efficiency_vs_1dev"] == 1.0
+    assert all(ROW_KEYS | {"efficiency_vs_1dev"} <= set(r) for r in rows)
+    assert sorted(regime["best_efficiency_per_devices"]) == ["1", "2"]
+    assert table["cpu"] and table["host_cores"] >= 2
+
+
+def test_scaling_table_rank_failure_exits_with_its_stderr(capsys):
+    """A rank that fails (no blocks to time) ends the measurement with a
+    non-zero exit, its standard error on ours: no row is made up."""
+    tool = _tool("scaling_table")
+    with pytest.raises(SystemExit, match="2 ranks failed"):
+        tool.measure(2, 1, 1, n_chan_sig=2, n_blocks=0)
+    err = capsys.readouterr().err
+    assert "rank 0 exited 1" in err and "rank 1 exited 1" in err
+    assert "Traceback" in err and "IndexError" in err
+
+
+def test_scaling_table_card_row_is_one_card_only():
+    """--device cuda measures one card: more ranks or --all are refused
+    before anything runs (no figure across cards)."""
+    tool = _tool("scaling_table")
+    for argv in (["--devices", "2"], ["--all"], ["--chan", "2"]):
+        with pytest.raises(SystemExit):
+            tool.main(["--device", "cuda", *argv])
+
+
+@pytest.mark.cuda
+def test_scaling_table_one_card_row(capsys):
+    """On the card: the one-card row (mesh=None, then one NCCL rank), named
+    by nvidia-smi, with no efficiency."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert _tool("scaling_table").main(["--iters", "1"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert ROW_KEYS <= set(row) and "efficiency_vs_1dev" not in row
+    assert row["devices"] == 1 and row["mesh"] is None
+    assert row["label"] == "one card" and row["card"] != "cpu"
+    w1 = row["nccl_world_1"]
+    assert w1["mesh"] == {"chan": 1, "grid": 1} and w1["backend"] == "nccl"
+    assert w1["devices"] == 1 and w1["grid_points_per_s"] > 0
+    assert w1["collectives"] > 0
