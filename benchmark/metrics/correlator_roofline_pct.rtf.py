@@ -1,0 +1,6 @@
+"""`correlator_roofline_pct` (metrics/correlator_roofline_pct.py) in the cells
+that report `rtf`."""
+
+from .correlator_roofline_pct import read  # noqa: F401
+
+WORKLOADS = ["spread25.offline_k5"]

@@ -1,0 +1,6 @@
+"""`correlator_roofline_pct` (metrics/correlator_roofline_pct.py) in the cells
+that report `rtf_dense`."""
+
+from .correlator_roofline_pct import read  # noqa: F401
+
+WORKLOADS = ["dense75.offline_perblock"]

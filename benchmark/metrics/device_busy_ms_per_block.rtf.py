@@ -1,0 +1,6 @@
+"""`device_busy_ms_per_block` (metrics/device_busy_ms_per_block.py) in the
+cells that report `rtf`."""
+
+from .device_busy_ms_per_block import read  # noqa: F401
+
+WORKLOADS = ["spread25.offline_k5"]

@@ -1,0 +1,6 @@
+"""`launches_per_block` (metrics/launches_per_block.py) in the cells that
+report `rtf`."""
+
+from .launches_per_block import read  # noqa: F401
+
+WORKLOADS = ["spread25.offline_k5"]

@@ -1,0 +1,6 @@
+"""`launches_per_block` (metrics/launches_per_block.py) in the cells that
+report `rtf_dense`."""
+
+from .launches_per_block import read  # noqa: F401
+
+WORKLOADS = ["dense75.offline_perblock"]
