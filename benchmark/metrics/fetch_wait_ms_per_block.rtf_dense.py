@@ -1,0 +1,6 @@
+"""`fetch_wait_ms_per_block` (metrics/fetch_wait_ms_per_block.py) in the
+cells that report `rtf_dense`."""
+
+from .fetch_wait_ms_per_block import read  # noqa: F401
+
+WORKLOADS = ["dense75.offline_perblock"]

@@ -1,0 +1,6 @@
+"""`host_self_ms_per_block` (metrics/host_self_ms_per_block.py) in the
+cells that report `rtf`."""
+
+from .host_self_ms_per_block import read  # noqa: F401
+
+WORKLOADS = ["spread25.offline_k5"]

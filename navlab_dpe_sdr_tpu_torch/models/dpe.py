@@ -48,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import C, F_CA, F_L1, L_CA, T_CA
 from ..device import resolve_device
 from ..io.handoff import Handoff
@@ -344,9 +345,10 @@ class DPEReceiver:
         self.carr_fftpts = rawfile.carr_fftpts
 
         # score-window widths: exact-safe minimum for this grid
-        auto_cw, auto_vw = dpe_ops.auto_windows(
-            self.grid.d_enu, self.grid.dt_m, self.grid.dv_enu,
-            self.grid.dtdot, rawfile.fs, self.carr_fftpts)
+        with tracing.span("dpe.build.windows"):
+            auto_cw, auto_vw = dpe_ops.auto_windows(
+                self.grid.d_enu, self.grid.dt_m, self.grid.dv_enu,
+                self.grid.dtdot, rawfile.fs, self.carr_fftpts)
         self.code_win = self.cfg.code_win or auto_cw
         self.carr_win = self.cfg.carr_win or auto_vw
         if self.code_win < auto_cw or self.carr_win < auto_vw:
@@ -363,8 +365,9 @@ class DPEReceiver:
             raise ValueError(f"block of {self.S} samples is not a whole "
                              f"number of {self.period}-sample code periods")
         chips = ca_table(self.prn_list)
-        self._dev = device_state(self.grid, chips, self.S, rawfile.fs,
-                                 self.device)
+        with tracing.span("dpe.build.upload"):
+            self._dev = device_state(self.grid, chips, self.S, rawfile.fs,
+                                     self.device)
         if self.cfg.engine == "fft":
             # FFT of each channel's nominal code replica: per-block replicas
             # are frequency-domain fractional shifts of it
@@ -575,145 +578,154 @@ class DPEReceiver:
     def step(self, raw_block: np.ndarray | None = None) -> DPEFix:
         """One 20 ms block: predict, correlate and score on the device, one
         measurement update (the JAX `DPEReceiver.step`)."""
-        self._maybe_reselect_eph()
-        rf = self.rawfile
-        if raw_block is None:
-            if rf.S_skip:
-                rf.skip_gap()
-                self._advance_gap()
-            raw_block = rf.read_block_raw()
-        raw = self._upload_block(raw_block)
-        # 1. time update
-        self.ekf.time_update()
-        self.rx_time += self.cfg.T
-        self.rx_time_a = self.rx_time - self.ekf.x[3] / C
+        with tracing.span("dpe.step.prep"):
+            self._maybe_reselect_eph()
+            rf = self.rawfile
+            if raw_block is None:
+                if rf.S_skip:
+                    rf.skip_gap()
+                    self._advance_gap()
+                raw_block = rf.read_block_raw()
+            raw = self._upload_block(raw_block)
+            # 1. time update
+            self.ekf.time_update()
+            self.rx_time += self.cfg.T
+            self.rx_time_a = self.rx_time - self.ekf.x[3] / C
 
-        # 2. pre-prediction channel state (the replicas use it) and the
-        #    nav-bit flip boundary
-        rc_snap = self.rc.copy()
-        dfc_snap = self.fc - F_CA
-        fi_corr = self.fi.astype(np.float32)
-        ri_corr = self.ri.astype(np.float32)
-        idx_next = self._idx_next_bit()
+            # 2. pre-prediction channel state (the replicas use it) and the
+            #    nav-bit flip boundary
+            rc_snap = self.rc.copy()
+            dfc_snap = self.fc - F_CA
+            fi_corr = self.fi.astype(np.float32)
+            ri_corr = self.ri.astype(np.float32)
+            idx_next = self._idx_next_bit()
 
-        # 3. channel prediction to block end (host float64)
-        self._predict_channels()
-        self.mc += 1
+            # 3. channel prediction to block end (host float64)
+            self._predict_channels()
+            self.mc += 1
 
-        # 4. manifold geometry (host float64 centers)
-        sats_eci, _ = self._sats_now()
-        (los_enu, r0, pos_idx_c, pos_coef, vel_idx_c, vel_coef,
-         r_e2n) = self._manifold_params(sats_eci)
-        pos_start = np.clip(np.round(pos_idx_c).astype(np.int64)
-                            - self.code_win // 2, 0,
-                            self.S - self.code_win).astype(np.int32)
-        vel_start = np.clip(np.round(vel_idx_c).astype(np.int64)
-                            - self.carr_win // 2, 0,
-                            self.carr_fftpts - self.carr_win).astype(np.int32)
-        fft = self.cfg.engine == "fft"
-        if fft:     # the replica shift, split into int + f32 parts
-            m_int, shift0 = dpe_ops.replica_shift_parts(
-                rc_snap, dfc_snap, self.rawfile.fs, self.cfg.T, self.S)
-        else:       # the mid-block code phase
-            shift0 = np.mod(rc_snap + dfc_snap * (self.cfg.T / 2.0), L_CA)
+            # 4. manifold geometry (host float64 centers)
+            sats_eci, _ = self._sats_now()
+            (los_enu, r0, pos_idx_c, pos_coef, vel_idx_c, vel_coef,
+             r_e2n) = self._manifold_params(sats_eci)
+            pos_start = np.clip(np.round(pos_idx_c).astype(np.int64)
+                                - self.code_win // 2, 0,
+                                self.S - self.code_win).astype(np.int32)
+            vel_start = np.clip(
+                np.round(vel_idx_c).astype(np.int64) - self.carr_win // 2,
+                0, self.carr_fftpts - self.carr_win).astype(np.int32)
+            fft = self.cfg.engine == "fft"
+            if fft:     # the replica shift, split into int + f32 parts
+                m_int, shift0 = dpe_ops.replica_shift_parts(
+                    rc_snap, dfc_snap, self.rawfile.fs, self.cfg.T, self.S)
+            else:       # the mid-block code phase
+                shift0 = np.mod(rc_snap + dfc_snap * (self.cfg.T / 2.0), L_CA)
 
-        # 5. one packed upload, the fused device step (K2 for the scores)
-        fpk = np.stack([
-            shift0, fi_corr, ri_corr,
-            los_enu[:, 0], los_enu[:, 1], los_enu[:, 2], r0,
-            pos_idx_c - pos_start, pos_coef,
-            vel_idx_c - vel_start, vel_coef]).astype(np.float32)
-        ipk = np.stack([idx_next, pos_start, vel_start]).astype(np.int32)
-        fp, ip = dpe_real_ops.unpack_params(dpe_real_ops.to_device(
-            dpe_real_ops.pack_params(fpk[None], ipk[None], 0), self.device))
-        fp, ip = fp[0], ip[0]
-        params = dpe_ops.ManifoldParams(
-            los_enu=fp[3:6].T, r0=fp[6], pos_center=fp[7], pos_coef=fp[8],
-            vel_center=fp[9], vel_coef=fp[10])
-        d = self._dev
-        code_mag = carr_mag = None
-        if fft:
-            rawf = raw.float()
-            (pos_scores, pos_arg, vel_scores, vel_arg,
-             flip_used) = dpe_ops.dpe_device_step(
-                torch.complex(rawf[:, 0], rawf[:, 1]), self._code_fft0,
-                dpe_real_ops.to_device(m_int, self.device), fp[0], ip[0],
-                fp[1], fp[2], d.time_idc, ip[1], ip[2], params, d.d_enu,
-                d.dt_m, d.dv_enu, d.dtdot, carr_fftpts=self.carr_fftpts,
-                l_power=self.cfg.l_power, interp=self.cfg.interp,
-                code_win=self.code_win, carr_win=self.carr_win,
-                mesh=self.cfg.mesh)
-        else:
-            (pos_scores, pos_arg, vel_scores, vel_arg, flip_used, code_mag,
-             carr_mag) = dpe_real_ops.dpe_device_step_real(
-                raw[:, 0], raw[:, 1], d.chips, fp[0], ip[0], fp[1], fp[2],
-                d.time_idc, ip[1], ip[2], params, d.d_enu, d.dt_m, d.dv_enu,
-                d.dtdot, carr_fftpts=self.carr_fftpts, period=self.period,
-                n_periods=self.S // self.period, l_power=self.cfg.l_power,
-                interp=self.cfg.interp, code_win=self.code_win,
-                carr_win=self.carr_win, mesh=self.cfg.mesh)
-
-        if self.cfg.use_argmax:
-            pa, va = int(pos_arg), int(vel_arg)
-            d_enu = self.grid.d_enu[pa]
-            dt = self.grid.dt_m[pa]
-            dv_enu = self.grid.dv_enu[va]
-            dtdot = self.grid.dtdot[va]
-            pos_peak = float(pos_scores[pa])
-            vel_peak = float(vel_scores[va])
-            if self.cfg.refine == "newton":
-                dp = self._refine_ml(
-                    code_mag.cpu().numpy(), pos_idx_c - pos_start, pos_coef,
-                    los_enu, np.concatenate([d_enu, [dt]]),
-                    span=self._refine_span[0])
-                d_enu, dt = dp[0:3], dp[3]
-                dv = self._refine_ml(
-                    carr_mag.cpu().numpy(), vel_idx_c - vel_start, vel_coef,
-                    los_enu, np.concatenate([dv_enu, [dtdot]]),
-                    span=self._refine_span[1])
-                dv_enu, dtdot = dv[0:3], dv[3]
-        else:   # score-weighted mean, host float64 (JAX models/dpe.py:574)
-            ps = pos_scores.cpu().numpy().astype(np.float64)
-            vs = vel_scores.cpu().numpy().astype(np.float64)
-            d_enu = ps @ self.grid.d_enu / ps.sum()
-            dt = ps @ self.grid.dt_m / ps.sum()
-            dv_enu = vs @ self.grid.dv_enu / vs.sum()
-            dtdot = vs @ self.grid.dtdot / vs.sum()
-            pos_peak, vel_peak = float(ps.max()), float(vs.max())
-
-        z = self.ekf.x.copy()
-        z[0:3] += r_e2n.T @ d_enu
-        z[3] += dt
-        z[4:7] += r_e2n.T @ dv_enu
-        z[7] += dtdot
-
-        # EKF measurement update (full mode: adaptive R from the score
-        # surface curvature; the FFT engine returns no windows, so its full
-        # EKF keeps the static R)
-        r_meas = None
-        if self.cfg.ekf_mode == "full" and code_mag is not None:
-            r_meas = self._adaptive_r(
-                code_mag.cpu().numpy(), carr_mag.cpu().numpy(),
+            # 5. one packed upload, the fused device step (K2 for the scores)
+            fpk = np.stack([
+                shift0, fi_corr, ri_corr,
+                los_enu[:, 0], los_enu[:, 1], los_enu[:, 2], r0,
                 pos_idx_c - pos_start, pos_coef,
-                vel_idx_c - vel_start, vel_coef, los_enu,
-                np.concatenate([d_enu, [dt]]),
-                np.concatenate([dv_enu, [dtdot]]), r_e2n)
-        self.ekf.measurement_update(z, R=r_meas)
-        self.rx_time_a = self.rx_time - self.ekf.x[3] / C
+                vel_idx_c - vel_start, vel_coef]).astype(np.float32)
+            ipk = np.stack([idx_next, pos_start, vel_start]).astype(np.int32)
+            fp, ip = dpe_real_ops.unpack_params(dpe_real_ops.to_device(
+                dpe_real_ops.pack_params(fpk[None], ipk[None], 0),
+                self.device))
+            fp, ip = fp[0], ip[0]
+            params = dpe_ops.ManifoldParams(
+                los_enu=fp[3:6].T, r0=fp[6], pos_center=fp[7], pos_coef=fp[8],
+                vel_center=fp[9], vel_coef=fp[10])
+            d = self._dev
+            code_mag = carr_mag = None
+        with tracing.span("dpe.step.device"):
+            if fft:
+                rawf = raw.float()
+                (pos_scores, pos_arg, vel_scores, vel_arg,
+                 flip_used) = dpe_ops.dpe_device_step(
+                    torch.complex(rawf[:, 0], rawf[:, 1]), self._code_fft0,
+                    dpe_real_ops.to_device(m_int, self.device), fp[0], ip[0],
+                    fp[1], fp[2], d.time_idc, ip[1], ip[2], params, d.d_enu,
+                    d.dt_m, d.dv_enu, d.dtdot, carr_fftpts=self.carr_fftpts,
+                    l_power=self.cfg.l_power, interp=self.cfg.interp,
+                    code_win=self.code_win, carr_win=self.carr_win,
+                    mesh=self.cfg.mesh)
+            else:
+                (pos_scores, pos_arg, vel_scores, vel_arg, flip_used, code_mag,
+                 carr_mag) = dpe_real_ops.dpe_device_step_real(
+                    raw[:, 0], raw[:, 1], d.chips, fp[0], ip[0], fp[1], fp[2],
+                    d.time_idc, ip[1], ip[2], params, d.d_enu, d.dt_m,
+                    d.dv_enu, d.dtdot, carr_fftpts=self.carr_fftpts,
+                    period=self.period,
+                    n_periods=self.S // self.period, l_power=self.cfg.l_power,
+                    interp=self.cfg.interp, code_win=self.code_win,
+                    carr_win=self.carr_win, mesh=self.cfg.mesh)
 
-        # 6. back-calculate channel frequencies from the updated state
-        self._update_channels_from_state()
+            # the first blocking read: the device step is done after it
+            with tracing.span("dpe.step.wait"):
+                if self.cfg.use_argmax:
+                    pa, va = int(pos_arg), int(vel_arg)
+                else:
+                    ps = pos_scores.cpu().numpy().astype(np.float64)
+                    vs = vel_scores.cpu().numpy().astype(np.float64)
+        with tracing.span("dpe.step.update"):
+            if self.cfg.use_argmax:
+                d_enu = self.grid.d_enu[pa]
+                dt = self.grid.dt_m[pa]
+                dv_enu = self.grid.dv_enu[va]
+                dtdot = self.grid.dtdot[va]
+                pos_peak = float(pos_scores[pa])
+                vel_peak = float(vel_scores[va])
+                if self.cfg.refine == "newton":
+                    dp = self._refine_ml(
+                        code_mag.cpu().numpy(), pos_idx_c - pos_start,
+                        pos_coef, los_enu, np.concatenate([d_enu, [dt]]),
+                        span=self._refine_span[0])
+                    d_enu, dt = dp[0:3], dp[3]
+                    dv = self._refine_ml(
+                        carr_mag.cpu().numpy(), vel_idx_c - vel_start,
+                        vel_coef, los_enu, np.concatenate([dv_enu, [dtdot]]),
+                        span=self._refine_span[1])
+                    dv_enu, dtdot = dv[0:3], dv[3]
+            else:   # score-weighted mean (JAX models/dpe.py:574)
+                d_enu = ps @ self.grid.d_enu / ps.sum()
+                dt = ps @ self.grid.dt_m / ps.sum()
+                dv_enu = vs @ self.grid.dv_enu / vs.sum()
+                dtdot = vs @ self.grid.dtdot / vs.sum()
+                pos_peak, vel_peak = float(ps.max()), float(vs.max())
 
-        if self.cfg.dump_scores_to:
-            np.savez(f"{self.cfg.dump_scores_to}/scores_{self.mc:06d}.npz",
-                     pos=pos_scores.cpu().numpy(),
-                     vel=vel_scores.cpu().numpy())
-        self.flip_log.append(flip_used.cpu().numpy().astype(bool))
-        fix = DPEFix(mc=self.mc, rx_time=self.rx_time,
-                     rx_time_a=self.rx_time_a, x_ecef=self.ekf.x.copy(),
-                     pos_score=pos_peak, vel_score=vel_peak)
-        self.fixes.append(fix)
-        return fix
+            z = self.ekf.x.copy()
+            z[0:3] += r_e2n.T @ d_enu
+            z[3] += dt
+            z[4:7] += r_e2n.T @ dv_enu
+            z[7] += dtdot
+
+            # EKF measurement update (full mode: adaptive R from the score
+            # surface curvature; the FFT engine returns no windows, so its full
+            # EKF keeps the static R)
+            r_meas = None
+            if self.cfg.ekf_mode == "full" and code_mag is not None:
+                r_meas = self._adaptive_r(
+                    code_mag.cpu().numpy(), carr_mag.cpu().numpy(),
+                    pos_idx_c - pos_start, pos_coef,
+                    vel_idx_c - vel_start, vel_coef, los_enu,
+                    np.concatenate([d_enu, [dt]]),
+                    np.concatenate([dv_enu, [dtdot]]), r_e2n)
+            self.ekf.measurement_update(z, R=r_meas)
+            self.rx_time_a = self.rx_time - self.ekf.x[3] / C
+
+            # 6. back-calculate channel frequencies from the updated state
+            self._update_channels_from_state()
+
+            if self.cfg.dump_scores_to:
+                np.savez(f"{self.cfg.dump_scores_to}/scores_{self.mc:06d}.npz",
+                         pos=pos_scores.cpu().numpy(),
+                         vel=vel_scores.cpu().numpy())
+            self.flip_log.append(flip_used.cpu().numpy().astype(bool))
+            fix = DPEFix(mc=self.mc, rx_time=self.rx_time,
+                         rx_time_a=self.rx_time_a, x_ecef=self.ekf.x.copy(),
+                         pos_score=pos_peak, vel_score=vel_peak)
+            self.fixes.append(fix)
+            return fix
 
     def run(self, n_blocks: int):
         for _ in range(n_blocks):
@@ -1057,7 +1069,8 @@ class DPEReceiver:
 
     def _dispatch_batch(self, n, raw_blocks_dev, start_block, done,
                         raw_staged=None, group_k: int = 1):
-        preps = self._prepare_batch(n)
+        with tracing.span("dpe.prepare"):
+            preps = self._prepare_batch(n)
         fpk = np.stack([p[0] for p in preps])                   # [N, 11, C]
         ipk = np.stack([p[1] for p in preps])                   # [N, 3, C]
 
@@ -1087,47 +1100,51 @@ class DPEReceiver:
         return _fetch_async(rows), preps
 
     def _drain_batch(self, fetch: _Fetch, preps, group_k: int = 1):
-        rows = _fetched(fetch)
-        c = len(self.prn_list)
-        cw = self.code_win
-        vw = self.carr_win
-        pas, vas = dpe_real_ops.unpack_row_indices(rows)
-        pps = rows[:, 1]
-        vps = rows[:, 3]
-        flips = rows[:, 4:4 + c]
-        base = 4 + c
-        wmeans = None
-        if not self.cfg.use_argmax:     # weighted-mean cols follow flips
-            wmeans = rows[:, base:base + dpe_real_ops.WMEAN_COLS]
-            base += dpe_real_ops.WMEAN_COLS
-        if rows.shape[1] > base:        # windows present (refine / full EKF)
-            code_mags = rows[:, base:base + c * cw].reshape(-1, c, cw)
-            carr_mags = rows[:, base + c * cw:].reshape(-1, c, vw)
-        else:
-            code_mags = carr_mags = None
-        for i in range(rows.shape[0]):
-            # group_k > 1: one row per K-block coherent group, referenced
-            # to the group's LAST block's prediction (same convention as
-            # dpe_scan_integrate)
-            fpk, _, r_e2n, rx_time, mc, x_pred = preps[(i + 1) * group_k - 1]
-            if self.cfg.refine == "newton":
-                self._apply_refined(fpk, r_e2n, rx_time, mc,
-                                    int(pas[i]), int(vas[i]),
-                                    pps[i], vps[i], flips[i],
-                                    code_mags[i], carr_mags[i], x_pred)
+        with tracing.span("dpe.drain.wait"):
+            rows = _fetched(fetch)
+        with tracing.span("dpe.drain.update"):
+            c = len(self.prn_list)
+            cw = self.code_win
+            vw = self.carr_win
+            pas, vas = dpe_real_ops.unpack_row_indices(rows)
+            pps = rows[:, 1]
+            vps = rows[:, 3]
+            flips = rows[:, 4:4 + c]
+            base = 4 + c
+            wmeans = None
+            if not self.cfg.use_argmax:     # weighted-mean cols follow flips
+                wmeans = rows[:, base:base + dpe_real_ops.WMEAN_COLS]
+                base += dpe_real_ops.WMEAN_COLS
+            if rows.shape[1] > base:    # windows present (refine / full EKF)
+                code_mags = rows[:, base:base + c * cw].reshape(-1, c, cw)
+                carr_mags = rows[:, base + c * cw:].reshape(-1, c, vw)
             else:
-                self._apply_measurement(int(pas[i]), int(vas[i]), r_e2n,
-                                        rx_time, mc, pps[i], vps[i],
-                                        flips[i], x_pred, fpk=fpk,
-                                        code_mag=(None if code_mags is None
-                                                  else code_mags[i]),
-                                        carr_mag=(None if carr_mags is None
-                                                  else carr_mags[i]),
-                                        wmean=(None if wmeans is None
-                                               else wmeans[i]))
-        # steer channel frequencies from the newest state at the current epoch
-        self.rx_time_a = self.rx_time - self.ekf.x[3] / C
-        self._update_channels_from_state()
+                code_mags = carr_mags = None
+            for i in range(rows.shape[0]):
+                # group_k > 1: one row per K-block coherent group, referenced
+                # to the group's LAST block's prediction (same convention as
+                # dpe_scan_integrate)
+                fpk, _, r_e2n, rx_time, mc, x_pred = preps[
+                    (i + 1) * group_k - 1]
+                if self.cfg.refine == "newton":
+                    self._apply_refined(fpk, r_e2n, rx_time, mc,
+                                        int(pas[i]), int(vas[i]),
+                                        pps[i], vps[i], flips[i],
+                                        code_mags[i], carr_mags[i], x_pred)
+                else:
+                    self._apply_measurement(int(pas[i]), int(vas[i]), r_e2n,
+                                            rx_time, mc, pps[i], vps[i],
+                                            flips[i], x_pred, fpk=fpk,
+                                            code_mag=(None if code_mags is None
+                                                      else code_mags[i]),
+                                            carr_mag=(None if carr_mags is None
+                                                      else carr_mags[i]),
+                                            wmean=(None if wmeans is None
+                                                   else wmeans[i]))
+            # steer channel frequencies from the newest state at the current
+            # epoch
+            self.rx_time_a = self.rx_time - self.ekf.x[3] / C
+            self._update_channels_from_state()
 
     def _apply_refined(self, fpk, r_e2n, rx_time, mc, pa, va, pos_peak,
                        vel_peak, flip_row, code_mag, carr_mag, x_pred):

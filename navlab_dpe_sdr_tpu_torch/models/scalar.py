@@ -26,6 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import L_CA, T_CA
 from ..device import resolve_device
 from ..io.handoff import Handoff, write_handoff
@@ -102,9 +103,10 @@ class ScalarReceiver:
         rf.seek(start_pos, whence=0)
         rf.set_block(T_CA, T_CA, verbose=False)
 
-        res1, res2 = (acq_ops.acquire(b, self.prn_list, rf.fs, rf.fcaid,
-                                      device=self.device)
-                      for b in (block1, block2))
+        with tracing.span("scalar.acquire.search"):
+            res1, res2 = (acq_ops.acquire(b, self.prn_list, rf.fs, rf.fcaid,
+                                          device=self.device)
+                          for b in (block1, block2))
         rc, ri, fc, fi = [], [], [], []
         results = []
         for r1, r2 in zip(res1, res2):
@@ -182,19 +184,20 @@ class ScalarReceiver:
         def stage(n):
             """(n, first sample, device tensor [n, S m, 2], ready event):
             read n windows as int16 and queue their upload."""
-            start = rf.sample_pos
-            host = np.ascontiguousarray(
-                read_windows_raw(rf, n * m).reshape(n, sw, 2))
-            if not host.flags.writeable:   # a memmap window of a capture file
-                host = host.copy()
-            t = torch.from_numpy(host)
-            if self._copy_stream is None:
-                return n, start, t, None
-            with torch.cuda.stream(self._copy_stream):
-                dev_t = t.pin_memory().to(self.device, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(self._copy_stream)
-            return n, start, dev_t, ready
+            with tracing.span("scalar.track.stage"):
+                start = rf.sample_pos
+                host = np.ascontiguousarray(
+                    read_windows_raw(rf, n * m).reshape(n, sw, 2))
+                if not host.flags.writeable:   # a memmap window of a file
+                    host = host.copy()
+                t = torch.from_numpy(host)
+                if self._copy_stream is None:
+                    return n, start, t, None
+                with torch.cuda.stream(self._copy_stream):
+                    dev_t = t.pin_memory().to(self.device, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(self._copy_stream)
+                return n, start, dev_t, ready
 
         done = 0
         nxt = stage(min(chunk_ms, n_ms) // m)
@@ -212,21 +215,22 @@ class ScalarReceiver:
             # the next chunk's read and upload overlap this chunk's kernel
             nxt = (stage(min(chunk_ms, n_ms - done) // m) if done < n_ms
                    else None)
-            self._absorb_log(logf, logi)
-            self._m_samp.extend(start_samp + (np.arange(n) + 1) * sw)
-            self.mcount += n
+            with tracing.span("scalar.track.fetch"):    # waits for K4
+                packed, ints = logf.cpu().numpy(), logi.cpu().numpy()
+            with tracing.span("scalar.track.unpack"):
+                self._absorb_log(packed, ints)
+                self._m_samp.extend(start_samp + (np.arange(n) + 1) * sw)
+                self.mcount += n
             # host wall per chunk, the log fetch included (it waits for the
             # kernel): the tracking real-time factor is n m ms / this
             self.chunk_walls.append((n * m, time.perf_counter() - t0))
 
-    def _absorb_log(self, logf, logi):
-        """Append one chunk's packed log (logf [steps, 15 + m, C], logi
-        [steps, 3, C]: two device->host fetches) and expand the m + 1
+    def _absorb_log(self, packed: np.ndarray, ints: np.ndarray):
+        """Append one chunk's packed log, fetched to the host (packed
+        [steps, 15 + m, C] floats, ints [steps, 3, C]), and expand the m + 1
         nav-bit signs of each update (one per code period the window
         touches; the first ncp of them completed) into each channel's
         cp_sign, in period order."""
-        packed = logf.cpu().numpy()
-        ints = logi.cpu().numpy()
         arrs = {k: packed[:, i] for i, k in enumerate(trk_ops.LOG_F_BASE)}
         arrs.update({k: ints[:, i] for i, k in enumerate(trk_ops.LOG_I_ROWS)})
         arrs["lock"] = arrs["lock"].astype(np.float32)

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
+
 # SLIVER_LIMIT is also read from this module by its callers
 from .correlate import (SLIVER_LIMIT, RealBlockOut, RealBlockOutC,
                         windowed_correlate)
@@ -406,16 +408,19 @@ def dpe_batch_blocks(raw_all_i16, pk: np.ndarray, chips, time_idc,
     if group_k > 1:
         g = n_blocks // group_k
         outc = corr(complex_out=True)
-        out = coherent_sum(RealBlockOutC(
-            *(x.reshape((g, group_k) + x.shape[1:]) for x in outc)))
+        with tracing.span("dpe.dispatch.coherent_sum"):
+            out = coherent_sum(RealBlockOutC(
+                *(x.reshape((g, group_k) + x.shape[1:]) for x in outc)))
         fpk = fpk[group_k - 1::group_k]                     # [G, 11, C]
     else:
         out = corr()
     c = chips.shape[0]
     cs, split = _channels(mesh, c)
     weighted = not use_argmax
-    pres, vres = _score_both(mesh, out, fpk[..., cs], d_enu, dt_m, dv_enu,
-                             dtdot, interp, l_power, weighted, False, split)
+    with tracing.span("dpe.dispatch.score"):
+        pres, vres = _score_both(mesh, out, fpk[..., cs], d_enu, dt_m, dv_enu,
+                                 dtdot, interp, l_power, weighted, False,
+                                 split)
     if mesh is not None:
         out = gather_chan_out(mesh, out, c)
     wmean = weighted_cols(pres, vres) if weighted else None

@@ -1,5 +1,5 @@
 """The port's own host layers (constants, io/*, libgnss/*, models/ekf,
-models/grid, runtime/{nativelib,flow,profiling}) against the JAX package's
+models/grid, runtime/{nativelib,flow}) against the JAX package's
 modules of the same names.
 
 They are copies of float64 numpy and plain host code, so the tolerance
@@ -814,28 +814,6 @@ def case_mapplot(tmp_path):
     assert b"-88.2" in pages[0]
 
 
-def case_runtime_profiling(monkeypatch):
-    """TmUsage, snapshot and vm_peak_kb read the same process counters in
-    both packages; Counters' rates on one scripted clock are equal."""
-    ref, port = both("runtime.profiling")
-    assert [f.name for f in dataclasses.fields(ref.UsageSnapshot)] == [
-        f.name for f in dataclasses.fields(port.UsageSnapshot)]
-    ka, kb = ref.TmUsage().elapsed(), port.TmUsage().elapsed()
-    assert sorted(ka) == sorted(kb)
-    assert kb["user_s"] >= 0 and kb["max_rss_kb"] > 1000
-    assert 0 < ref.vm_peak_kb() <= port.vm_peak_kb()
-    rates = []
-    for m in (ref, port):
-        clock = _Clock()
-        monkeypatch.setattr(m, "time", clock)
-        c = m.Counters(_t0=clock.perf_counter())
-        c.add_block(50000, 781250)
-        c.add_block(50000, 781250)
-        clock.t += 0.25
-        rates.append(c.rates())
-    same(rates[0], rates[1])
-    assert rates[1]["samples_per_s"] == 400000.0
-
 CASES = {
     "constants": case_constants, "io.handoff": case_handoff,
     "io.rawfile": case_rawfile, "io.scenario": case_scenario,
@@ -850,7 +828,6 @@ CASES = {
     "runtime.nativelib": case_runtime_nativelib,
     "libgnss.rinex": case_rinex, "libgnss.filters": case_filters,
     "runtime.flow": case_runtime_flow,
-    "runtime.profiling": case_runtime_profiling,
     "io.printer": case_printer, "io.mapplot": case_mapplot,
 }
 

@@ -29,7 +29,7 @@ HOST_LAYERS = ("constants", "io.handoff", "io.rawfile", "io.scenario",
                "libgnss.satpos", "libgnss.tropo", "models.ekf", "models.grid",
                "io.frontend", "io.netsource", "runtime.nativelib",
                "io.printer", "io.mapplot", "libgnss.rinex", "libgnss.filters",
-               "runtime.flow", "runtime.profiling")
+               "runtime.flow")
 
 
 def test_port_modules_listed():
@@ -37,7 +37,8 @@ def test_port_modules_listed():
                  "ops.score", "models.dpe", "ops.acquisition", "ops.track",
                  "ops.tracking", "models.scalar", "models.vector",
                  "models.fleet", "models.montecarlo", "cli", "console",
-                 "__main__", "parallel.mesh", "parallel.launch") + HOST_LAYERS:
+                 "__main__", "parallel.mesh", "parallel.launch",
+                 "tracing") + HOST_LAYERS:
         assert f"navlab_dpe_sdr_tpu_torch.{name}" in PORT_MODULES
 
 
