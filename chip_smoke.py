@@ -195,7 +195,20 @@ Phases, one line or more each (any failure raises and exits non-zero):
    flips and code argmaxes equal; K1 and K2 argmax equal or a tie held on
    both surfaces); then the free-running runs, cells equal and fixes
    within 1e-6 m (alpha) or 1e-3 m (full EKF) up to the first parting,
-   which must be a float32 near-tie ("card vs CPU ..." lines).
+   which must be a float32 near-tie ("card vs CPU ..." lines);
+30. (run right after phase 10) K1's factored kernel (score_argmax with a
+   product grid's `grid_factors`) against the per-point kernel on the same
+   inputs: the spread 25^4 and the dense 75^4 grids, both manifolds, the
+   argmax and block-summed modes, quadratic and linear, N = 1, 10 and 50,
+   then l_power 2 and 3 and a mesh rank's run-aligned rows on the spread
+   grid; best and argmax equal to the bit, each launch under its own
+   count; the dense grid's N = 1 launches (25 clock values a thread) equal
+   to the plain version's bits; the weighted modes with factors launch the
+   per-point kernel; and the kernel's own time a launch, per-point against
+   factored, at dense N = 50 and spread N = 10 and 50 ("factored ..."
+   lines). Phase 3 holds the main path's factored calls to the plain
+   version and times them for the kernels line. Phase 5 then asserts that
+   its run_batched passes on the spread grid launch K1 factored only.
 Each path is driven with the launch counts set to 0 just before it and
 read just after.
 
@@ -311,6 +324,17 @@ OPS_PER_SAMPLE_CHANNEL = 60
 # carrier DFT 8 a (bin, sample) (z = A yb: 4 multiply-adds a complex
 # product). The twiddles' sines, the rotation and the arc are left out.
 OPS_K5 = dict(fold=8, tail=8, lag=16, lag0=8, wipe=4, dft=8)
+# K1's launch keys (ops/_build.py), per block and block-summed: on a
+# product grid's factors the receiver's calls launch the factored kernel
+K1_KEYS = ("score_argmax", "score_argmax_factored")
+K1_SUM_KEYS = ("score_argmax_sum", "score_argmax_sum_factored")
+
+
+def k1_count(counts: dict, keys=K1_KEYS) -> int:
+    """K1's launches in a launch_counts() dict, under any of `keys`."""
+    return sum(counts.get(k, 0) for k in keys)
+
+
 KERNELS = {
     "K1": dict(name="score_argmax", route="cuda", source=SCORE_SRC,
                replaces="navlab_dpe_sdr_tpu/ops/pallas_score.py:166"),
@@ -405,24 +429,31 @@ def scorer_inputs(rng, manifold: str, width: int, grid, dev,
 
 
 def check_scorer(grid, widths, dev):
-    """Phase 3: kernel vs plain on the card, every case. Returns a dict:
-    err (max |best diff|), and per dispatch (both manifolds, quadratic,
-    l_power 1, argmax: the main path's calls) ms and plain_ms from CUDA
-    events around the wrappers, device_ms from the profiler, the bound, and
-    ms10/device_ms10 at the grouped path's N=10."""
+    """Phase 3: kernel vs plain on the card, every case, each call as the
+    receiver makes it: with the grid's `grid_factors` (the factored kernel
+    in the argmax mode, the per-point kernel in the weighted mode). Returns
+    a dict: err (max |best diff|), and per dispatch (both manifolds,
+    quadratic, l_power 1, argmax: the main path's calls, factored) ms and
+    plain_ms from CUDA events around the wrappers, device_ms from the
+    profiler, the bound, ms10/device_ms10 at the grouped path's N=10, and
+    the same calls without factors (the per-point kernel) at N=50:
+    ms_per_point/device_ms_per_point."""
     rng = np.random.default_rng(SEED)
     max_err = 0.0
     times = {}
     ops = nbytes = 0
     dev_ms, ms10, dev_ms10 = 0.0, 0.0, 0.0
+    ms_pp, dev_ms_pp = 0.0, 0.0
     for manifold in ("pos", "vel"):
         args = scorer_inputs(rng, manifold, widths[manifold], grid, dev)
+        f = score.grid_factors(args[5], args[6])
+        assert f is not None and f.fits, manifold
         for interp in ("quadratic", "linear"):
             for l_power in (1, 2):
                 for weighted in (False, True):
                     kw = dict(interp=interp, l_power=l_power,
                               weighted=weighted)
-                    got = score.score_argmax(*args, **kw)
+                    got = score.score_argmax(*args, factors=f, **kw)
                     torch.cuda.synchronize()
                     want = score.score_argmax_plain(*args, **kw)
                     err = compare_scores(args, got, want, kw)
@@ -432,7 +463,7 @@ def check_scorer(grid, widths, dev):
                             f"weighted={weighted}: max|best diff| {err:.3e}")
                     if interp == "quadratic" and l_power == 1:
                         k_ms = cuda_ms(lambda: score.score_argmax(
-                            *args, **kw), 20)
+                            *args, factors=f, **kw), 20)
                         p_ms = cuda_ms(lambda: score.score_argmax_plain(
                             *args, **kw), 3)
                         times[(manifold, weighted)] = (k_ms, p_ms)
@@ -444,10 +475,14 @@ def check_scorer(grid, widths, dev):
                                     * OPS_PER_POINT_CHANNEL[manifold])
                             nbytes += tensor_bytes(*args, *got[:2])
                     log(line)
-        # the main path's call again for the kernel's own time, and the
-        # grouped path's N = 10 (50 blocks in coherent groups of 5)
-        d50 = kernel_device_ms(lambda: score.score_argmax(*args), 10,
-                               "score_kernel")
+        # the main path's call again for the kernel's own time, the same
+        # call without factors (the per-point kernel), and the grouped
+        # path's N = 10 (50 blocks in coherent groups of 5)
+        d50 = kernel_device_ms(lambda: score.score_argmax(*args, factors=f),
+                               10, "score_kernel_factored")
+        p50 = cuda_ms(lambda: score.score_argmax(*args), 20)
+        dp50 = kernel_device_ms(lambda: score.score_argmax(*args), 10,
+                                "score_kernel<")
         args10 = [None if a is None else a[:10].contiguous()
                   for a in args[:5]] + args[5:]
         # and N = 25: the receiver's default lookahead (the CLI's `live`),
@@ -455,25 +490,29 @@ def check_scorer(grid, widths, dev):
         args25 = [None if a is None else a[:25].contiguous()
                   for a in args[:5]] + args[5:]
         for a_n in (args10, args25):
-            got = score.score_argmax(*a_n)
+            got = score.score_argmax(*a_n, factors=f)
             want = score.score_argmax_plain(*a_n)
             max_err = max(max_err, compare_scores(
                 a_n, got, want, dict(interp="quadratic", l_power=1,
                                      weighted=False)))
-        m10 = cuda_ms(lambda: score.score_argmax(*args10), 20)
-        d10 = kernel_device_ms(lambda: score.score_argmax(*args10), 10,
-                               "score_kernel")
-        m25 = cuda_ms(lambda: score.score_argmax(*args25), 20)
+        m10 = cuda_ms(lambda: score.score_argmax(*args10, factors=f), 20)
+        d10 = kernel_device_ms(lambda: score.score_argmax(
+            *args10, factors=f), 10, "score_kernel_factored")
+        m25 = cuda_ms(lambda: score.score_argmax(*args25, factors=f), 20)
         log(f"scorer {manifold} W={widths[manifold]} quadratic l_power=1 "
-            f"argmax: kernel's own time N=50 {fmt_ms(d50)}; N=10: kernel == "
-            f"plain, wrapper {m10:.4f} ms, kernel's own {fmt_ms(d10)}; "
-            f"N=25: kernel == plain, wrapper {m25:.4f} ms")
+            f"argmax, factored: kernel's own time N=50 {fmt_ms(d50)} "
+            f"(per-point {fmt_ms(dp50)}, wrapper {p50:.4f} ms); N=10: "
+            f"kernel == plain, wrapper {m10:.4f} ms, kernel's own "
+            f"{fmt_ms(d10)}; N=25: kernel == plain, wrapper {m25:.4f} ms")
         ms10 += m10
+        ms_pp += p50
         dev_ms, dev_ms10 = add_ms(dev_ms, d50), add_ms(dev_ms10, d10)
+        dev_ms_pp = add_ms(dev_ms_pp, dp50)
     return dict(err=max_err,
                 ms=times[("pos", False)][0] + times[("vel", False)][0],
                 plain_ms=times[("pos", False)][1] + times[("vel", False)][1],
                 device_ms=dev_ms, ms10=ms10, device_ms10=dev_ms10,
+                ms_per_point=ms_pp, device_ms_per_point=dev_ms_pp,
                 bound=bound(ops, nbytes))
 
 
@@ -1137,6 +1176,100 @@ def check_sum_case(name, args, manifold, card, interp="quadratic",
     return got, dict(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, **bnd)
 
 
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """The two tensors hold the same bits (float32 or int32)."""
+    return x.shape == y.shape and torch.equal(
+        x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+
+
+def check_factored(dev, card) -> dict:
+    """Phase 30: the factored kernel against the per-point kernel, bit for
+    bit (and at dense N = 1 against the plain version), and both kernels'
+    own time a launch. Returns {case: (per-point ms, factored ms)} of the
+    timed cases."""
+    rng = np.random.default_rng(SEED + 30)
+    times, cases = {}, 0
+
+    def pair(a, f, **kw):
+        nonlocal cases
+        before = _build.launch_counts()
+        per = score.score_argmax(*a, **kw)
+        fac = score.score_argmax(*a, factors=f, **kw)
+        after = _build.launch_counts()
+        plain_key, fac_key = K1_SUM_KEYS if kw.get("block_sum") else K1_KEYS
+        assert (after[plain_key] - before[plain_key],
+                after[fac_key] - before[fac_key]) == (1, 1), (kw, after)
+        for name, x, y in zip(("best", "arg"), per, fac):
+            assert same_bits(x, y), (kw, a[0].shape, name, x, y)
+        cases += 1
+        return fac
+
+    for gname, grid in (("spread", spread_grid()), ("dense", dense_grid())):
+        cw, vw = dpe_ops.auto_windows(grid.d_enu, grid.dt_m, grid.dv_enu,
+                                      grid.dtdot, FS, CARR_FFTPTS)
+        for manifold, width in (("pos", cw), ("vel", vw)):
+            args = scorer_inputs(rng, manifold, width, grid, dev)
+            f = score.grid_factors(args[5], args[6])
+            run = 25 if gname == "spread" else 75
+            assert f is not None and f.o1u.shape[0] == run, gname
+            by_n = {n: [None if x is None else x[:n].contiguous()
+                        for x in args[:5]] + args[5:] for n in (1, 10, 50)}
+            for n, a in by_n.items():
+                for interp in ("quadratic", "linear"):
+                    for block_sum in (False, True):
+                        fac = pair(a, f, interp=interp, block_sum=block_sum)
+                        if gname == "dense" and n == 1 and not block_sum:
+                            # 25 clock values a thread: held to plain
+                            want = score.score_argmax_plain(*a,
+                                                            interp=interp)
+                            assert all(same_bits(x, y) for x, y in zip(
+                                fac, want)), (manifold, interp, fac, want)
+                            cases += 1
+            # the weighted modes with factors: the per-point kernel
+            before = _build.launch_counts()
+            for block_sum in (False, True):
+                score.score_argmax(*by_n[1], factors=f, weighted=True,
+                                   block_sum=block_sum)
+            after = _build.launch_counts()
+            assert all(after[k] - before[k] == 1 for k in (
+                "score_argmax", "score_argmax_sum")), (before, after)
+            assert k1_count(after) + k1_count(after, K1_SUM_KEYS) == (
+                k1_count(before) + k1_count(before, K1_SUM_KEYS) + 2)
+            if gname == "spread":
+                for l_power in (2, 3):
+                    for block_sum in (False, True):
+                        pair(by_n[10], f, l_power=l_power,
+                             block_sum=block_sum)
+                # a mesh rank's rows that start and end on runs: the rows'
+                # own factors
+                lo, hi = 100 * run, args[5].shape[0] - 4 * run
+                rows = by_n[10][:5] + [args[5][lo:hi], args[6][lo:hi]]
+                fr = score.factor_rows(f, lo, hi)
+                assert fr is not None and score.factor_rows(
+                    f, lo + 1, hi) is None
+                pair(rows, fr)
+            timed = [(50, by_n[50])] if gname == "dense" else [
+                (10, by_n[10]), (50, by_n[50])]
+            for n, a in timed:
+                per_ms = kernel_device_ms(lambda: score.score_argmax(*a), 10,
+                                          "score_kernel<")
+                fac_ms = kernel_device_ms(lambda: score.score_argmax(
+                    *a, factors=f), 10, "score_kernel_factored")
+                ev = [cuda_ms(lambda: score.score_argmax(*a, **kw), 10)
+                      for kw in ({}, dict(factors=f))]
+                times[f"{gname} {manifold} N={n}"] = (per_ms, fac_ms)
+                log(f"factored {gname} {manifold} (G={args[5].shape[0]}, "
+                    f"L={run}, W={width}) N={n} quadratic argmax: kernel's "
+                    f"own time per-point {fmt_ms(per_ms)}, factored "
+                    f"{fmt_ms(fac_ms)}; wrapper (CUDA events) per-point "
+                    f"{ev[0]:.4f} ms, factored {ev[1]:.4f} ms [{card}]")
+            del args, by_n
+    log(f"factored: {cases} cases, best and argmax bit-equal to the "
+        f"per-point kernel's (dense N = 1 to the plain version's); the "
+        f"weighted modes run the per-point kernel [{card}]")
+    return times
+
+
 def check_block_sum(grid, widths, dev, card):
     """Phase 10: the block-summed modes and sinc. Returns the K1
     block-summed entry of the kernels line: its times at the integrated
@@ -1305,9 +1438,12 @@ def check_integrated(samples, hand, arr, grid, dev, card):
         rx.run_integrated(n_fix, k, **timed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n_launch = _build.launch_counts()["score_argmax_sum"]
+        got = _build.launch_counts()
+        n_launch = k1_count(got, K1_SUM_KEYS)
         assert n_launch == 2 * n_fix, (name, n_launch)
-        assert _build.launch_counts()["score_argmax"] == 0
+        # both grids are product grids: every K1 launch is factored
+        assert got["score_argmax_sum_factored"] == n_launch, (name, got)
+        assert k1_count(got) == 0
         k5 = _build.launch_counts()["windowed_correlate"]
         assert k5 == n_fix, (name, k5)
         assert len(rx.fixes) == n_fix + 1 and rx.mc == (n_fix + 1) * k
@@ -1369,10 +1505,9 @@ def check_survey(samples, hand, arr, grid, dev, card):
                 calls.append(("pass", time.perf_counter() - t0))
                 return out
 
-            def timed_joint(win, los, cen, coe, r0, off3, off1, interp=None):
+            def timed_joint(win, los, cen, coe, r0, off3, off1, **kw):
                 t0 = time.perf_counter()
-                out = inner_joint(win, los, cen, coe, r0, off3, off1,
-                                  interp=interp)
+                out = inner_joint(win, los, cen, coe, r0, off3, off1, **kw)
                 torch.cuda.synchronize()
                 calls.append(("coarse" if off3.shape[0] == grid.n_pos
                               else "zoom", time.perf_counter() - t0))
@@ -1386,11 +1521,15 @@ def check_survey(samples, hand, arr, grid, dev, card):
                             raw_blocks_dev=raw_dev, zoom_interp=zoom)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n_launch = _build.launch_counts()["score_argmax_sum"]
+        got = _build.launch_counts()
+        n_launch = k1_count(got, K1_SUM_KEYS)
         # two per integrated fix, then six joint passes (coarse and two zoom
-        # passes per manifold), all block-summed; K5 once a batch
+        # passes per manifold), all block-summed; K5 once a batch. The
+        # fixes and the coarse passes score the spread grid, factored; the
+        # zoom lattices (33 clock values) the per-point kernel
         assert n_launch == 2 * n_batches + 6, n_launch
-        assert _build.launch_counts()["score_argmax"] == 0
+        assert got["score_argmax_sum_factored"] == 2 * n_batches + 2, got
+        assert k1_count(got) == 0
         n_k5 = _build.launch_counts()["windowed_correlate"]
         assert n_k5 == n_batches, n_k5
         assert res.n_blocks == n_batches * k and res.n_batches == n_batches
@@ -1458,7 +1597,7 @@ def check_refined(samples, hand, arr, grid, dev, card):
         wall = time.perf_counter() - t0
     finally:
         dpe_real.pack_rows = inner
-    launches = _build.launch_counts()["score_argmax"]
+    launches = k1_count(_build.launch_counts())
     assert launches == 2 * (200 // N_BLOCKS), launches
     k5 = _build.launch_counts()["windowed_correlate"]
     assert k5 == 200 // N_BLOCKS, k5
@@ -2000,7 +2139,7 @@ def fleet_pass(samples, hand, dev, parallel, record_align=False):
         dpes = fleet.run_dpe(FLEET_DPE_BLOCKS, grid=spread_grid(),
                              lookahead=N_BLOCKS, parallel=parallel)
         torch.cuda.synchronize()
-        k1 = _build.launch_counts()["score_argmax"]
+        k1 = k1_count(_build.launch_counts())
         k5 = _build.launch_counts()["windowed_correlate"]
     finally:
         DPEReceiver._drain_batch = inner
@@ -2128,8 +2267,9 @@ def check_montecarlo(samples, hand, dev, card):
     reference's 50-80 m band), spacing_sweep (3 spacings), cn0_sweep
     ([45, 30] dB-Hz, 32 blocks, 8 a fix), weak_sweep (one level, 128
     blocks). Returns launches by kernel over all four."""
-    counts = dict(score_argmax=0, score_argmax_sum=0, score_surface=0,
-                  windowed_correlate=0)
+    counts = dict(score_argmax=0, score_argmax_factored=0,
+                  score_argmax_sum=0, score_argmax_sum_factored=0,
+                  score_surface=0, windowed_correlate=0)
     with tempfile.TemporaryDirectory() as tmp:
         cap = pathlib.Path(tmp) / "capture.dat"
         samples[:S * 60].tofile(cap)
@@ -2170,18 +2310,18 @@ def check_montecarlo(samples, hand, dev, card):
                 rows = " ".join(",".join(map(str, r.row())) for r in res)
                 log(f"Monte-Carlo {name}: {text}; rows {rows}; wall "
                     f"{wall:.3f} s ({wall / len(res):.3f} s a run); launches "
-                    f"K2 {got['score_surface']}, K1 {got['score_argmax']}, "
-                    f"K1 block-summed {got['score_argmax_sum']}, K5 "
+                    f"K2 {got['score_surface']}, K1 {k1_count(got)}, "
+                    f"K1 block-summed {k1_count(got, K1_SUM_KEYS)}, K5 "
                     f"{got['windowed_correlate']} [{card}]")
             else:
                 log(f"Monte-Carlo {name}: "
                     + "; ".join(json.dumps(dataclasses.asdict(p))
                                 for p in res)
                     + f"; wall {wall:.3f} s; launches K2 "
-                    f"{got['score_surface']}, K1 {got['score_argmax']}, K1 "
-                    f"block-summed {got['score_argmax_sum']}, K5 "
+                    f"{got['score_surface']}, K1 {k1_count(got)}, K1 "
+                    f"block-summed {k1_count(got, K1_SUM_KEYS)}, K5 "
                     f"{got['windowed_correlate']} [{card}]")
-    assert counts["score_surface"] > 0 and counts["score_argmax_sum"] > 0
+    assert counts["score_surface"] > 0 and k1_count(counts, K1_SUM_KEYS) > 0
     return counts
 
 
@@ -2320,7 +2460,7 @@ def check_cli(samples, hand, dev, card):
                               "--out", str(tmp / "fixes.csv")], 200 * T)
         err = csv_errors(tmp / "fixes.csv", truth, 3, header=True)
         med = float(np.median(err))
-        assert counts.get("score_argmax", 0) > 0 and len(err) == 40
+        assert k1_count(counts) > 0 and len(err) == 40
         assert np.isfinite(err).all() and med < 15.0, med
         diff = same_fixes_csv(tmp / "fixes.csv", api_csv(
             "fixes_api.csv", lambda rx: rx.run_batched(
@@ -2353,7 +2493,7 @@ def check_cli(samples, hand, dev, card):
                                   "--out", str(tmp / "integ.csv")], 200 * T)
         err = csv_errors(tmp / "integ.csv", truth, 3, header=True)
         med = float(np.median(err))
-        assert counts.get("score_argmax_sum", 0) > 0 and len(err) == 25
+        assert k1_count(counts, K1_SUM_KEYS) > 0 and len(err) == 25
         assert med < 15.0, med
         diff = same_fixes_csv(tmp / "integ.csv", api_csv(
             "integ_api.csv", lambda rx: rx.run_integrated(
@@ -2368,8 +2508,7 @@ def check_cli(samples, hand, dev, card):
                        str(tmp / "s.json")], 200 * T)
         res = json.loads((tmp / "s.json").read_text())
         enu = r_e2n @ (np.array(res["x_ecef"][:3]) - truth[:3])
-        assert res["n_batches"] == 4 and counts.get("score_argmax_sum",
-                                                    0) > 0
+        assert res["n_batches"] == 4 and k1_count(counts, K1_SUM_KEYS) > 0
         assert abs(enu[0]) < 1.5 and abs(enu[1]) < 1.5, enu
         log(f"{line}, ENU error {enu[0]:.2f} / {enu[1]:.2f} / {enu[2]:.2f} m "
             f"(limits E, N 1.5) [{card}]")
@@ -2408,7 +2547,7 @@ def check_cli(samples, hand, dev, card):
         stats = json.loads((tmp / "fleet.json").read_text())
         assert stats["decode_failed"] and len(stats["sources"]) == 2, stats
         assert counts.get("track_chunk", 0) > 0, counts
-        assert counts.get("score_argmax", 0) == 2, counts
+        assert k1_count(counts) == 2, counts
         log(f"{line}, two simulated radios on one clock warmed up (a "
             f"25-block DPE dispatch included), 1 s decodes no ephemeris "
             f"(the decode-failed branch), track-phase lag misses "
@@ -2709,7 +2848,8 @@ def check_dynamics(samples, dev, card) -> dict:
     k1_err = 0.0
     for a, kw in k1_calls[:2]:                 # that dispatch's two K1
         got = score.score_argmax(*a, **kw)
-        want = score.score_argmax_plain(*a, **kw)
+        want = score.score_argmax_plain(*a, **{k: v for k, v in kw.items()
+                                               if k != "factors"})
         k1_err = max(k1_err, compare_scores(list(a), got, want, kw))
     k2_err = max(hold_k2(a, kw) for a, kw in k2_calls[-2:])  # the last step's
     log(f"dynamics K1 on that dispatch's windows: argmax equal or a tie "
@@ -3581,8 +3721,10 @@ def main_path(first, hand, arr, grid, dev, card):
     for name, rec in res["dispatch"].items():
         assert rec["launches"] > 0, (name, "no device records")
     counts = res["counts"]
-    return counts["score_argmax"], counts["windowed_correlate"], \
-        res["fixes"]
+    # the spread grid is a product grid: every K1 launch is factored
+    assert counts["score_argmax"] == 0 and counts[
+        "score_argmax_factored"] == k1_count(counts), counts
+    return k1_count(counts), counts["windowed_correlate"], res["fixes"]
 
 
 def main() -> int:
@@ -3607,11 +3749,14 @@ def main() -> int:
     k1 = check_scorer(grid, widths, dev)
     log(f"scorer: kernel == plain in all 16 cases and at N=10, 25 (max|best "
         f"diff| {k1['err']:.3e}); per dispatch (pos W={cw} + vel W={vw}, "
-        f"G={grid.n_pos}): N=50 wrapper {k1['ms']:.4f} ms, kernel's own "
-        f"{fmt_ms(k1['device_ms'])}, plain {k1['plain_ms']:.4f} ms; N=10 "
-        f"wrapper {k1['ms10']:.4f} ms, kernel's own "
-        f"{fmt_ms(k1['device_ms10'])} [{card}]")
+        f"G={grid.n_pos}, factored): N=50 wrapper {k1['ms']:.4f} ms, "
+        f"kernel's own {fmt_ms(k1['device_ms'])}, plain "
+        f"{k1['plain_ms']:.4f} ms; N=10 wrapper {k1['ms10']:.4f} ms, "
+        f"kernel's own {fmt_ms(k1['device_ms10'])}; per-point N=50 wrapper "
+        f"{k1['ms_per_point']:.4f} ms, kernel's own "
+        f"{fmt_ms(k1['device_ms_per_point'])} [{card}]")
     k1_sum = check_block_sum(grid, widths, dev, card)
+    check_factored(dev, card)
 
     t0 = time.perf_counter()
     samples, hand, arr = make_capture(CAPTURE_S)
@@ -3664,17 +3809,17 @@ def main() -> int:
     k2_by_path["live fleet"], k4_by_path["live fleet"] = live["k2"], \
         live["k4"]
     mc = check_montecarlo(samples, hand, dev, card)
-    if mc["score_argmax"]:          # the sweeps' DPE runs are integrated
-        k1_by_path["montecarlo"] = mc["score_argmax"]
-    k1s_by_path["montecarlo"] = mc["score_argmax_sum"]
+    if k1_count(mc):                # the sweeps' DPE runs are integrated
+        k1_by_path["montecarlo"] = k1_count(mc)
+    k1s_by_path["montecarlo"] = k1_count(mc, K1_SUM_KEYS)
     k2_by_path["montecarlo"] = mc["score_surface"]
     k5_by_path.update({"fleet": fl["k5"], "live fleet": live["k5"],
                        "montecarlo": mc["windowed_correlate"]})
     t0 = time.perf_counter()
     cl = check_cli(samples, hand, dev, card)
     log(f"CLI phase: wall {time.perf_counter() - t0:.3f} s [{card}]")
-    k1_by_path["cli"] = cl["score_argmax"]
-    k1s_by_path["cli"] = cl["score_argmax_sum"]
+    k1_by_path["cli"] = k1_count(cl)
+    k1s_by_path["cli"] = k1_count(cl, K1_SUM_KEYS)
     k2_by_path["cli"] = cl["score_surface"]
     k4_by_path["cli"] = cl["track_chunk"]
     k4c_by_path["cli"] = cl["track_chunk_coherent"]
@@ -3685,22 +3830,22 @@ def main() -> int:
     k3w_by_path = {"vector": k3w_launches, "cli": cl["correlate_windows"]}
     k5_by_path["cli"] = cl.get("windowed_correlate", 0)
     bl = check_bench(samples, hand, arr, grid, dev, card)
-    k1_by_path["bench"] = bl.get("score_argmax", 0)
+    k1_by_path["bench"] = k1_count(bl)
     k2_by_path["bench"] = bl.get("score_surface", 0)
     k4_by_path["bench"] = bl.get("track_chunk", 0)
     k5_by_path["bench"] = bl.get("windowed_correlate", 0)
     dyn = check_dynamics(samples, dev, card)
-    k1_by_path["dynamics"] = dyn.get("score_argmax", 0)
+    k1_by_path["dynamics"] = k1_count(dyn)
     k2_by_path["dynamics"] = dyn.get("score_surface", 0)
     k4_by_path["dynamics"] = dyn.get("track_chunk", 0)
     k5_by_path["dynamics"] = dyn.get("windowed_correlate", 0)
     cvc = check_card_vs_cpu(first, hand, arr, grid, card)
-    k1_by_path["card vs cpu"] = cvc.get("score_argmax", 0)
+    k1_by_path["card vs cpu"] = k1_count(cvc)
     k2_by_path["card vs cpu"] = cvc.get("score_surface", 0)
     k5_by_path["card vs cpu"] = cvc.get("windowed_correlate", 0)
     mesh = check_mesh(samples, hand, arr, grid, dev, card, phase5_fixes)
-    k1_by_path["mesh"] = mesh.get("score_argmax", 0)
-    k1s_by_path["mesh"] = mesh.get("score_argmax_sum", 0)
+    k1_by_path["mesh"] = k1_count(mesh)
+    k1s_by_path["mesh"] = k1_count(mesh, K1_SUM_KEYS)
     k2_by_path["mesh"] = mesh.get("score_surface", 0)
     k5_by_path["mesh"] = mesh.get("windowed_correlate", 0)
     # last: after this phase's runs torch.profiler has shown no device
@@ -3723,7 +3868,9 @@ def main() -> int:
                     max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     **r["bound"], library_ms=None, device_ms=r["device_ms"],
                     launches_by_path=by_path) for k, by_path, r in rows]
-    kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"])
+    kernels[0].update(ms_n10=k1["ms10"], device_ms_n10=k1["device_ms10"],
+                      ms_per_point=k1["ms_per_point"],
+                      device_ms_per_point=k1["device_ms_per_point"])
     kernels[1].update({k: v for k, v in k1_sum.items()
                        if k not in ("err", "ms", "plain_ms", "device_ms",
                                     "bound", "bound_ms")})

@@ -60,6 +60,7 @@ from ..libgnss.ephemeris import EphArray
 from ..libgnss.satcache import SatStateCache
 from ..ops import dpe as dpe_ops
 from ..ops import dpe_real as dpe_real_ops
+from ..ops.score import grid_factors
 from ..parallel.mesh import Mesh
 from .ekf import NavEKF
 from .grid import Grid, _mesh4, check_grid_size, spread_grid
@@ -368,6 +369,11 @@ class DPEReceiver:
         with tracing.span("dpe.build.upload"):
             self._dev = device_state(self.grid, chips, self.S, rawfile.fs,
                                      self.device)
+            # each manifold's product-grid factors (or None), found once on
+            # the uploaded offsets: the scorer's batched calls take them
+            self._pos_factors = grid_factors(self._dev.d_enu, self._dev.dt_m)
+            self._vel_factors = grid_factors(self._dev.dv_enu,
+                                             self._dev.dtdot)
         if self.cfg.engine == "fft":
             # FFT of each channel's nominal code replica: per-block replicas
             # are frequency-domain fractional shifts of it
@@ -1094,7 +1100,8 @@ class DPEReceiver:
             return_windows=(self.cfg.refine == "newton"
                             or self.cfg.ekf_mode == "full"),
             code_win=self.code_win, carr_win=self.carr_win, group_k=group_k,
-            use_argmax=self.cfg.use_argmax, mesh=self.cfg.mesh)
+            use_argmax=self.cfg.use_argmax, mesh=self.cfg.mesh,
+            factors=(self._pos_factors, self._vel_factors))
         # queue the device->host copy now: it runs as soon as the batch
         # finishes on the device, overlapping the NEXT batch's host prep
         return _fetch_async(rows), preps
@@ -1247,7 +1254,8 @@ class DPEReceiver:
                 l_power=self.cfg.l_power, interp=self.cfg.interp,
                 code_win=self.code_win, carr_win=self.carr_win,
                 coherent=coherent, return_windows=want_windows,
-                use_argmax=self.cfg.use_argmax, mesh=self.cfg.mesh)
+                use_argmax=self.cfg.use_argmax, mesh=self.cfg.mesh,
+                factors=(self._pos_factors, self._vel_factors))
             # one device->host fetch: head, the last block's flips, windows
             flat = _fetched(_fetch_async(torch.cat(
                 [res[0], res[1][-1].float()]
@@ -1392,8 +1400,9 @@ class DPEReceiver:
                                   zoom_interp)
 
     def _joint_argmax(self, win, los, centers, coefs, r0, off3, off1,
-                      interp: str | None = None):
-        """(argmax offsets, peak) of the joint multi-epoch surface."""
+                      interp: str | None = None, factors=None):
+        """(argmax offsets, peak) of the joint multi-epoch surface; factors:
+        the grid's `grid_factors` (the receiver's own grid), or None."""
         def f32(a):
             return dpe_real_ops.to_device(
                 np.ascontiguousarray(a, np.float32), self.device)
@@ -1403,7 +1412,7 @@ class DPEReceiver:
             f32(r0 if r0 is not None else np.zeros_like(centers)),
             f32(off3), f32(np.broadcast_to(off1, off3.shape[:1])),
             interp=interp or self.cfg.interp, l_power=self.cfg.l_power,
-            has_r0=r0 is not None, mesh=self.cfg.mesh)
+            has_r0=r0 is not None, mesh=self.cfg.mesh, factors=factors)
         a = int(arg)
         return (np.asarray(off3[a], np.float64).copy(),
                 float(np.asarray(off1).reshape(-1)[a]
@@ -1433,7 +1442,7 @@ class DPEReceiver:
                                          + ddb[:, None])
         dv3, dd1, vel_peak = self._joint_argmax(
             carr_mag, los, vcen, fpk[:, 10], None,
-            self.grid.dv_enu, self.grid.dtdot)
+            self.grid.dv_enu, self.grid.dtdot, factors=self._vel_factors)
         # zoom: mid lattice covers the coarse grid's quantization cell,
         # fine lattice resolves the final estimate
         for sp in (4.0 * vel_fine_spacing, vel_fine_spacing):
@@ -1452,7 +1461,7 @@ class DPEReceiver:
                                         + dbb[:, None])
         dp3, db1, pos_peak = self._joint_argmax(
             code_mag, los, pcen, fpk[:, 8], fpk[:, 6],
-            self.grid.d_enu, self.grid.dt_m)
+            self.grid.d_enu, self.grid.dt_m, factors=self._pos_factors)
         for sp in (4.0 * fine_spacing, fine_spacing):
             ax_p = (np.arange(fine_n) - (fine_n - 1) / 2.0) * sp
             off3p, off1p = _mesh4(ax_p, ax_p)

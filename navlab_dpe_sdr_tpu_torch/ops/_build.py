@@ -34,7 +34,9 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 # Kernel launches since the last reset, keyed by kernel and mode: K1
-# "score_argmax" (per block) and "score_argmax_sum" (block-summed), K2
+# "score_argmax" (per block) and "score_argmax_sum" (block-summed), and
+# "score_argmax_factored" and "score_argmax_sum_factored" where the same
+# ran on a product grid's factors, K2
 # "score_surface", K3 "correlate_window" (one window) and
 # "correlate_windows" (the windows mode), K4 "track_chunk" (m = 1),
 # "track_chunk_coherent" (m > 1) and "track_chunk_batched" (batch_k > 1),
@@ -42,7 +44,8 @@ _libs: dict[str, ctypes.CDLL] = {}
 # Each wrapper adds one right after its kernel launches, and nowhere else;
 # receivers of a fleet launch from threads of their own, so the count is
 # kept under a lock.
-KERNEL_MODES = ("score_argmax", "score_argmax_sum", "score_surface",
+KERNEL_MODES = ("score_argmax", "score_argmax_sum", "score_argmax_factored",
+                "score_argmax_sum_factored", "score_surface",
                 "correlate_window", "correlate_windows", "track_chunk",
                 "track_chunk_coherent", "track_chunk_batched",
                 "windowed_correlate")

@@ -45,6 +45,33 @@
 // surface store and one wave of thread blocks are what is left: the
 // kernel's time there is a few launches' worth.
 //
+// The factored kernel (score_kernel_factored, the argmax modes 0 and 3,
+// quadratic and linear): every grid style the receiver builds is a
+// Cartesian product whose clock axis varies fastest, g = s * L + j, offsets
+// (o3u[s], o1u[j]), so u_c and the range term -u_c (+ curvature) depend on
+// the spatial point s alone. The caller finds the factors once per grid
+// (ops/score.py grid_factors) and passes them in; a thread then owns one
+// spatial point and kT consecutive clock values of it, forms the range
+// term once per (block, channel) and runs only idx, the clip and the
+// interpolation per point: 9 of the position manifold's 22 operations a
+// point-channel (5 of the velocity's 18) are paid once per kT points. Each
+// score is the same f32 operations on the same operands in the same order
+// as in the per-point form, so its bits are the same, and the reduction
+// keeps the first index at the maximum in any order. The weighted modes
+// (1 and 4) run the per-point kernel: a factored form had to restage its
+// scores into the per-point mapping to keep the f64 partials' order, and
+// was slower on an H100 in 5 of 6 cases measured (PERF.md). What is left a
+// point bounds it: idx 3, the clip and the tap index 5, the tap read, the
+// interpolation 4 and the sum 1, issued at the f32 rate (a variant that
+// read a tap once for neighbouring clock values that round to it saved
+// shared-memory reads and was slower: PERF.md). kT = 5 divides both of the
+// receiver's clock axes (25 and 75) and fills the card on the spread grid;
+// where the tiles at kT = 25 still fill the card alone (the dense grid)
+// they take 25, with the tap index rounded by the 1.5 * 2^23 shift
+// (window_value), which with rintf and its conversion was slower there: on
+// an H100 the dense grid's N = 50 launch took 8.55 and 7.92 ms (position,
+// velocity) against 8.89 and 8.73 at kT = 5 and 12.26 and 10.58 per point.
+//
 // Design.
 // - A thread owns kP consecutive grid points (16-byte loads of their
 //   offsets, started before the first barrier) with |o3|^2, in registers,
@@ -115,6 +142,8 @@ constexpr int kMaxBatch = 32;     // blocks n staged at once, at most
 constexpr int kBatchBytes = 48 * 1024;        // staging budget: no opt-in, >= 4 blocks per SM
 constexpr int kMaxDynShared = 200 * 1024;     // the widest single block n accepted
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kClockStep = 5;         // factored: clock values a thread, kT
+constexpr int kWideStep = 25;         // factored, on a grid whose tiles at 25 fill the card
 
 enum Mode { kArgmax = 0, kWeighted = 1, kSurface = 2, kSumArgmax = 3, kSumWeighted = 4 };
 enum Interp { kQuadratic = 0, kLinear = 1, kSinc = 2 };
@@ -131,6 +160,9 @@ struct Args {
   const float* r0;       // [N, C] by strides, or null (velocity manifold)
   const float* off3;     // [G, 3] contiguous
   const float* off1;     // [G]
+  const float* o3u;      // [G / run, 3] (factored: a product grid's spatial points)
+  const float* o1u;      // [run]        (factored: its clock values)
+  int run;               // factored: the clock axis's length, L
   int los_sn, los_sc, los_sj, cen_sn, cen_sc, coef_sn, coef_sc, r0_sn, r0_sc;
   int n_blocks, n_chan, width, n_grid, l_power;
   int n_per_share, n_batch;
@@ -155,13 +187,20 @@ __device__ __forceinline__ float key_value(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
+// A spatial point's range term for one channel: -u, with the curvature
+// term on the position manifold. It does not depend on the clock offset.
+template <bool kQuad>
+__device__ __forceinline__ float point_range(const float4 pa, float x, float y, float z,
+                                             float d2) {
+  const float u = pa.x * x + pa.y * y + pa.z * z;
+  return kQuad ? -u + (d2 - u * u) * pa.w : -u;
+}
+
 // A grid point's fractional window index for one channel.
 template <bool kQuad>
 __device__ __forceinline__ float point_index(const float4 pa, const float4 pb, float x,
                                              float y, float z, float t, float d2) {
-  const float u = pa.x * x + pa.y * y + pa.z * z;
-  const float rng = kQuad ? -u + (d2 - u * u) * pa.w : -u;
-  return pb.x + pb.y * (rng + t);
+  return pb.x + pb.y * (point_range<kQuad>(pa, x, y, z, d2) + t);
 }
 
 template <int kLP>
@@ -173,15 +212,13 @@ __device__ __forceinline__ float to_power(float v, int l_power) {
   return vp;
 }
 
-// One channel's interpolated window value at one grid point, to l_power:
-// the f32 operations of ops/score.py score_points, in their order
-// (quadratic and linear).
-template <bool kQuad, int kInterp, int kLP>
-__device__ __forceinline__ float channel_score(const float4 pa, const float4 pb,
-                                               const float* __restrict__ taps,
-                                               int width, int l_power, float x,
-                                               float y, float z, float t, float d2) {
-  const float idx = point_index<kQuad>(pa, pb, x, y, z, t, d2);
+// One channel's interpolated window value at a fractional index, to
+// l_power: the f32 operations of ops/score.py score_points, in their order
+// (quadratic and linear). kShift: the quadratic tap's index by the
+// 1.5 * 2^23 shift (below) in place of rintf and a conversion.
+template <int kInterp, int kLP, bool kShift = false>
+__device__ __forceinline__ float window_value(const float* __restrict__ taps, int width,
+                                              int l_power, float idx) {
   float v;
   if (kInterp == kLinear) {
     const float wmax = (float)(width - 1);
@@ -190,6 +227,16 @@ __device__ __forceinline__ float channel_score(const float4 pa, const float4 pb,
     v = 0.0f;
     if (k0 >= 0.0f && k0 <= wmax) v += fmaxf(0.0f, 1.0f - fabsf(idx - k0)) * taps[(int)k0];
     if (k1 >= 0.0f && k1 <= wmax) v += fmaxf(0.0f, 1.0f - fabsf(idx - k1)) * taps[(int)k1];
+  } else if (kShift) {
+    // clip(rint(idx), 1, W-2) == rint(clip(idx, 1, W-2)) for integer bounds
+    // (NaN clips to 1 in both), and on [1, W-2] adding 1.5 * 2^23 rounds to
+    // the nearest integer, half to even, as rintf does: the same k0, and
+    // its integer is in the sum's low mantissa bits
+    const float r = fminf(fmaxf(idx, 1.0f), (float)(width - 2)) + 12582912.0f;
+    const float k0 = r - 12582912.0f;
+    const float d = idx - k0;
+    const float4 q = reinterpret_cast<const float4*>(taps)[__float_as_int(r) - 0x4B400000];
+    v = q.x + d * (q.y + d * q.z);
   } else {
     const float k0 = fminf(fmaxf(rintf(idx), 1.0f), (float)(width - 2));
     const float d = idx - k0;
@@ -197,6 +244,16 @@ __device__ __forceinline__ float channel_score(const float4 pa, const float4 pb,
     v = q.x + d * (q.y + d * q.z);
   }
   return to_power<kLP>(v, l_power);
+}
+
+// One channel's interpolated window value at one grid point, to l_power.
+template <bool kQuad, int kInterp, int kLP>
+__device__ __forceinline__ float channel_score(const float4 pa, const float4 pb,
+                                               const float* __restrict__ taps,
+                                               int width, int l_power, float x,
+                                               float y, float z, float t, float d2) {
+  return window_value<kInterp, kLP>(taps, width, l_power,
+                                    point_index<kQuad>(pa, pb, x, y, z, t, d2));
 }
 
 // One channel's sinc values at a thread's kP grid points, to l_power (taps:
@@ -368,6 +425,31 @@ __device__ __forceinline__ void park_slot(const float (&acc)[kP], const float (&
   }
 }
 
+// The first maximum of a thread's kT consecutive points gs.. that lie in
+// [lo, hi), and of its warp, parked in slot `slot` of s_red (the factored
+// kernel's argmax modes).
+template <int kT>
+__device__ __forceinline__ void park_piece(const float (&acc)[kT], int gs, int lo, int hi,
+                                           int slot, unsigned long long* s_red) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  unsigned key = 0u, idx = kFull;
+  int bj = -1;
+  float b = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kT; ++j)
+    if (gs + j >= lo && gs + j < hi && (bj < 0 || acc[j] > b)) {
+      b = acc[j];
+      bj = j;
+    }
+  if (bj >= 0) {
+    key = ordered_key(b + 0.0f);
+    idx = (unsigned)(gs + bj);
+  }
+  const unsigned kmax = __reduce_max_sync(kFull, key);
+  const unsigned imin = __reduce_min_sync(kFull, key == kmax ? idx : kFull);
+  if (lane == 0) s_red[slot * kWarps + warp] = ((unsigned long long)kmax << 32) | (~imin);
+}
+
 // Warp 0, after the barrier that follows park_slot: lane i < nb folds the
 // warps' pairs of slot i into output slot n0 + i (one atomicMax, the
 // weighted partials of this tile, a ticket), and the tile that arrives last
@@ -505,9 +587,93 @@ __global__ void __launch_bounds__(kThreads) score_kernel(const Args a) {
   }
 }
 
+// The factored kernel: a product grid, g = s * L + j with offsets
+// (o3u[s], o1u[j]), argmax modes only. A thread owns kT consecutive clock
+// values j of one spatial point s (x, y, z, |o3|^2 in registers) and forms
+// the range term once per (block, channel) for all of them; a tile is
+// kThreads such pieces.
+template <bool kQuad, int kInterp, int kT, int kLP, int kMode>
+__global__ void __launch_bounds__(kThreads) score_kernel_factored(const Args a) {
+  // dynamic shared memory: [red: n_batch * kWarps u64] [par] [taps]
+  static_assert(!is_weighted(kMode), "the weighted modes run the per-point kernel");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = a.n_chan, W = a.width, G = a.n_grid, L = a.run;
+  const int tapf = kInterp == kQuadratic ? 4 * W : W;
+  unsigned long long* s_red = reinterpret_cast<unsigned long long*>(smem_raw);
+  float* s_par = reinterpret_cast<float*>(s_red + a.n_batch * kWarps);
+  float* s_tap = s_par + a.n_batch * C * kParF;
+
+  // this thread's piece: grid points gs .. gs + kT - 1 of spatial point s
+  const int t0 = blockIdx.x * kThreads * kT;
+  const int t1 = min(t0 + kThreads * kT, G);
+  const int gs = t0 + (int)threadIdx.x * kT;
+  const bool active = gs < t1;
+  float x = 0.0f, y = 0.0f, z = 0.0f, t[kT];
+#pragma unroll
+  for (int k = 0; k < kT; ++k) t[k] = 0.0f;
+  if (active) {
+    const int s = gs / L, j0 = gs - s * L;
+    x = a.o3u[3 * (size_t)s + 0];
+    y = a.o3u[3 * (size_t)s + 1];
+    z = a.o3u[3 * (size_t)s + 2];
+#pragma unroll
+    for (int k = 0; k < kT; ++k) t[k] = a.o1u[j0 + k];
+  }
+  const float d2 = x * x + y * y + z * z;
+
+  float total[kT];                           // block-summed mode: S(g)
+#pragma unroll
+  for (int k = 0; k < kT; ++k) total[k] = 0.0f;
+
+  const int n_begin = blockIdx.y * a.n_per_share;
+  const int n_end = min(a.n_blocks, n_begin + a.n_per_share);
+  for (int n0 = n_begin; n0 < n_end; n0 += a.n_batch) {
+    const int nb = min(a.n_batch, n_end - n0);
+    stage_batch<kQuad, kInterp>(a, n0, nb, s_par, s_tap);
+    __syncthreads();
+
+    for (int i = 0; i < nb; ++i) {
+      const float4* par4 = reinterpret_cast<const float4*>(s_par) + 2 * i * C;
+      const float* taps = s_tap + (size_t)i * C * tapf;
+      float acc[kT];
+#pragma unroll
+      for (int k = 0; k < kT; ++k) acc[k] = 0.0f;
+      if (active) {
+        for (int c = 0; c < C; ++c) {
+          const float4 pa = par4[2 * c], pb = par4[2 * c + 1];
+          const float* tc = taps + c * tapf;
+          const float rng = point_range<kQuad>(pa, x, y, z, d2);
+#pragma unroll
+          for (int k = 0; k < kT; ++k)
+            acc[k] += window_value<kInterp, kLP, (kT > kClockStep)>(
+                tc, W, a.l_power, pb.x + pb.y * (rng + t[k]));
+        }
+      }
+
+      if (sums_blocks(kMode)) {              // one f32 add per block, ascending n
+#pragma unroll
+        for (int k = 0; k < kT; ++k) total[k] += acc[k];
+        continue;
+      }
+      park_piece<kT>(acc, gs, t0, t1, i, s_red);
+    }
+
+    __syncthreads();                         // every warp's pairs are parked
+    if (!sums_blocks(kMode) && threadIdx.x < 32)
+      publish_slots<kMode>(a, n0, nb, s_red, nullptr);   // lane i owns block n0 + i
+  }
+
+  if (sums_blocks(kMode)) {
+    park_piece<kT>(total, gs, t0, t1, 0, s_red);
+    __syncthreads();
+    if (threadIdx.x < 32) publish_slots<kMode>(a, 0, 1, s_red, nullptr);
+  }
+}
+
 // Launch geometry of one call, computed on the host.
 struct Plan {
-  int points;        // kP
+  int step;          // kT of the factored kernel, 0 for the per-point kernel
+  int points;        // kP, or kT (factored argmax modes)
   int tiles;         // gridDim.x
   int shares;        // gridDim.y
   int n_per_share;
@@ -521,13 +687,26 @@ size_t batch_bytes(int n_batch, int n_chan, int width, int interp, bool weighted
                             (size_t)n_chan * (tapf + kParF) * sizeof(float));
 }
 
+// The clock values a thread of the factored kernel takes on this grid (0:
+// the per-point kernel): kT = 5, and 25 where its run allows and the tiles
+// alone still fill the card (`fill` thread blocks).
+int factored_step(bool factored, int run, int n_grid, long fill) {
+  if (!factored) return 0;
+  if (run % kWideStep == 0 &&
+      ((long)n_grid + (long)kThreads * kWideStep - 1) / ((long)kThreads * kWideStep) >= fill)
+    return kWideStep;
+  return kClockStep;
+}
+
 Plan make_plan(int n_blocks, int n_chan, int width, int n_grid, int interp,
-               int mode, bool aligned, int sm_count) {
+               int mode, bool aligned, int step, int sm_count) {
   Plan p;
   const bool sum = sums_blocks(mode), weighted = is_weighted(mode);
   const long fill = 16L * sm_count;     // thread blocks for ~4 waves at 4 per SM
-  // four points a thread wherever their 16-byte loads are aligned
-  p.points = aligned ? 4 : 1;
+  // four points a thread wherever their 16-byte loads are aligned; the
+  // factored kernel (step > 0) takes kT a thread
+  p.step = step;
+  p.points = step ? step : aligned ? 4 : 1;
   p.tiles = (int)(((long)n_grid + (long)p.points * kThreads - 1) / ((long)p.points * kThreads));
   long shares = sum ? 1 : (fill + p.tiles - 1) / p.tiles;
   if (shares > n_blocks) shares = n_blocks;
@@ -544,19 +723,55 @@ Plan make_plan(int n_blocks, int n_chan, int width, int n_grid, int interp,
   return p;
 }
 
-template <bool kQuad, int kInterp, int kP, int kLP, int kMode>
-cudaError_t launch_one(const Args& a, const Plan& p, cudaStream_t s) {
-  static size_t allowed = 48 * 1024;    // dynamic shared memory granted so far
+// `allowed`: the dynamic shared memory granted the kernel so far.
+template <typename Kernel>
+cudaError_t launch_with(Kernel kernel, size_t& allowed, const Args& a, const Plan& p,
+                        cudaStream_t s) {
   if (p.smem > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
-        score_kernel<kQuad, kInterp, kP, kLP, kMode>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (e != cudaSuccess) return e;
     allowed = p.smem;
   }
-  score_kernel<kQuad, kInterp, kP, kLP, kMode>
-      <<<dim3(p.tiles, p.shares), kThreads, p.smem, s>>>(a);
+  kernel<<<dim3(p.tiles, p.shares), kThreads, p.smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kQuad, int kInterp, int kP, int kLP, int kMode>
+cudaError_t launch_one(const Args& a, const Plan& p, cudaStream_t s) {
+  static size_t allowed = 48 * 1024;
+  return launch_with(score_kernel<kQuad, kInterp, kP, kLP, kMode>, allowed, a, p, s);
+}
+
+template <bool kQuad, int kInterp, int kT, int kLP, int kMode>
+cudaError_t launch_factored_one(const Args& a, const Plan& p, cudaStream_t s) {
+  static size_t allowed = 48 * 1024;
+  return launch_with(score_kernel_factored<kQuad, kInterp, kT, kLP, kMode>, allowed, a, p,
+                     s);
+}
+
+// The factored kernel's modes: argmax per block and block-summed.
+template <bool kQuad, int kInterp, int kLP>
+cudaError_t launch_factored_mode(int mode, const Args& a, const Plan& p, cudaStream_t s) {
+  constexpr int k5 = kClockStep, k25 = kWideStep;
+  if (mode == kArgmax)
+    return p.step == k25 ? launch_factored_one<kQuad, kInterp, k25, kLP, kArgmax>(a, p, s)
+                         : launch_factored_one<kQuad, kInterp, k5, kLP, kArgmax>(a, p, s);
+  return p.step == k25 ? launch_factored_one<kQuad, kInterp, k25, kLP, kSumArgmax>(a, p, s)
+                       : launch_factored_one<kQuad, kInterp, k5, kLP, kSumArgmax>(a, p, s);
+}
+
+template <bool kQuad>
+cudaError_t launch_factored(int interp, int mode, const Args& a, const Plan& p,
+                            cudaStream_t s) {
+  if (interp == kLinear) {
+    if (a.l_power == 1) return launch_factored_mode<kQuad, kLinear, 1>(mode, a, p, s);
+    if (a.l_power == 2) return launch_factored_mode<kQuad, kLinear, 2>(mode, a, p, s);
+    return launch_factored_mode<kQuad, kLinear, 0>(mode, a, p, s);
+  }
+  if (a.l_power == 1) return launch_factored_mode<kQuad, kQuadratic, 1>(mode, a, p, s);
+  if (a.l_power == 2) return launch_factored_mode<kQuad, kQuadratic, 2>(mode, a, p, s);
+  return launch_factored_mode<kQuad, kQuadratic, 0>(mode, a, p, s);
 }
 
 template <bool kQuad, int kInterp, int kP, int kLP>
@@ -610,7 +825,7 @@ long long score_shared_bytes(int n_chan, int width, int interp, int weighted) {
 int score_tiles(int n_blocks, int n_chan, int width, int n_grid, int interp,
                 int mode, int aligned, int sm_count) {
   return make_plan(n_blocks, n_chan, width, n_grid, interp, mode, aligned != 0,
-                   sm_count).tiles;
+                   0, sm_count).tiles;
 }
 
 // Enqueues one kernel on `stream`; allocates nothing and does not
@@ -622,10 +837,15 @@ int score_tiles(int n_blocks, int n_chan, int width, int n_grid, int interp,
 // off1 are contiguous. packed and ticket (one entry per output slot) are
 // scratch that must be zero at the first launch and is left zero by every
 // launch that runs to its end; launches sharing it must be ordered on one
-// stream. Returns cudaGetLastError() after the launch (0 on success).
+// stream. o3u [G / run, 3] and o1u [run], contiguous, or NULL: the factors
+// of a product grid (off3[g] = o3u[g / run], off1[g] = o1u[g % run]), which
+// select the factored kernel in modes 0 and 3 with the quadratic or linear
+// interpolation where kClockStep (5) divides run; elsewhere they are
+// refused. Returns cudaGetLastError() after the launch (0 on success).
 int score_launch(const float* win, const float* los, const float* centers,
                  const float* coefs, const float* r0, const float* off3,
-                 const float* off1, int los_sn, int los_sc, int los_sj,
+                 const float* off1, const float* o3u, const float* o1u, int run,
+                 int los_sn, int los_sc, int los_sj,
                  int cen_sn, int cen_sc, int coef_sn, int coef_sc, int r0_sn,
                  int r0_sc, int n_blocks, int n_chan, int width, int n_grid,
                  int interp, int l_power, int mode, int sm_count,
@@ -641,11 +861,17 @@ int score_launch(const float* win, const float* los, const float* centers,
     return (int)cudaErrorInvalidValue;
   const bool aligned = (reinterpret_cast<uintptr_t>(off3) & 15) == 0 &&
                        (reinterpret_cast<uintptr_t>(off1) & 15) == 0;
+  const bool factored = o3u != nullptr;
+  if (factored && (o1u == nullptr || interp == kSinc ||
+                   (mode != kArgmax && mode != kSumArgmax) || run < kClockStep ||
+                   run % kClockStep != 0 || n_grid % run != 0))
+    return (int)cudaErrorInvalidValue;
   const Plan p = make_plan(n_blocks, n_chan, width, n_grid, interp, mode, aligned,
+                           factored_step(factored, run, n_grid, 16L * sm_count),
                            sm_count);
   Args a;
   a.win = win; a.los = los; a.centers = centers; a.coefs = coefs; a.r0 = r0;
-  a.off3 = off3; a.off1 = off1;
+  a.off3 = off3; a.off1 = off1; a.o3u = o3u; a.o1u = o1u; a.run = run;
   a.los_sn = los_sn; a.los_sc = los_sc; a.los_sj = los_sj;
   a.cen_sn = cen_sn; a.cen_sc = cen_sc;
   a.coef_sn = coef_sn; a.coef_sc = coef_sc;
@@ -655,8 +881,11 @@ int score_launch(const float* win, const float* los, const float* centers,
   a.surface = surface; a.packed = packed; a.ticket = ticket; a.part_w = part_w;
   a.best = best; a.arg = arg; a.wsum4 = wsum4; a.wtot = wtot;
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = r0 != nullptr ? launch_interp<true>(interp, mode, a, p, s)
-                                      : launch_interp<false>(interp, mode, a, p, s);
+  const cudaError_t e =
+      factored ? (r0 != nullptr ? launch_factored<true>(interp, mode, a, p, s)
+                                : launch_factored<false>(interp, mode, a, p, s))
+               : (r0 != nullptr ? launch_interp<true>(interp, mode, a, p, s)
+                                : launch_interp<false>(interp, mode, a, p, s));
   return (int)e;
 }
 

@@ -33,9 +33,9 @@ from .. import tracing
 from .correlate import (SLIVER_LIMIT, RealBlockOut, RealBlockOutC,
                         windowed_correlate)
 from .dpe import CARR_WIN, CODE_WIN, ManifoldParams
-from .score import (INTERP_MODES, ceil_rows, even_rows, pick_first,
-                    score_argmax, score_surface, score_surface_argmax,
-                    streaming_best)
+from .score import (INTERP_MODES, ceil_rows, even_rows, factor_rows,
+                    pick_first, score_argmax, score_surface,
+                    score_surface_argmax, streaming_best)
 
 
 def score_manifolds_mag(code_mag, carr_mag, params: ManifoldParams, d_enu,
@@ -322,12 +322,13 @@ SURFACE_CHUNK_BYTES = 1 << 28
 
 def _score_rows(mesh, win_mag, los_enu, centers, coefs, r0, off3, off1,
                 interp: str, l_power: int, weighted: bool, block_sum: bool,
-                split: bool):
+                split: bool, factors=None):
     """One manifold scored over this rank's grid rows (JAX
     `_local_argmax_scan` inside `_score_axis_sharded`): (best, arg as a
     global index[, wsum4, wtot]) for `Mesh.best_over_grid`.
 
-    Without a channel split, K1 (`score_argmax`) on the rows. With one
+    Without a channel split, K1 (`score_argmax`) on the rows, with the
+    grid's factors where the rows start and end on its runs. With one
     (win_mag etc. hold this rank's channels), K1's streaming argmax cannot
     take a partial channel sum: the rows are scored in chunks with the
     kernel's surface mode (K2, `score_surface`, [N, k]), each chunk summed
@@ -348,17 +349,20 @@ def _score_rows(mesh, win_mag, los_enu, centers, coefs, r0, off3, off1,
     elif hi > lo:
         res = score_argmax(win_mag, los_enu, centers, coefs, r0, o3, o1,
                            interp=interp, l_power=l_power, weighted=weighted,
-                           block_sum=block_sum)
+                           block_sum=block_sum,
+                           factors=factor_rows(factors, lo, hi))
     else:                       # no rows here: nothing to launch
         res = streaming_best(None, o3, o1, n, 1, weighted, block_sum)
     return (res[0], res[1] + lo) + tuple(res[2:])
 
 
 def _score_both(mesh, out, fpk, d_enu, dt_m, dv_enu, dtdot, interp,
-                l_power, weighted, block_sum, split=False):
+                l_power, weighted, block_sum, split=False,
+                factors=(None, None)):
     """(pos result, vel result) of the windows `out` with the packed
     parameters fpk [N, 11, C] (this rank's channels when `split`): two K1
-    calls, or on a mesh each rank's rows and one combine over 'grid'."""
+    calls, or on a mesh each rank's rows and one combine over 'grid'.
+    factors: each manifold's `grid_factors` (or None)."""
     los_enu = fpk[:, 3:6].transpose(1, 2)                   # [N, C, 3]
     pos = (out.code_mag, los_enu, fpk[:, 7], fpk[:, 8], fpk[:, 6], d_enu,
            dt_m)
@@ -366,11 +370,12 @@ def _score_both(mesh, out, fpk, d_enu, dt_m, dv_enu, dtdot, interp,
            dtdot)
     if mesh is None:
         return tuple(score_argmax(*a, interp=interp, l_power=l_power,
-                                  weighted=weighted, block_sum=block_sum)
-                     for a in (pos, vel))
+                                  weighted=weighted, block_sum=block_sum,
+                                  factors=f)
+                     for a, f in zip((pos, vel), factors))
     return mesh.best_over_grid([
-        _score_rows(mesh, *a, interp, l_power, weighted, block_sum, split)
-        for a in (pos, vel)])
+        _score_rows(mesh, *a, interp, l_power, weighted, block_sum, split, f)
+        for a, f in zip((pos, vel), factors)])
 
 
 def dpe_batch_blocks(raw_all_i16, pk: np.ndarray, chips, time_idc,
@@ -379,7 +384,8 @@ def dpe_batch_blocks(raw_all_i16, pk: np.ndarray, chips, time_idc,
                      l_power: int = 1, interp: str = "quadratic",
                      return_windows: bool = True,
                      code_win: int = CODE_WIN, carr_win: int = CARR_WIN,
-                     group_k: int = 1, use_argmax: bool = True, mesh=None):
+                     group_k: int = 1, use_argmax: bool = True, mesh=None,
+                     factors=(None, None)):
     """Block-batched fused DPE (JAX `dpe_batch_blocks`).
 
     raw_all_i16: device-resident int16 capture [B, S, 2]; pk: host packed
@@ -396,7 +402,10 @@ def dpe_batch_blocks(raw_all_i16, pk: np.ndarray, chips, time_idc,
     'grid', the flips and windows gathered over 'chan': every rank returns
     the same rows, those of the single-device call (the correlator's
     windows do not depend on which blocks share its call), but for the
-    order of the channel sum when the channels split."""
+    order of the channel sum when the channels split.
+
+    factors: the (position, velocity) grids' `grid_factors`, or None for
+    either; the scorer's results do not depend on them."""
     if group_k > 1 and n_blocks % group_k:
         raise ValueError(f"n_blocks {n_blocks} % group_k {group_k} != 0")
     start = int(pk[0, START_ROW, 0])
@@ -420,7 +429,7 @@ def dpe_batch_blocks(raw_all_i16, pk: np.ndarray, chips, time_idc,
     with tracing.span("dpe.dispatch.score"):
         pres, vres = _score_both(mesh, out, fpk[..., cs], d_enu, dt_m, dv_enu,
                                  dtdot, interp, l_power, weighted, False,
-                                 split)
+                                 split, factors)
     if mesh is not None:
         out = gather_chan_out(mesh, out, c)
     wmean = weighted_cols(pres, vres) if weighted else None
@@ -434,7 +443,8 @@ def dpe_scan_integrate(raw_all_i16, pk: np.ndarray, chips, time_idc,
                        l_power: int = 1, interp: str = "quadratic",
                        code_win: int = CODE_WIN, carr_win: int = CARR_WIN,
                        coherent: bool = False, return_windows: bool = False,
-                       use_argmax: bool = True, mesh=None):
+                       use_argmax: bool = True, mesh=None,
+                       factors=(None, None)):
     """Multi-block score integration in one dispatch (JAX
     `dpe_scan_integrate`): one argmax per batch of n_blocks.
 
@@ -446,8 +456,9 @@ def dpe_scan_integrate(raw_all_i16, pk: np.ndarray, chips, time_idc,
     [C, Wc], carr_mag [C, Wv]]): head [4] f32 is (pos argmax bitcast, pos
     peak, vel argmax bitcast, vel peak), 12 long with the weighted-mean
     offsets of the integrated surfaces when use_argmax is False; with
-    return_windows the windows summed over the batch. mesh: as in
-    `dpe_batch_blocks`, with the block-summed scorer on each rank's rows."""
+    return_windows the windows summed over the batch. mesh and factors: as
+    in `dpe_batch_blocks`, with the block-summed scorer on each rank's
+    rows."""
     start = int(pk[0, START_ROW, 0])
     fpk, ipk = unpack_params(to_device(pk, raw_all_i16.device))
     out = batch_correlate(raw_all_i16, start, fpk, ipk, chips, time_idc,
@@ -461,7 +472,8 @@ def dpe_scan_integrate(raw_all_i16, pk: np.ndarray, chips, time_idc,
     cs, split = _channels(mesh, c)
     weighted = not use_argmax
     pres, vres = _score_both(mesh, out, fpk[..., cs], d_enu, dt_m, dv_enu,
-                             dtdot, interp, l_power, weighted, True, split)
+                             dtdot, interp, l_power, weighted, True, split,
+                             factors)
     if mesh is not None:
         flips = mesh.gather_chan(flips, c)
         if return_windows:
@@ -479,7 +491,7 @@ def dpe_scan_integrate(raw_all_i16, pk: np.ndarray, chips, time_idc,
 
 def score_joint_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
                        interp: str = "quadratic", l_power: int = 1,
-                       has_r0: bool = True, mesh=None):
+                       has_r0: bool = True, mesh=None, factors=None):
     """Multi-epoch joint (max, argmax): one candidate state scored against
     many epochs' integrated windows, each with its own geometry (JAX
     `score_joint_argmax`). The epoch axis is the scorer's block axis:
@@ -487,14 +499,15 @@ def score_joint_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
     [G, 3], off1 [G] are displacements from one common reference state.
     Returns scalars (best f32, arg int32). With a mesh, each rank scores
     its grid rows (and its channels, when they split over 'chan') and the
-    results are combined over 'grid'."""
+    results are combined over 'grid'. factors: the grid's `grid_factors`
+    or None."""
     r0 = r0 if has_r0 else None
     if mesh is None:
         return score_argmax(win_mag, los_enu, centers, coefs, r0, off3,
                             off1, interp=interp, l_power=l_power,
-                            block_sum=True)
+                            block_sum=True, factors=factors)
     cs, split = _channels(mesh, win_mag.shape[1])
     res = _score_rows(mesh, win_mag[:, cs], los_enu[:, cs], centers[:, cs],
                       coefs[:, cs], None if r0 is None else r0[:, cs], off3,
-                      off1, interp, l_power, False, True, split)
+                      off1, interp, l_power, False, True, split, factors)
     return mesh.best_over_grid([res])[0]

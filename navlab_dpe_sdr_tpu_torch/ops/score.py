@@ -19,6 +19,17 @@ on a CPU tensor it runs `score_argmax_plain`, the same arithmetic in plain
 PyTorch. There is no fallback between the two. The kernel's launches are
 counted under "score_argmax" per block and "score_argmax_sum" block-summed.
 
+On a product grid (`grid_factors`: the clock axis varies fastest, the
+spatial offsets are constant over runs of its L values) the caller may
+pass the grid's factors, and the argmax modes' kernel then forms each
+spatial point's range term once per (block, channel) and reuses it across
+the clock axis. Each score still comes from the same f32 operands in the
+same order, so the results are those of the per-point kernel, bit for bit.
+Such launches are counted under "score_argmax_factored" and
+"score_argmax_sum_factored". Where the factors cannot serve (the weighted
+modes, sinc, an L that the kernel's clock step CLOCK_STEP does not divide)
+the per-point kernel runs.
+
 `score_surface` returns the whole [N, G] surface instead (the per-block
 step's `score_manifolds_mag`, navlab_dpe_sdr_tpu/ops/dpe_real.py:751, whose
 TPU kernel is pallas_score.py `_score_kernel`), and `score_surface_argmax`
@@ -52,6 +63,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -60,6 +72,50 @@ from . import _build
 
 INTERP_MODES = ("quadratic", "linear", "sinc")    # csrc/score_argmax.cu: 0, 1, 2
 PLAIN_CHUNK = 16384     # grid points per step of the plain streaming scan
+CLOCK_STEP = 5          # csrc/score_argmax.cu kClockStep: the factored kernel's
+                        # clock values a thread, which must divide L
+
+
+class GridFactors(NamedTuple):
+    """The factors of a product grid off3 [G, 3], off1 [G]: off3[g] =
+    o3u[g // L] and off1[g] = o1u[g % L], L = o1u.shape[0]."""
+    o3u: torch.Tensor      # [G / L, 3] the spatial points
+    o1u: torch.Tensor      # [L] the clock values
+    fits: bool             # CLOCK_STEP divides L: the factored kernel takes it
+
+
+def grid_factors(off3: torch.Tensor, off1: torch.Tensor):
+    """The GridFactors of off3 [G, 3], off1 [G] where they are a product
+    grid whose clock axis varies fastest: off3 constant (to the bit) over
+    aligned runs of L > 1 rows, and off1 the same L values, to the bit,
+    repeated G / L times. None otherwise. A few reductions over the
+    tensors on their own device and two reads of a count or a flag: run it
+    once per grid, not per call."""
+    g = off3.shape[0]
+    if g < 2 or tuple(off3.shape) != (g, 3) or tuple(off1.shape) != (g,):
+        return None
+    b3 = off3.contiguous().view(torch.int32)
+    b1 = off1.contiguous().view(torch.int32)
+    moved = (b3 != b3[:1]).any(dim=1).to(torch.uint8)
+    run = int(torch.argmax(moved)) or g     # the first row unlike row 0
+    if run < 2 or g % run:
+        return None
+    r3, r1 = b3.view(g // run, run, 3), b1.view(g // run, run)
+    if not bool(((r3 == r3[:, :1]).all() & (r1 == b1[:run]).all()).item()):
+        return None
+    return GridFactors(off3[::run].contiguous(), off1[:run].contiguous(),
+                       run % CLOCK_STEP == 0)
+
+
+def factor_rows(factors, lo: int, hi: int):
+    """The factors of rows [lo, hi) of a product grid: those of the runs
+    they hold when they start and end on run boundaries, else None."""
+    if factors is None:
+        return None
+    run = factors.o1u.shape[0]
+    if lo % run or hi % run or hi <= lo:
+        return None
+    return factors._replace(o3u=factors.o3u[lo // run:hi // run])
 
 
 def score_points(win_mag, los_enu, centers, coefs, r0, o3, o1,
@@ -198,16 +254,25 @@ def streaming_best(scores, off3, off1, n: int, chunk: int,
 
 def score_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
                  interp: str = "quadratic", l_power: int = 1,
-                 weighted: bool = False, block_sum: bool = False):
+                 weighted: bool = False, block_sum: bool = False,
+                 factors: GridFactors | None = None):
     """(best [N] f32, arg [N] int32) (+ (wsum4 [N, 4], wtot [N]) when
     weighted) of one manifold over the whole grid off3 [G, 3], off1 [G].
     block_sum=True: the same of S(g) = sum_n score(n, g), as scalars
     (best [], arg [], wsum4 [4], wtot []): noncoherent integration over
-    blocks, or the joint surface of many epochs.
+    blocks, or the joint surface of many epochs. factors: the grid's
+    `grid_factors` (or None); they change how the kernel computes, never
+    what.
 
     CPU tensors -> `score_argmax_plain`; CUDA tensors -> the kernel, or an
     exception."""
     dev = _check_call(win_mag, interp, l_power, "score_argmax")
+    if factors is not None:
+        run = factors.o1u.shape[0]
+        g = off3.shape[0]
+        if run < 1 or g % run or tuple(factors.o3u.shape) != (g // run, 3):
+            raise ValueError(f"factors ({tuple(factors.o3u.shape)}, "
+                             f"({run},)) do not factor a grid of {g} points")
     if dev.type == "cpu":
         return score_argmax_plain(win_mag, los_enu, centers, coefs, r0,
                                   off3, off1, interp, l_power, weighted,
@@ -215,9 +280,17 @@ def score_argmax(win_mag, los_enu, centers, coefs, r0, off3, off1,
     mode = MODE_WEIGHTED if weighted else MODE_ARGMAX
     if block_sum:
         mode = MODE_SUM_WEIGHTED if weighted else MODE_SUM_ARGMAX
-    res = _launch("score_argmax_sum" if block_sum else "score_argmax", mode,
-                  win_mag, los_enu, centers, coefs, r0, off3, off1, interp,
-                  int(l_power))[1:]
+    name = "score_argmax_sum" if block_sum else "score_argmax"
+    if (factors is not None and factors.fits and not weighted
+            and interp != "sinc"):
+        if factors.o3u.device != dev or factors.o1u.device != dev:
+            raise ValueError(f"factors on {factors.o3u.device}, the call "
+                             f"on {dev}")
+        name += "_factored"
+    else:
+        factors = None
+    res = _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3,
+                  off1, interp, int(l_power), factors)[1:]
     return tuple(t[0] for t in res) if block_sum else res
 
 
@@ -285,7 +358,7 @@ _sm_count: dict[int, int] = {}
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.score_launch.argtypes = [p] * 7 + [i] * 17 + [p] * 9
+    lib.score_launch.argtypes = [p] * 9 + [i] * 18 + [p] * 9
     lib.score_launch.restype = ctypes.c_int
     lib.score_tiles.argtypes = [i] * 8
     lib.score_tiles.restype = ctypes.c_int
@@ -320,13 +393,14 @@ def _operand(t, dev, shape, name, contiguous=False):
 
 
 def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
-            interp, l_power):
+            interp, l_power, factors=None):
     """Check the operands, launch the kernel once on the current stream and
     return (surface or None, best, arg[, wsum4, wtot]), each with one entry
     per output slot: per block, or one in the block-summed modes. The
     windows and the grid offsets must be contiguous (copied if not); the
     per-channel parameters are read by their strides, so slices of a packed
-    parameter tensor go in as they are."""
+    parameter tensor go in as they are. factors (contiguous, on the
+    windows' device: `grid_factors`) select the factored kernel."""
     dev = win_mag.device
     n, c, w = win_mag.shape
     g = off3.shape[0]
@@ -349,6 +423,8 @@ def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
         r0 = _operand(r0, dev, (n, c), "r0")
     off3 = _operand(off3, dev, (g, 3), "off3", contiguous=True)
     off1 = _operand(off1, dev, (g,), "off1", contiguous=True)
+    o3u, o1u = (None, None) if factors is None else factors[:2]
+    run = 0 if o1u is None else o1u.shape[0]
     strides = (*los_enu.stride(), *centers.stride(), *coefs.stride(),
                *(r0.stride() if r0 is not None else (0, 0)))
 
@@ -382,7 +458,8 @@ def _launch(name, mode, win_mag, los_enu, centers, coefs, r0, off3, off1,
                     2 * max(slots, 64), dtype=torch.int64, device=dev)
         return key, lib.score_launch(
             ptr(win_mag), ptr(los_enu), ptr(centers), ptr(coefs), ptr(r0),
-            ptr(off3), ptr(off1), *strides, n, c, w, g,
+            ptr(off3), ptr(off1), ptr(o3u), ptr(o1u), run, *strides, n, c,
+            w, g,
             icode, l_power, mode, sms, ptr(surface),
             scratch.data_ptr(),
             scratch.data_ptr() + 4 * scratch.numel(), ptr(part_w),

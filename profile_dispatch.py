@@ -343,7 +343,8 @@ def main_path(first, hand, arr, grid, dev, card, log=print) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         after = _build.launch_counts()
-        k1 = after["score_argmax"] - before["score_argmax"]
+        k1 = sum(after.get(k, 0) - before.get(k, 0)
+                 for k in ("score_argmax", "score_argmax_factored"))
         k5 = (after.get("windowed_correlate", 0)
               - before.get("windowed_correlate", 0))
         err = np.array([np.linalg.norm(f.x_ecef[:3] - hand.x_ecef[:3])

@@ -140,6 +140,37 @@ def test_run_batched_matches_jax(scenario):
     assert err < 40.0, err
 
 
+def test_receiver_hands_its_grid_factors_to_the_scorer(scenario,
+                                                      monkeypatch):
+    """The receiver finds each manifold's product-grid factors once, at its
+    build, on the uploaded offsets (the 7^4 grid: L = 7), and hands them
+    to every scorer call of its batched and integrated dispatches."""
+    from navlab_dpe_sdr_tpu_torch.ops import score as tscore
+
+    rx = _receiver(tmodel, scenario)
+    d = rx._dev
+    for f, off in ((rx._pos_factors, (d.d_enu, d.dt_m)),
+                   (rx._vel_factors, (d.dv_enu, d.dtdot))):
+        want = tscore.grid_factors(*off)
+        assert f is not None and f.o1u.shape == (7,)
+        assert torch.equal(f.o3u, want.o3u) and torch.equal(f.o1u, want.o1u)
+    seen, inner = [], treal.score_argmax
+
+    def record(*a, **kw):
+        seen.append(kw.get("factors"))
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(treal, "score_argmax", record)
+    cap = _capture(scenario[0], tmodel)
+    rx.run_batched(4, lookahead=4, raw_blocks_dev=cap, pipeline=True,
+                   pipeline_depth=2)
+    rx.run_integrated(1, blocks_per_fix=4, raw_blocks_dev=cap,
+                      start_block=4)
+    assert len(seen) == 4
+    for f, want in zip(seen, [rx._pos_factors, rx._vel_factors] * 2):
+        assert f is want
+
+
 def test_handoff_resume_from_jax_receiver(scenario):
     """The JAX receiver runs 6 blocks; its save_handoff() starts a port
     receiver (reading the same SampleFile from the handoff's byte offset)
