@@ -1224,28 +1224,40 @@ class DPEReceiver:
                         start_block, coherent, prefetch, collect=None,
                         feedback=True):
         done = 0
+        for _ in range(n_batches):
+            with tracing.span("dpe.integrate"):
+                self._integrate_batch(blocks_per_fix, raw_blocks_dev,
+                                      start_block + done, coherent, prefetch,
+                                      collect, feedback)
+            done += blocks_per_fix
+        return self.fixes
+
+    def _integrate_batch(self, n, raw_blocks_dev, start, coherent, prefetch,
+                         collect, feedback):
+        """One integrated fix over the next n blocks: the preparation, the
+        device dispatch (correlator, block-summed or coherent scorer, one
+        queued fetch), the wait for that fetch, and the measurement."""
         c = len(self.prn_list)
         d = self._dev
-        for _ in range(n_batches):
-            n = blocks_per_fix
+        with tracing.span("dpe.integrate.prepare"):
             preps = self._prepare_batch(n)
             fpk = np.stack([p[0] for p in preps])
             ipk = np.stack([p[1] for p in preps])
+        # sub-grid Newton polish needs the integrated windows; the
+        # coherent path is the one that forms a single summed window.
+        # With the noise integrated away the polish is limited by the
+        # 3-tap interpolant's vertex bias, which cancels in the argmax
+        # (all candidates go through the same interpolant): newton for
+        # off-lattice smoothness, argmax for absolute accuracy on
+        # dense grids.
+        refine = self.cfg.refine == "newton" and coherent
+        want_windows = refine or collect is not None
+        with tracing.span("dpe.integrate.dispatch"):
             if raw_blocks_dev is None:
                 raw_dev = prefetch.get()
                 start = 0
             else:
                 raw_dev = raw_blocks_dev
-                start = start_block + done
-            # sub-grid Newton polish needs the integrated windows; the
-            # coherent path is the one that forms a single summed window.
-            # With the noise integrated away the polish is limited by the
-            # 3-tap interpolant's vertex bias, which cancels in the argmax
-            # (all candidates go through the same interpolant): newton for
-            # off-lattice smoothness, argmax for absolute accuracy on
-            # dense grids.
-            refine = self.cfg.refine == "newton" and coherent
-            want_windows = refine or collect is not None
             res = dpe_real_ops.dpe_scan_integrate(
                 raw_dev, dpe_real_ops.pack_params(fpk, ipk, start), d.chips,
                 d.time_idc, d.d_enu, d.dt_m, d.dv_enu, d.dtdot,
@@ -1257,9 +1269,12 @@ class DPEReceiver:
                 use_argmax=self.cfg.use_argmax, mesh=self.cfg.mesh,
                 factors=(self._pos_factors, self._vel_factors))
             # one device->host fetch: head, the last block's flips, windows
-            flat = _fetched(_fetch_async(torch.cat(
+            fetch = _fetch_async(torch.cat(
                 [res[0], res[1][-1].float()]
-                + [w.reshape(-1) for w in res[2:]])))
+                + [w.reshape(-1) for w in res[2:]]))
+        with tracing.span("dpe.integrate.wait"):
+            flat = _fetched(fetch)
+        with tracing.span("dpe.integrate.update"):
             n_head = res[0].shape[0]
             row = flat[:n_head]
             flip_last = flat[n_head:n_head + c]
@@ -1302,8 +1317,6 @@ class DPEReceiver:
                                 rx_time, x_pred))
             self.rx_time_a = self.rx_time - self.ekf.x[3] / C
             self._update_channels_from_state()
-            done += n
-        return self.fixes
 
     def noise_envelope(self, blocks_per_fix: int = 16, n_batches: int = 8,
                        seed: int = 0):

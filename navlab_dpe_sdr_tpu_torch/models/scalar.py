@@ -36,6 +36,7 @@ from ..libgnss.cacode import ca_table
 from ..libgnss.ephemeris import ALL_FIELDS, EphArray, Ephemeris
 from ..ops import acquisition as acq_ops
 from ..ops import tracking as trk_ops
+from . import navbits
 
 LOG_FIELDS = ("iE", "qE", "iP", "qP", "iL", "qL", "rc", "ri", "fc", "fi",
               "cp", "lock", "lockval", "snr", "dpc", "dpi")
@@ -131,14 +132,16 @@ class ScalarReceiver:
     def _acquire_deep(self, deep_ms: int, n_coh_ms: int, verbose: bool):
         """The deep search over the next deep_ms of the file (the JAX
         receiver's deep branch); the file stays where it was."""
-        rf = self.rawfile
-        start_pos = rf.sample_pos
-        rf.set_block(deep_ms * 1e-3, deep_ms * 1e-3, verbose=False)
-        block = rf.read_block().astype(np.complex64)
-        rf.seek(start_pos, whence=0)
-        rf.set_block(T_CA, T_CA, verbose=False)
-        results = acq_ops.acquire_deep(block, self.prn_list, rf.fs, rf.fcaid,
-                                       n_coh_ms=n_coh_ms, device=self.device)
+        with tracing.span("scalar.acquire.deep"):
+            rf = self.rawfile
+            start_pos = rf.sample_pos
+            rf.set_block(deep_ms * 1e-3, deep_ms * 1e-3, verbose=False)
+            block = rf.read_block().astype(np.complex64)
+            rf.seek(start_pos, whence=0)
+            rf.set_block(T_CA, T_CA, verbose=False)
+            results = acq_ops.acquire_deep(block, self.prn_list, rf.fs,
+                                           rf.fcaid, n_coh_ms=n_coh_ms,
+                                           device=self.device)
         if verbose:
             for r in results:
                 print(f"PRN {r.prn:2d} found={r.found} rc={r.rc:8.2f} "
@@ -227,35 +230,49 @@ class ScalarReceiver:
 
     def _absorb_log(self, packed: np.ndarray, ints: np.ndarray):
         """Append one chunk's packed log, fetched to the host (packed
-        [steps, 15 + m, C] floats, ints [steps, 3, C]), and expand the m + 1
-        nav-bit signs of each update (one per code period the window
-        touches; the first ncp of them completed) into each channel's
-        cp_sign, in period order."""
+        [steps, log_f_rows(m), C] floats, ints [steps, 3, C]), and expand
+        the m + 1 nav-bit signs of each update (one per code period the
+        window touches; the first ncp of them completed) into each
+        channel's cp_sign, in period order. At m > 1 each channel also keeps
+        its windows' prompt segment sums (column "pseg", [steps, m + 2]
+        complex), the soft decode's input."""
+        m = self.coh_ms
         arrs = {k: packed[:, i] for i, k in enumerate(trk_ops.LOG_F_BASE)}
         arrs.update({k: ints[:, i] for i, k in enumerate(trk_ops.LOG_I_ROWS)})
         arrs["lock"] = arrs["lock"].astype(np.float32)
         ncp = ints[:, 1]                                   # [steps, C]
-        signs = np.moveaxis(packed[:, len(trk_ops.LOG_F_BASE):], 1, 2)
+        n_base = len(trk_ops.LOG_F_BASE)
+        signs = np.moveaxis(packed[:, n_base:n_base + m + 1], 1, 2)
+        if m > 1:
+            seg = packed[:, n_base + m + 1:].reshape(len(packed), m + 2, 2, -1)
+            arrs["pseg"] = np.moveaxis(seg[:, :, 0] + 1j * seg[:, :, 1], 2, 1)
         kmax = signs.shape[2]
         k_arange = np.arange(kmax)[None, :]
         for ci, prn in enumerate(self.prn_list):
             ch = self.channels[prn]
             ch.append(**{k: arrs[k][:, ci] for k in LOG_FIELDS})
+            if m > 1:
+                ch.append(pseg=arrs["pseg"][:, ci])
             take = k_arange < np.minimum(ncp[:, ci], kmax)[:, None]
             if take.any():
                 ch.cp_sign = np.concatenate([ch.cp_sign,
                                              signs[:, ci, :][take]])
 
-    # -- navigation (host, verbatim from the JAX receiver) ------------------
+    # -- navigation (host, from the JAX receiver, with a soft fallback) -----
 
     def decode_ephemerides(self, verbose: bool = True):
-        """Frame + decode LNAV for each channel from its cp_sign stream."""
+        """Frame + decode LNAV for each channel from its cp_sign stream.
+
+        Where a channel's signs are too noisy for the sign framer (more
+        wrong than it tolerates, models/navbits.py), its bits are decided
+        from the prompt's soft values against a smooth carrier instead
+        (`_soft_signs`), and taken only with all 50 words passing parity
+        and the ephemeris complete. The JAX receiver has no such path."""
         good = []
         for prn in self.prn_list:
             ch = self.channels[prn]
             try:
-                eph, parity_ok = dataparser.parse_ephemerides(
-                    ch.cp_sign, cp_offset=0.0, prn=prn)
+                eph, parity_ok = self._parse(prn)
                 ch.ephemeris = eph
                 good.append(prn)
                 if verbose:
@@ -266,6 +283,45 @@ class ScalarReceiver:
                 if verbose:
                     print(f"PRN {prn:2d}: decode failed: {e}")
         return good
+
+    def _parse(self, prn: int):
+        """(ephemeris, words passing parity) of channel `prn`: framed on its
+        signs, or, where that fails and the signs are more often wrong than
+        the sign framer tolerates, on its soft bits."""
+        ch = self.channels[prn]
+        try:
+            return dataparser.parse_ephemerides(ch.cp_sign, cp_offset=0.0,
+                                                prn=prn)
+        except ValueError:
+            if navbits.sign_disagreement(ch.cp_sign) <= navbits.HARD_ERRORS:
+                raise
+        eph, parity_ok = dataparser.parse_ephemerides(
+            navbits.clean_signs(self._soft_signs(prn)), cp_offset=0.0,
+            prn=prn)
+        if parity_ok < navbits.WORDS or not eph.complete:
+            raise ValueError(f"soft bits: parity {parity_ok}/"
+                             f"{navbits.WORDS}, complete={eph.complete}")
+        return eph, parity_ok
+
+    def _soft_signs(self, prn: int) -> np.ndarray:
+        """The prompt's complex sum of each completed code period of
+        channel `prn`, indexed like its cp_sign, against a smooth carrier
+        (navbits.soft_periods), from the prompt segments K4 logged for its
+        coherent windows. Raises ValueError where some update has none (a
+        1 ms cadence, or a log resumed from a checkpoint)."""
+        ch = self.channels[prn]
+        segs = ch.col("pseg")
+        u = len(segs)
+        if u == 0 or u != self.mcount:
+            raise ValueError(f"soft bits: prompt segments logged for {u} of "
+                             f"{self.mcount} updates (coherent windows only)")
+        m = self.coh_ms
+        rf = self.rawfile
+        t_win = (np.asarray(self._m_samp[:u], np.float64)
+                 - round(rf.fs * 1e-3) * m) / rf.fs
+        return navbits.soft_periods(segs, ch.col("cp"), t_win, ch.col("rc"),
+                                    ch.col("fc"), ch.col("ri"), ch.col("fi"),
+                                    m, len(ch.cp_sign))
 
     def set_ephemerides(self, eph_by_prn: dict[int, Ephemeris]):
         for prn, eph in eph_by_prn.items():

@@ -14,8 +14,10 @@ are cuFFT calls here. PRNs are searched one at a time (the JAX search holds
 all-real engine itself is not ported): coherent folds of n_coh_ms code
 periods per segment, a circular code correlation (by FFT here, by circulant
 matmul there), magnitudes summed over the segments, detection on the
-deviation-normalised peak, and the fine frequency from the first segment.
-The [D, S] baseband is formed a chunk of Dopplers at a time.
+deviation-normalised peak, and the fine frequency from every segment's
+carrier spectrum about the coarse Doppler, summed noncoherently (where the
+JAX search takes the first segment's alone). The [D, S] baseband is formed
+a chunk of Dopplers at a time.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import F_CA, L_CA
 from ..device import resolve_device
 
@@ -216,6 +219,47 @@ def _deep_coarse(re, im, t, code_fft_c, dopplers, n_coh: int, period: int):
     return torch.cat(out, dim=1)
 
 
+def _deep_fine(re, im, chips, rc, fc, f_coarse, fs: float, s_fine: int,
+               n_fft: int, half: int, band):
+    """The deep search's fine carrier frequency of each PRN: every whole
+    segment of s_fine samples, mean removed, times the PRN's code replica
+    at its coarse code phase rc [chips] and rate fc [chips/s], evaluated
+    at the bins of its zero-padded n_fft-point spectrum within `half` bins
+    of its coarse Doppler f_coarse (inside `band`, the search's bins
+    [lo, hi)), its power summed over the segments (noncoherently: the
+    segments' nav bits differ). Returns (signed bin [P], the first
+    segment's phase there [cycles]), read back in one fetch."""
+    dev = re.device
+    k_seg = re.shape[0] // s_fine
+    s = k_seg * s_fine
+    x = torch.complex(re[:s], im[:s]).reshape(k_seg, s_fine)
+    x = x - x.mean(dim=1, keepdim=True)
+    rc_t = torch.tensor(rc, dtype=torch.float64, device=dev)
+    fc_t = torch.tensor(fc, dtype=torch.float64, device=dev)
+    t = torch.arange(s, dtype=torch.float64, device=dev) / fs
+    idx = torch.remainder(torch.floor(t[None, :] * fc_t[:, None]
+                                      + rc_t[:, None]), L_CA).long()
+    repl = torch.gather(chips, 1, idx)                     # [P, S]
+    y = x[None] * repl.reshape(len(rc), k_seg, s_fine)      # [P, K, s_fine]
+    bin_hz = fs / n_fft
+    centre = np.round(np.asarray(f_coarse) / bin_hz).astype(np.int64)
+    k = torch.from_numpy(centre[:, None]
+                         + np.arange(-half, half + 1)[None, :]).to(dev)
+    n = torch.arange(s_fine, dtype=torch.int64, device=dev)
+    ang = torch.remainder(k[:, :, None] * n, n_fft).float() * float(
+        np.float32(-2.0 * np.pi / n_fft))
+    w = torch.polar(torch.ones_like(ang), ang)              # [P, J, s_fine]
+    spec = y @ w.transpose(1, 2)                            # [P, K, J]
+    power = (spec.real ** 2 + spec.imag ** 2).sum(dim=1)
+    power = torch.where((k >= band[0]) & (k < band[1]), power,
+                        torch.full_like(power, -1.0))
+    j = torch.argmax(power, dim=1)
+    first = spec[torch.arange(len(rc), device=dev), 0, j]
+    got = torch.stack([torch.gather(k, 1, j[:, None])[:, 0].double(),
+                       torch.angle(first).double() / _TWO_PI]).cpu().numpy()
+    return got[0].astype(np.int64), got[1]
+
+
 def acquire_deep(samples: np.ndarray, prns, fs: float, fcaid: float,
                  n_coh_ms: int = 10, dopplers: np.ndarray | None = None,
                  device="cuda") -> list[AcqResult]:
@@ -225,9 +269,13 @@ def acquire_deep(samples: np.ndarray, prns, fs: float, fcaid: float,
     capture is trimmed to them). Same results contract as the JAX
     `acquire_real(..., n_coh_ms=n_coh_ms)`: found is the deviation-normalised
     peak z = (peak - mean) / std of the per-code maxima outside
-    +/-ceil(fs / F_CA) samples of the peak, z > 8; the fine frequency comes
-    from a zero-padded carrier FFT of the first segment after code wipeoff
-    (a coherent transform across nav-bit boundaries would self-cancel).
+    +/-ceil(fs / F_CA) samples of the peak, z > 8. The fine frequency is
+    searched about the coarse Doppler, one grid step either side, in the
+    segments' zero-padded carrier spectra after code wipeoff, their power
+    summed over the segments (`_deep_fine`; a coherent transform across
+    nav-bit boundaries would self-cancel). The JAX search takes the first
+    segment's spectrum alone over the whole Doppler band, whose strongest
+    noise bin beats a 27 dB-Hz carrier: kHz off for most channels.
     The baseband is wiped off _DOPPLER_CHUNK Dopplers at a time."""
     from ..libgnss.cacode import ca_table
 
@@ -255,46 +303,51 @@ def acquire_deep(samples: np.ndarray, prns, fs: float, fcaid: float,
     t32 = f32(t)
     code_fft_c = torch.conj(torch.fft.fft(f32(period_codes).to(
         torch.complex64), dim=-1))                         # [P, P0]
-    result = _deep_coarse(re, im, t32, code_fft_c, f32(dopplers), n_coh,
-                          period).cpu().numpy()
+    with tracing.span("scalar.acquire.deep.coarse"):
+        result = _deep_coarse(re, im, t32, code_fft_c, f32(dopplers), n_coh,
+                              period).cpu().numpy()
 
     s_fine = n_coh * period
     carr_fftpts = 8 * (1 << s_fine.bit_length())
     bin_hz = fs / carr_fftpts
-    f_lo = int(np.floor(np.min(dopplers) / bin_hz)) + carr_fftpts // 2
-    n_bins = int(np.ceil((np.max(dopplers) - np.min(dopplers)) / bin_hz)) + 2
-    fine = torch.complex(re[:s_fine] - re[:s_fine].mean(),
-                         im[:s_fine] - im[:s_fine].mean())
-
-    out = []
-    mask_hw = int(np.ceil(fs / F_CA))
-    code_idc_period = np.arange(period) / fs * F_CA
-    pos = np.arange(period)
-    for i, prn in enumerate(prns):
-        r = result[i]
-        max_percode = r.max(axis=0)
-        code_idx = int(np.argmax(max_percode))
-        dopp_idx = int(np.argmax(r[:, code_idx]))
-        peak = max_percode[code_idx]
-        dist = np.minimum(np.abs(pos - code_idx),
-                          period - np.abs(pos - code_idx))
-        masked = np.where(dist <= mask_hw, 0.0, max_percode)
-        cppr = peak / masked.max()
-        srt = np.sort(masked)
-        cppm = peak / srt[int(period * 0.05):int(period * 0.95)].mean()
-        floor = max_percode[dist > mask_hw]
-        z = (peak - floor.mean()) / max(floor.std(), 1e-12)
-
-        rc = L_CA - code_idc_period[code_idx]
-        fc = F_CA + fcaid * float(dopplers[dopp_idx])
-        repl_idx = np.mod(np.floor(t[:s_fine] * fc + rc), L_CA).astype(int)
-        spec = torch.fft.fftshift(torch.fft.fft(
-            fine * f32(tab[i][repl_idx]), n=carr_fftpts))
-        band = spec[f_lo:f_lo + n_bins]
-        j = int(torch.argmax(torch.abs(band)))
-        fi = (f_lo + j - carr_fftpts // 2) * bin_hz
-        ri = float(torch.angle(band[j]).cpu()) / _TWO_PI
-        out.append(AcqResult(prn=int(prn), found=bool(z > 8.0), rc=float(rc),
-                             ri=ri, fc=float(F_CA + fcaid * fi), fi=float(fi),
-                             cppr=float(cppr), cppm=float(cppm)))
+    band = (int(np.floor(np.min(dopplers) / bin_hz)),
+            int(np.ceil(np.max(dopplers) / bin_hz)) + 1)
+    step = (float(np.median(np.diff(np.sort(dopplers))))
+            if len(dopplers) > 1 else 500.0 / n_coh)
+    with tracing.span("scalar.acquire.deep.fine"):
+        mask_hw = int(np.ceil(fs / F_CA))
+        code_idc_period = np.arange(period) / fs * F_CA
+        pos = np.arange(period)
+        cells = []
+        for i in range(len(prns)):
+            r = result[i]
+            max_percode = r.max(axis=0)
+            code_idx = int(np.argmax(max_percode))
+            dopp_idx = int(np.argmax(r[:, code_idx]))
+            peak = max_percode[code_idx]
+            dist = np.minimum(np.abs(pos - code_idx),
+                              period - np.abs(pos - code_idx))
+            masked = np.where(dist <= mask_hw, 0.0, max_percode)
+            srt = np.sort(masked)
+            floor = max_percode[dist > mask_hw]
+            cells.append(dict(
+                rc=L_CA - code_idc_period[code_idx],
+                f_coarse=float(dopplers[dopp_idx]),
+                cppr=peak / masked.max(),
+                cppm=peak / srt[int(period * 0.05):int(period * 0.95)].mean(),
+                z=(peak - floor.mean()) / max(floor.std(), 1e-12)))
+        fbin, phase = _deep_fine(
+            re, im, torch.from_numpy(tab.astype(np.float32)).to(dev),
+            [c["rc"] for c in cells],
+            [F_CA + fcaid * c["f_coarse"] for c in cells],
+            [c["f_coarse"] for c in cells], fs, s_fine, carr_fftpts,
+            int(np.ceil(step / bin_hz)), band)
+        out = []
+        for i, (prn, c) in enumerate(zip(prns, cells)):
+            fi = fbin[i] * bin_hz
+            out.append(AcqResult(prn=int(prn), found=bool(c["z"] > 8.0),
+                                 rc=float(c["rc"]), ri=float(phase[i]),
+                                 fc=float(F_CA + fcaid * fi), fi=float(fi),
+                                 cppr=float(c["cppr"]),
+                                 cppm=float(c["cppm"])))
     return out

@@ -108,7 +108,9 @@
 // - coherent windows of m = 2..10 code periods: m + 2 segments, so 6m + 12
 //   sums, the m-scaled tail (the single-flip hypothesis test over m + 2
 //   segments, m + 1 signs, lock thresholds and C/N0 denominator from
-//   TrackParams);
+//   TrackParams); a window's log row also carries its m + 2 prompt
+//   segment sums (in-phase, quadrature), the soft values a weak channel's
+//   nav bits are decided from;
 // - batch_k at m = 1: window w of a batch correlates at the phases
 //   predicted from the batch-start rates, rc_w = mod(rc + (dfc T_MS) w,
 //   L_CA), while the updates run per window as at m = 1; the batch closes
@@ -347,6 +349,12 @@ __device__ __forceinline__ float floor_mod_near(float a, float b) {
   else m = fmodf(a, b);
   if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
   return m;
+}
+
+// Float log rows per update of an m-period window (ops/track.py n_log_f):
+// 14, the m + 1 nav-bit signs, and at m > 1 the m + 2 prompt segment sums.
+__host__ __device__ __forceinline__ int log_f_rows(int m) {
+  return 15 + m + (m > 1 ? 2 * (m + 2) : 0);
 }
 
 __device__ __forceinline__ float sign_of(float x) {
@@ -1330,7 +1338,8 @@ __device__ __forceinline__ float ring_after(float r, const float x[kMaxPass], in
 
 // The off-path tail of a pass, on the service warp of the cluster's first
 // block: each window's prompt carry and m + 1 signs, lock detector, C/N0
-// meter (monitor_and_log's arithmetic) and log row of 15 + m floats. The
+// meter (monitor_and_log's arithmetic) and log row of log_f_rows(m)
+// floats (15 + m, and at m > 1 the 2 (m + 2) prompt segment sums). The
 // chained state (lock detector and its counters, prompt carry, cp, the
 // rates before each update) runs through the pass's windows in every lane
 // alike; lane w < kbp keeps window w's values, takes window w's two C/N0
@@ -1427,6 +1436,14 @@ __device__ __forceinline__ void monitor_pass(
 #pragma unroll
     for (int j = 1; j < kMaxSeg - 1; ++j)
       if (j < n_seg - 1) lf[(14 + j) * n_chan] = -sign_of(ws[sum_index(1, j, 0)]);
+    if (m > 1) {
+#pragma unroll
+      for (int j = 0; j < kMaxSeg; ++j)
+        if (j < n_seg) {
+          lf[(15 + m + 2 * j) * n_chan] = ws[sum_index(1, j, 0)];
+          lf[(16 + m + 2 * j) * n_chan] = ws[sum_index(1, j, 1)];
+        }
+    }
     lo[0] = my_cp;
     lo[n_chan] = ncp_me;
     lo[2 * n_chan] = my_lock;
@@ -1522,7 +1539,7 @@ track_window_kernel(const T* __restrict__ raw, const float* __restrict__ time_id
   const int n_pass = n_steps / L.kbp;
   const size_t pass_len = (size_t)2 * L.kbp * n;     // elements of T
   const uint32_t share_bytes = (uint32_t)(sh_hi - sh_lo) * 2u * (uint32_t)sizeof(T);
-  const int n_log_f = 15 + m;
+  const int n_log_f = log_f_rows(m);
   const size_t log_f_step = (size_t)n_log_f * n_chan;
   const size_t log_i_step = (size_t)kLogI * n_chan;
   if (service && share_bytes > 0)
@@ -1895,7 +1912,7 @@ int correlate_windows_launch(const void* raw, int raw_i16, const float* time_idc
 
 // K4: n_steps windows raw [steps, S, 2] of p.m code periods each; state
 // in/out [C, 16] f32, [C, 5] int32, rings [C, 2, 20]; logs logf
-// [steps, 15 + p.m, C], logi [steps, 3, C]. p.m > 1 (coherent windows) or
+// [steps, log_f_rows(p.m), C], logi [steps, 3, C]. p.m > 1 (coherent windows) or
 // p.batch_k > 1 (the batch schedule, n_steps a multiple of it) run the
 // second kernel. `clk`: null, or [C, track_clock_words()] int64 on the
 // device (either kernel).

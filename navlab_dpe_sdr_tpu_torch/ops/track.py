@@ -65,9 +65,11 @@ def window_times(s: int, fs: float, device) -> torch.Tensor:
 
 
 def n_log_f(m: int) -> int:
-    """Float log rows per update of an m-period window: 14, then the m + 1
-    nav-bit signs."""
-    return 15 + int(m)
+    """Float log rows per update of an m-period window: 14, the m + 1
+    nav-bit signs, and at m > 1 the prompt's m + 2 segment sums, in-phase
+    and quadrature (tracking.log_f_rows; track_chunk.cu log_f_rows)."""
+    m = int(m)
+    return 15 + m + (2 * (m + 2) if m > 1 else 0)
 
 
 def correlate_window_plain(raw_re, raw_im, rc, dfc, ri, fi, code_table,
@@ -312,7 +314,7 @@ def track_chunk_cuda(stf, sti, rings, raw, code_table, fs: float,
 
     stf [C, 16] f32, sti [C, 5] int32, rings [C, 2, 20] f32: the packed
     carry (ops/tracking.pack_state). Returns the new carry and the packed
-    logs (stf', sti', rings', logf [steps, 15 + m, C] f32, logi
+    logs (stf', sti', rings', logf [steps, n_log_f(m), C] f32, logi
     [steps, 3, C] int32); the inputs are not modified. A window holds
     params.m code periods (S / m samples each); params.batch_k > 1 is the
     batch_k schedule (steps a multiple of it). `clocks`, an int64

@@ -139,16 +139,22 @@ FLOAT_FIELDS = ("rc", "dfc", "ri", "fi", "dfc_bias", "fi_bias", "p_a_re",
                 "lf_carr_h2", "lock_i", "lock_q", "prev_p_re", "prev_p_im")
 INT_FIELDS = ("cp", "losscount", "lockcount", "lock", "snr_fill")
 RING_FIELDS = ("snr_z", "snr_v")
-# packed log rows (one fetch each): floats [steps, 15 + m, C] (the m + 1
-# nav-bit signs last), ints [steps, 3, C]
+# packed log rows (one fetch each): floats [steps, log_f_rows(m), C] (the
+# m + 1 nav-bit signs after the base rows, then at m > 1 the prompt's m + 2
+# segment sums, in-phase and quadrature each), ints [steps, 3, C]
 LOG_F_BASE = ("iE", "qE", "iP", "qP", "iL", "qL", "rc", "ri", "fc", "fi",
               "lockval", "snr", "dpc", "dpi")
 LOG_I_ROWS = ("cp", "ncp", "lock")
 
 
 def log_f_rows(m: int = 1) -> tuple:
-    """Names of the float log rows of an m-period window."""
-    return LOG_F_BASE + tuple(f"sign{k}" for k in range(int(m) + 1))
+    """Names of the float log rows of an m-period window: the base rows,
+    the m + 1 nav-bit signs, and at m > 1 the prompt's m + 2 segment sums
+    (the soft values of a weak channel's nav bits, models/navbits.py)."""
+    m = int(m)
+    segs = (tuple(f"pseg{j}{q}" for j in range(m + 2) for q in "iq")
+            if m > 1 else ())
+    return LOG_F_BASE + tuple(f"sign{k}" for k in range(m + 1)) + segs
 
 
 LOG_F_ROWS = log_f_rows(1)
@@ -216,16 +222,16 @@ def unpack_state(stf, sti, rings) -> TrackState:
     return TrackState(**out)
 
 
-def unpack_log(logf, logi) -> TrackLog:
-    """TrackLog views into the packed logs logf [steps, 15 + m, C] and
-    logi [steps, 3, C]."""
+def unpack_log(logf, logi, m: int = 1) -> TrackLog:
+    """TrackLog views into the packed logs of m-period windows, logf
+    [steps, log_f_rows(m), C] and logi [steps, 3, C]."""
     f = {k: logf[:, i] for i, k in enumerate(LOG_F_BASE)}
     n = len(LOG_F_BASE)
     return TrackLog(
         iE=f["iE"], qE=f["qE"], iP=f["iP"], qP=f["qP"], iL=f["iL"],
         qL=f["qL"], rc=f["rc"], ri=f["ri"], fc=f["fc"], fi=f["fi"],
         cp=logi[:, 0], ncp=logi[:, 1],
-        signs=logf[:, n:].transpose(1, 2), lock=logi[:, 2],
+        signs=logf[:, n:n + int(m) + 1].transpose(1, 2), lock=logi[:, 2],
         lockval=f["lockval"], snr=f["snr"], dpc=f["dpc"], dpi=f["dpi"])
 
 
@@ -416,19 +422,23 @@ def _loops_update(state: TrackState, e_r, p_r, l_r, fcaid: float,
 
 
 def _log_rows(e_r, p_r, l_r, rc, ri, dfc, fi, lockval, snr, dpc, dpi, signs,
-              cp, ncp, lock):
-    """One packed log row: floats [15 + m, C], ints [3, C]."""
-    logf = torch.cat([torch.stack([
+              cp, ncp, lock, p_s=None):
+    """One packed log row: floats [log_f_rows(m), C] (p_s, the prompt's
+    segment sums [C, m + 2, 2], given at m > 1), ints [3, C]."""
+    rows = [torch.stack([
         e_r[:, 0], e_r[:, 1], p_r[:, 0], p_r[:, 1], l_r[:, 0], l_r[:, 1],
-        rc, ri, F_CA32 + dfc, fi, lockval, snr, dpc, dpi]), signs.T])
+        rc, ri, F_CA32 + dfc, fi, lockval, snr, dpc, dpi]), signs.T]
+    if p_s is not None:
+        rows.append(p_s.reshape(p_s.shape[0], -1).T)
+    logf = torch.cat(rows)
     return logf, torch.stack([cp, ncp, lock.to(torch.int32)])
 
 
 def _step_plain(st: TrackState, raw_re, raw_im, code_table, time_idc,
                 fs: float, fcaid: float, loops: LoopConfig, m: int = 1):
     """One closed-loop update over an m-period window (the scan body,
-    ops/tracking.py:698-724): returns (state', log floats [15 + m, C], log
-    ints [3, C])."""
+    ops/tracking.py:698-724): returns (state', log floats
+    [log_f_rows(m), C], log ints [3, C])."""
     sums, ncp = correlate_window_plain(
         raw_re, raw_im, st.rc, st.dfc, st.ri, st.fi, code_table, time_idc, fs,
         m, _track.window_warps(m) if m > 1 else None)
@@ -443,7 +453,8 @@ def _step_plain(st: TrackState, raw_re, raw_im, code_table, time_idc,
                        cp=st.cp + ncp)
     st3, dpc, dpi = _loops_update(st2, e_r, p_r, l_r, fcaid, loops, m)
     logf, logi = _log_rows(e_r, p_r, l_r, st.rc, st.ri, st.dfc, st.fi,
-                           lockval, snr, dpc, dpi, signs, st.cp, ncp, lock)
+                           lockval, snr, dpc, dpi, signs, st.cp, ncp, lock,
+                           p_s if m > 1 else None)
     return st3, logf, logi
 
 
@@ -471,7 +482,7 @@ def _check_chunk(raw_chunk, coh_ms: int) -> int:
 def track_chunk_plain(state: TrackState, raw_chunk, code_table, fs: float,
                       fcaid: float, loops: LoopConfig = LoopConfig(),
                       coh_ms: int = 1):
-    """Plain PyTorch tracker: (final state, logf [steps, 15 + m, C],
+    """Plain PyTorch tracker: (final state, logf [steps, log_f_rows(m), C],
     logi [steps, 3, C]) over raw_chunk [steps, S, 2] (int16 or f32), each
     window coh_ms code periods."""
     m = check_coh_ms(coh_ms)
@@ -573,7 +584,7 @@ def _device_of(raw_chunk, what: str) -> torch.device:
 def track_chunk_packed(state: TrackState, raw_chunk, code_table, fs: float,
                        fcaid: float, loops: LoopConfig = LoopConfig(),
                        coh_ms: int = 1, clocks=None, batch_k: int = 1):
-    """(final state, logf [steps, 15 + m, C] f32, logi [steps, 3, C]
+    """(final state, logf [steps, log_f_rows(m), C] f32, logi [steps, 3, C]
     int32): the packed form of `track_chunk` (coh_ms = m) and, with
     batch_k > 1, of `track_chunk_batched`, so a caller fetches the whole log
     in two copies. CPU tensors -> the plain versions; CUDA tensors -> K4,
@@ -607,7 +618,7 @@ def track_chunk(state: TrackState, raw_chunk, code_table, fs: float,
     contract of the JAX `track_chunk`."""
     st, logf, logi = track_chunk_packed(state, raw_chunk, code_table, fs,
                                         fcaid, loops, coh_ms)
-    return st, unpack_log(logf, logi)
+    return st, unpack_log(logf, logi, coh_ms)
 
 
 def track_chunk_batched(state: TrackState, raw_chunk, code_table, fs: float,

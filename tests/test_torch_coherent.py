@@ -394,11 +394,52 @@ def test_open_loop_matches_jax():
         assert np.abs(np.asarray(c) - g.numpy()).max() < 1e-2 * peak
 
 
+def _plain_fine_hz(sig, prn, rc, dopplers, n_coh, fcaid):
+    """The deep search's fine frequency worked out plainly in float64: the
+    coarse Doppler at code phase rc (the largest of the segments' summed
+    correlation magnitudes at that code lag), then every segment's
+    zero-padded carrier spectrum, code wiped off at rc, within one grid
+    step of it, its power summed over the segments."""
+    period = int(FS * 1e-3)
+    s_fine = n_coh * period
+    k_seg = len(sig) // s_fine
+    x = np.asarray(sig[:k_seg * s_fine], np.complex128)
+    t = np.arange(len(x)) / FS
+    chips = ca_table([prn])[0].astype(np.float64)
+    code = chips[np.mod(np.floor(np.arange(period) / FS * F_CA),
+                        L_CA).astype(int)]
+    lag = int(round((L_CA - rc) * FS / F_CA)) % period
+    ref = np.roll(code, lag)                    # code[q - lag]
+    mags = [np.abs((x * np.exp(-2j * np.pi * d * t)).reshape(
+        k_seg, n_coh, period).sum(axis=1) @ ref).sum() for d in dopplers]
+    f_coarse = float(dopplers[int(np.argmax(mags))])
+    n_fft = 8 * (1 << s_fine.bit_length())
+    bin_hz = FS / n_fft
+    half = int(np.ceil(float(np.median(np.diff(dopplers))) / bin_hz))
+    k = int(round(f_coarse / bin_hz)) + np.arange(-half, half + 1)
+    k = k[(k >= np.floor(dopplers.min() / bin_hz))
+          & (k < np.ceil(dopplers.max() / bin_hz) + 1)]
+    seg = x.reshape(k_seg, s_fine)
+    seg = seg - seg.mean(axis=1, keepdims=True)
+    fc = F_CA + fcaid * f_coarse
+    y = seg * chips[np.mod(np.floor(t * fc + rc), L_CA).astype(int)
+                    ].reshape(k_seg, s_fine)
+    n = np.arange(s_fine)
+    w = np.exp(-2j * np.pi * np.mod(np.outer(k, n), n_fft) / n_fft)
+    power = (np.abs(y @ w.T) ** 2).sum(axis=0)
+    return float(k[int(np.argmax(power))] * bin_hz), bin_hz
+
+
 def test_deep_acquisition_matches_acquire_real():
     """tests/test_acquisition.py:96's 27 dB-Hz case: found and the code bin
-    equal to acquire_real's, fi within one fine bin (9.5 Hz: adjacent bins
-    can tie-flip), and the JAX test's truth limits; an absent PRN is not
-    found."""
+    equal to acquire_real's, the found PRN's fi within one fine bin of
+    acquire_real's (9.5 Hz: adjacent bins can tie-flip), and the JAX test's
+    truth limits; an absent PRN is not found. The port searches the fine
+    frequency about the coarse Doppler with every segment's power where
+    acquire_real takes the first segment's over the whole band, so the
+    absent PRN's fi (a noise pick either way) is held within one bin to
+    that search worked out plainly in float64 (`_plain_fine_hz`), as the
+    found PRN's is too."""
     rc_true, fi_true = 512.25, 1750.0
     fcaid = F_CA / 1.57542e9
     sig = synth_simple(7, FS, 25000 * 20, rc=rc_true, ri=0.42, fi=fi_true,
@@ -411,9 +452,13 @@ def test_deep_acquisition_matches_acquire_real():
     bin_hz = FS / (8 * (1 << (25000).bit_length()))
     for a, b in zip(ref, got):
         assert b.found == a.found and b.rc == a.rc
-        assert abs(b.fi - a.fi) <= bin_hz * 1.001
         np.testing.assert_allclose(b.cppm, a.cppm, rtol=1e-3)
+        plain, plain_bin = _plain_fine_hz(sig, b.prn, b.rc, dopplers, 10,
+                                          fcaid)
+        assert plain_bin == bin_hz
+        assert abs(b.fi - plain) <= bin_hz * 1.001, (b.prn, b.fi, plain)
     deep, miss = got
+    assert abs(deep.fi - ref[0].fi) <= bin_hz * 1.001
     assert deep.found and not miss.found
     assert abs((deep.rc - rc_true + L_CA / 2) % L_CA - L_CA / 2) < 0.6
     assert abs(deep.fi - fi_true) < 30.0

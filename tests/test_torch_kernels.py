@@ -188,8 +188,9 @@ def test_window_kernel_clocks(capture, m, batch_k, dev):
 def test_coherent_track_kernel_equals_plain(capture, m, dtype, dev):
     """Coherent windows of m code periods (m + 2 segments: 6m + 12 sums,
     one correlation pass a window; at m = 10 and f32 the ring holds the
-    fewest passes): logs, signs and carry bit-equal to the plain
-    tracker's, which sums in the window kernel's order."""
+    fewest passes): logs, signs, logged prompt segments and carry
+    bit-equal to the plain tracker's, which sums in the window kernel's
+    order."""
     samples, hand, _ = capture
     n_upd = 40 if m < 8 else 20
     tab = torch.from_numpy(ca_table(hand.prn_list).astype(np.float32)).to(dev)
@@ -203,7 +204,8 @@ def test_coherent_track_kernel_equals_plain(capture, m, dtype, dev):
     after = _build.launch_counts()
     assert after["track_chunk_coherent"] == before["track_chunk_coherent"] + 1
     assert after["track_chunk"] == before["track_chunk"]
-    assert lfk.shape == (n_upd, 15 + m, len(hand.prn_list))
+    assert lfk.shape == (n_upd, len(tracking.log_f_rows(m)),
+                         len(hand.prn_list))
     sp, lfp, lip = tracking.track_chunk_plain(st0, raw, tab, FS, FCAID,
                                               loops, coh_ms=m)
     assert torch.equal(lik, lip) and torch.equal(lfk, lfp)

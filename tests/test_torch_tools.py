@@ -228,7 +228,7 @@ def test_bench_and_tools_import_no_jax():
     files = [REPO / "bench_torch.py",
              REPO / "navlab_dpe_sdr_tpu_torch" / "bench.py"]
     files += sorted(TOOLS.glob("*_torch.py"))
-    assert len(files) == 11
+    assert len(files) == 12
     bad = [f.name for f in files if pat.search(f.read_text())]
     assert not bad, bad
 

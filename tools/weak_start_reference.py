@@ -8,13 +8,22 @@ tests/test_acquisition.py:96) as int16 I/Q in 1 s pieces, runs
 ScalarReceiver.acquire(deep_ms=400, n_coh_ms=10) and then
 track(2000, coh_ms=8) with the CLI's coherent loop defaults (Bn_code 3 Hz,
 Bn_carr 48/8 Hz, FLL 12/8 Hz), and writes tools/weak_start_reference.json:
-the capture's SHA-256 and, per PRN, the deep search's found, rc, fi
-(fi_acq) and cppm, and the track's final cp and per-update fi and lock.
-The track runs op by op (jax.disable_jit): at this C/N0 the compiled scan
+the capture's SHA-256 and, per PRN, the JAX deep search's found, rc, fi
+(fi_acq) and cppm, the port's deep search of the same samples on the CPU
+(`seed`: rc, ri, fc, fi), and the track's final cp and per-update fi and
+lock. The two searches share found and the code bins; their fine
+frequencies differ (the JAX search takes the first segment's spectrum over
+the whole band, kHz off for most channels at this C/N0; the port's sums
+every segment's power about the coarse Doppler), so the JAX tracker starts
+from the port's `seed`, and chip_smoke.py starts the card's tracker there
+too and holds it op by op to the JAX tracker's (over the first 100
+updates: later a sum's last bit, added in another order, grows; PRN 30
+parts at update 189, the port's plain tracker on the CPU alike). The
+track runs op by op (jax.disable_jit): at this C/N0 the compiled scan
 departs from its own op-by-op run within 100 updates
-(tests/test_torch_coherent.py), while the op-by-op run is the arithmetic as
-written, which the port follows. About 6 GB of memory for the search and
-two minutes on one core.
+(tests/test_torch_coherent.py), while the op-by-op run is the arithmetic
+as written, which the port follows. About 6 GB of memory for the search
+and two minutes on one core.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ import numpy as np
 from navlab_dpe_sdr_tpu.io.rawfile import DTYPE_IQ16, SampleFile
 from navlab_dpe_sdr_tpu.io.scenario import make_scenario
 from navlab_dpe_sdr_tpu.models.scalar import ScalarReceiver
+from navlab_dpe_sdr_tpu.ops import tracking as trk_ops
 from navlab_dpe_sdr_tpu.ops.tracking import LoopConfig
+from navlab_dpe_sdr_tpu_torch.ops.acquisition import acquire_deep
 
 FS = 2.5e6
 CN0 = 27.0
@@ -53,14 +64,25 @@ def main():
     rx = ScalarReceiver(SampleFile(samples=samples, fs=FS), hand.prn_list,
                         loops=loops)
     res = rx.acquire(deep_ms=DEEP_MS, n_coh_ms=N_COH_MS, verbose=False)
+    block = samples[:int(DEEP_MS * 1e-3 * FS)]
+    seed = acquire_deep(
+        (block["i"] + 1j * block["q"]).astype(np.complex64), hand.prn_list,
+        FS, rx.rawfile.fcaid, n_coh_ms=N_COH_MS, device="cpu")
+    rx.state = trk_ops.init_state(rc=[r.rc for r in seed],
+                                  ri=[r.ri for r in seed],
+                                  fc=[r.fc for r in seed],
+                                  fi=[r.fi for r in seed])
     with jax.disable_jit():
         rx.track(TRACK_MS, coh_ms=COH_MS)
     prns = {}
-    for r in res:
+    for r, p in zip(res, seed):
         ch = rx.channels[r.prn]
         prns[str(r.prn)] = dict(
             found=bool(r.found), rc=float(r.rc), fi_acq=float(r.fi),
-            cppm=float(r.cppm), cp_end=int(ch.col("cp")[-1]),
+            cppm=float(r.cppm),
+            seed=dict(rc=float(p.rc), ri=float(p.ri), fc=float(p.fc),
+                      fi=float(p.fi)),
+            cp_end=int(ch.col("cp")[-1]),
             fi=[float(x) for x in ch.col("fi")],
             lock=[int(x) for x in ch.col("lock")])
     out = dict(cn0_dbhz=CN0, seconds=SECONDS, deep_ms=DEEP_MS,
