@@ -6,7 +6,7 @@ CUDA card.
 
 Phases, one line or more each (any failure raises and exits non-zero):
 1. the card: nvidia-smi name and power limit;
-2. build the port's CUDA kernels from ops/csrc, the three sources at once
+2. build the port's CUDA kernels from ops/csrc, the four sources at once
    (an nvcc each), and time each build;
 3. K1 (score_argmax) against its plain PyTorch version on the card at the
    batched path's shapes (N=50 blocks, C=8 channels, the spread grid's
@@ -97,7 +97,15 @@ Phases, one line or more each (any failure raises and exits non-zero):
    the CPU, and the track, started where the JAX tracker started (the CPU
    search's results), op by op to the JAX tracker's over its first 100
    updates and in its final cp; the acquired and tracked Dopplers also to
-   the scenario's truth;
+   the scenario's truth; then its decode on 32.5 s at the same level:
+   tracking 30 s then 2 s, a decode after each (the weak cold start's
+   attempts), every channel too short to frame at 30 s with no soft work,
+   8/8 by the soft pass at 32 s in one bit-loop launch, the ephemerides
+   equal to the plain host decode's on the same logs; the decode's ms per
+   attempt; then the bit loop kernel alone on the 8 channels' bit sums,
+   its decisions equal to the plain loop's (`navbits._loop` forward then
+   backward) and each pass's end within 1e-9, and its time against the
+   plain loop's for the kernels line;
 19. VectorReceiver for 50 epochs from the truth handoff and from
    from_scalar after phase 9's cold start: median error under 20 m,
    epochs per second, one K3 windows-mode launch an epoch;
@@ -253,7 +261,7 @@ import numpy as np
 import torch
 
 
-from navlab_dpe_sdr_tpu_torch import bench, cli
+from navlab_dpe_sdr_tpu_torch import bench, cli, tracing
 from navlab_dpe_sdr_tpu_torch.constants import F_CA, F_L1
 from navlab_dpe_sdr_tpu_torch.io.handoff import read_handoff, write_handoff
 from navlab_dpe_sdr_tpu_torch.io.printer import FixWriter
@@ -272,6 +280,7 @@ from navlab_dpe_sdr_tpu_torch.models import montecarlo
 from navlab_dpe_sdr_tpu_torch.models.dpe import (DPEConfig, DPEReceiver,
                                                  device_state)
 from navlab_dpe_sdr_tpu_torch.models.fleet import ReceiverFleet
+from navlab_dpe_sdr_tpu_torch.models import navbits
 from navlab_dpe_sdr_tpu_torch.models.scalar import ScalarReceiver
 from navlab_dpe_sdr_tpu_torch.runtime import flow
 from navlab_dpe_sdr_tpu_torch.models.vector import VectorReceiver
@@ -304,6 +313,7 @@ FLEET_DPE_BLOCKS = 200
 SCORE_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/score_argmax.cu"
 TRACK_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/track_chunk.cu"
 CORR_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/windowed_correlate.cu"
+NAVBITS_SRC = "navlab_dpe_sdr_tpu_torch/ops/csrc/navbits_loop.cu"
 # Published peaks of one H100 SXM (dense, at the 700 W limit): f32 outside
 # the tensor cores, and HBM3.
 PEAK_F32 = 67e12        # operations / s
@@ -364,11 +374,14 @@ KERNELS = {
                        replaces="navlab_dpe_sdr_tpu/ops/pallas_track.py:50"),
     "K5": dict(name="windowed_correlate", route="cuda", source=CORR_SRC,
                replaces="navlab_dpe_sdr_tpu/ops/dpe_real.py:420"),
+    "navbits loop": dict(name="navbits_loop", route="cuda",
+                         source=NAVBITS_SRC, replaces=None),
 }
 
 WEAK_REF = pathlib.Path(__file__).resolve().parent / "tools" / \
     "weak_start_reference.json"
 OP_BY_OP = 100    # weak-start updates held op by op (the tracking tests' tier)
+WEAK_DECODE_S = 32.5   # the weak decode's capture: the 30 s and 32 s attempts
 FCAID = F_CA / F_L1
 
 
@@ -815,7 +828,7 @@ def build_all():
 
     threads = [threading.Thread(target=one, args=(name,))
                for name in ("score_argmax", "track_chunk",
-                            "windowed_correlate")]
+                            "windowed_correlate", "navbits_loop")]
     for t in threads:
         t.start()
     for t in threads:
@@ -1949,6 +1962,134 @@ def check_weak_start(dev, card):
         worst
     assert worst["fi_truth"] < 31.25 and worst["fi_end"] < 31.25, worst
     return launches
+
+
+def check_weak_decode(dev, card):
+    """Phase 18, its decode: WEAK_DECODE_S of the scenario at the weak
+    reference's C/N0, deep acquisition, coh_ms tracking 30 s then 2 s with
+    a decode after each, as the weak cold start makes them. At 30 s every
+    channel is too short to frame (no bit-loop launch); at 32 s every one
+    decodes by the soft pass in one launch, each ephemeris equal to the
+    plain host decode's (`_parse`, channel by channel, on the same logs).
+    The decode's wall a attempt (the 32 s one twice: its first call makes
+    cuFFT's float64 plans), its spans, the plain decode's wall, and the
+    bit loop kernel's own time on the 8 channels' bit sums (CUDA events).
+    Returns the bit loop's launches in the decode and `check_bit_loops`'
+    dict."""
+    ref = json.loads(WEAK_REF.read_text())
+    t0 = time.perf_counter()
+    samples, hand, _ = make_capture(WEAK_DECODE_S, ref["cn0_dbhz"])
+    log(f"weak decode: {WEAK_DECODE_S} s at {ref['cn0_dbhz']:.0f} dB-Hz "
+        f"synthesized in {time.perf_counter() - t0:.1f} s")
+    m = ref["coh_ms"]
+    rx = ScalarReceiver(SampleFile(samples=samples, fs=FS), hand.prn_list,
+                        loops=tracking.cadence_loops(m), device=dev)
+    rx.acquire(deep_ms=ref["deep_ms"], n_coh_ms=ref["n_coh_ms"],
+               verbose=False)
+    rx.track(30_000, coh_ms=m)
+    _build.reset_launch_counts()
+    rows = []
+    for extra in (0, 2000, 0):
+        if extra:
+            rx.track(extra, coh_ms=m)
+        torch.cuda.synchronize()
+        counts = dict(rx.decode_counts)
+        tracing.clear()
+        with tracing.recording():
+            t0 = time.perf_counter()
+            good = rx.decode_ephemerides(verbose=False)
+            wall = time.perf_counter() - t0
+        spans = {n: sum(s.t1 - s.t0 for s in tracing.spans(n)) * 1e3
+                 for n in ("scalar.decode.hard", "scalar.decode.soft")}
+        rows.append(dict(periods=len(rx.channels[rx.prn_list[0]].cp_sign),
+                         good=len(good), ms=wall * 1e3, **spans,
+                         counts={k: v - counts[k]
+                                 for k, v in rx.decode_counts.items()}))
+    tracing.clear()
+    launches = _build.launch_counts()["navbits_loop"]
+    n_ch = len(rx.prn_list)
+    assert rows[0]["counts"]["too_short"] == n_ch and rows[0]["good"] == 0, \
+        rows[0]
+    for r in rows[1:]:
+        assert r["counts"]["soft"] == n_ch and r["good"] == n_ch, r
+    assert launches == 2, launches
+    t0 = time.perf_counter()
+    plain = {p: rx._parse(p)[0] for p in rx.prn_list}
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    differ = [p for p in rx.prn_list
+              if dataclasses.asdict(plain[p])
+              != dataclasses.asdict(rx.channels[p].ephemeris)]
+    for name, r in zip(("30 s", "32 s", "32 s again"), rows):
+        log(f"weak decode at {name} ({r['periods']} periods): {r['good']}/"
+            f"{n_ch} in {r['ms']:.2f} ms (hard framer "
+            f"{r['scalar.decode.hard']:.2f} ms, soft pass "
+            f"{r['scalar.decode.soft']:.2f} ms), outcomes {r['counts']} "
+            f"[{card}]")
+    log(f"weak decode: the plain host decode of the same logs "
+        f"{plain_ms:.2f} ms, its ephemerides differing in {len(differ)} of "
+        f"{n_ch} channels {differ}; {launches} bit loop launches in the "
+        f"decode [{card}]")
+    assert not differ, differ
+    return launches, check_bit_loops(rx, dev, card)
+
+
+def check_bit_loops(rx, dev, card):
+    """Phase 18, the bit loop kernel alone on the 8 channels' bit sums and
+    loop starts, as the plain path forms them from the receiver's logs
+    (`_soft_signs`, `bit_edge`, `loop_start`), padded to the longest:
+    its int8 decisions equal to `navbits._loop` forward then backward
+    (`coherent_bits`' order) channel by channel, nothing written past a
+    channel's bits, and each pass's end (phase, rate) within 1e-9 of the
+    plain loop's. Returns the kernels line's dict: err (the largest end
+    difference), ms (CUDA events around the launch), plain_ms (`_loop`
+    twice a channel on the host, as a CPU receiver runs it), device_ms,
+    bound (each sum read once, each decision and end written once)."""
+    sums, start, want, ends = [], [], [], []
+    for p in rx.prn_list:
+        soft = rx._soft_signs(p)
+        o = navbits.bit_edge(soft)
+        nb = (len(soft) - o) // navbits.PERIODS_A_BIT
+        z, phase, rate = navbits.loop_start(soft[o:o + 20 * nb].reshape(
+            nb, 20).sum(axis=1))
+        _, p_f, r_f = navbits._loop(z, phase, rate)
+        bits, p_b, r_b = navbits._loop(z[::-1], p_f, -r_f)
+        sums.append(z)
+        start.append((phase, rate))
+        want.append(bits[::-1])
+        ends.append((p_f, r_f, p_b, r_b))
+    n_ch = len(sums)
+    nb = np.array([len(z) for z in sums])
+    padded = np.zeros((n_ch, nb.max()), np.complex128)
+    for c, z in enumerate(sums):
+        padded[c, :len(z)] = z
+    args = (torch.from_numpy(padded).to(dev), torch.from_numpy(nb).to(dev),
+            torch.tensor(start, dtype=torch.float64, device=dev),
+            torch.zeros((n_ch, nb.max()), dtype=torch.int8, device=dev))
+    got_ends = navbits._bit_loops(*args)
+    torch.cuda.synchronize()
+    got = args[3].cpu().numpy()
+    wrong = [c for c, k in enumerate(nb)
+             if not np.array_equal(got[c, :k], want[c]) or got[c, k:].any()]
+    err = float(np.abs(got_ends.cpu().numpy() - np.array(ends)).max())
+    k_ms = cuda_ms(lambda: navbits._bit_loops(*args), 20)
+    cpu_args = tuple(a.cpu() for a in args)
+    navbits._bit_loops(*cpu_args)
+    t0 = time.perf_counter()
+    navbits._bit_loops(*cpu_args)
+    p_ms = (time.perf_counter() - t0) * 1e3
+    d_ms = kernel_device_ms(lambda: navbits._bit_loops(*args), 20,
+                            "navbits_loop_kernel")
+    # bytes only: the two chains of dependent float64 steps, not the
+    # operations' count, keep the kernel far from any bound (PERF.md)
+    bnd = bound(0, tensor_bytes(*args, got_ends))
+    log(f"bit loop kernel: {n_ch} channels of {nb.min()}-{nb.max()} bits, "
+        f"decisions equal to the plain loop's in {n_ch - len(wrong)} of "
+        f"{n_ch} channels {wrong}, pass ends within {err:.3e} (limit 1e-9); "
+        f"wrapper {k_ms:.4f} ms, kernel's own {fmt_ms(d_ms)}, plain (host "
+        f"loop) {p_ms:.2f} ms; bound {bnd['bound_ms']:.6f} ms "
+        f"({bnd['bound_by']}) [{card}]")
+    assert not wrong and err < 1e-9, (wrong, err)
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, device_ms=d_ms, bound=bnd)
 
 
 def check_vector(samples, hand, arr, rx_cold, dev, card):
@@ -3838,6 +3979,7 @@ def main() -> int:
     k4c_by_path = {"coherent cold start": check_coherent_cold_start(
         samples, hand, arr, dev, card)}
     k4c_by_path["weak start"] = check_weak_start(dev, card)
+    loop_launches, loop = check_weak_decode(dev, card)
     k3w_launches = check_vector(samples, hand, arr, rx_cold, dev, card)
 
     k2_by_path = {"cold start": counts["score_surface"]}
@@ -3905,7 +4047,8 @@ def main() -> int:
             ("K3", k3_by_path, k3), ("K4", k4_by_path, k4),
             ("K4 coherent", k4c_by_path, k4c),
             ("K4 batch_k", k4b_by_path, k4b),
-            ("K3 windows", k3w_by_path, k3w), ("K5", k5_by_path, k5)]
+            ("K3 windows", k3w_by_path, k3w), ("K5", k5_by_path, k5),
+            ("navbits loop", {"weak decode": loop_launches}, loop)]
     kernels = [dict(KERNELS[k], launches=sum(by_path.values()),
                     max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                     **r["bound"], library_ms=None, device_ms=r["device_ms"],
@@ -3919,7 +4062,7 @@ def main() -> int:
     kernels[7].update({k: v for k, v in k3w.items()
                        if k not in ("err", "ms", "plain_ms", "device_ms",
                                     "bound")})
-    kernels[-1].update({k: v for k, v in k5.items()
+    kernels[8].update({k: v for k, v in k5.items()
                         if k not in ("err", "ms", "plain_ms", "device_ms",
                                      "bound")})
     for k in kernels:

@@ -40,6 +40,7 @@ from . import navbits
 
 LOG_FIELDS = ("iE", "qE", "iP", "qP", "iL", "qL", "rc", "ri", "fc", "fi",
               "cp", "lock", "lockval", "snr", "dpc", "dpi")
+DECODE_OUTCOMES = ("hard", "too_short", "soft", "failed")
 
 
 @dataclass
@@ -80,6 +81,10 @@ class ScalarReceiver:
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         self.chunk_walls: list[tuple[int, float]] = []  # (ms, wall s)
+        # channel-attempts of decode_ephemerides by outcome: decoded on the
+        # signs, too short to frame (the soft path's gate), decoded on the
+        # soft bits, or failed otherwise
+        self.decode_counts = dict.fromkeys(DECODE_OUTCOMES, 0)
 
     # -- acquisition -------------------------------------------------------
 
@@ -265,29 +270,65 @@ class ScalarReceiver:
 
         Where a channel's signs are too noisy for the sign framer (more
         wrong than it tolerates, models/navbits.py), its bits are decided
-        from the prompt's soft values against a smooth carrier instead
-        (`_soft_signs`), and taken only with all 50 words passing parity
-        and the ephemeris complete. The JAX receiver has no such path."""
-        good = []
-        for prn in self.prn_list:
-            ch = self.channels[prn]
-            try:
-                eph, parity_ok = self._parse(prn)
-                ch.ephemeris = eph
+        from the prompt's soft values against a smooth carrier instead, and
+        taken only with all 50 words passing parity and the ephemeris
+        complete: for every such channel at once, in one float64 pass on
+        the receiver's device (`navbits.soft_bits`), then framed and parsed
+        on the host. A stream too short to frame (under
+        navbits.MIN_FRAME_PERIODS) fails as the framer would, with no soft
+        work. Each channel's outcome is counted in `decode_counts`. The
+        result is `_parse`'s, channel by channel. The JAX receiver has no
+        soft path."""
+        with tracing.span("scalar.decode"):
+            got, soft = {}, {}
+            with tracing.span("scalar.decode.hard"):
+                for prn in self.prn_list:
+                    try:
+                        got[prn] = self._parse_hard(prn)
+                        if got[prn] is None:
+                            self._check_segments(prn)
+                            n = len(self.channels[prn].cp_sign)
+                            if n < navbits.MIN_FRAME_PERIODS:
+                                raise navbits.TooShort()
+                            soft[prn] = n
+                    except ValueError as e:
+                        got[prn] = e
+            if soft:
+                with tracing.span("scalar.decode.soft"):
+                    t_win = self._t_win()
+                    bits = navbits.soft_bits(
+                        [self._soft_args(p, t_win) for p in soft],
+                        self.device)
+                for (prn, n), (o, b) in zip(soft.items(), bits):
+                    try:
+                        got[prn] = self._take_soft(
+                            prn, navbits.framed_signs(b, o, n))
+                    except ValueError as e:
+                        got[prn] = e
+            good = []
+            for prn in self.prn_list:
+                res = got[prn]
+                if isinstance(res, ValueError):
+                    self.decode_counts["too_short" if isinstance(
+                        res, navbits.TooShort) else "failed"] += 1
+                    if verbose:
+                        print(f"PRN {prn:2d}: decode failed: {res}")
+                    continue
+                eph, parity_ok = res
+                self.decode_counts["soft" if prn in soft else "hard"] += 1
+                self.channels[prn].ephemeris = eph
                 good.append(prn)
                 if verbose:
                     print(f"PRN {prn:2d}: TOW {eph.tow_timestamp:.0f} at cp "
                           f"{eph.cp_timestamp:.0f}, parity {parity_ok}/50, "
                           f"complete={eph.complete}")
-            except ValueError as e:
-                if verbose:
-                    print(f"PRN {prn:2d}: decode failed: {e}")
         return good
 
-    def _parse(self, prn: int):
-        """(ephemeris, words passing parity) of channel `prn`: framed on its
-        signs, or, where that fails and the signs are more often wrong than
-        the sign framer tolerates, on its soft bits."""
+    def _parse_hard(self, prn: int):
+        """(ephemeris, words passing parity) of channel `prn` framed on its
+        signs, or None where the sign framer failed on signs more often
+        wrong than it tolerates (the soft path's channels). Raises the
+        framer's error otherwise."""
         ch = self.channels[prn]
         try:
             return dataparser.parse_ephemerides(ch.cp_sign, cp_offset=0.0,
@@ -295,33 +336,62 @@ class ScalarReceiver:
         except ValueError:
             if navbits.sign_disagreement(ch.cp_sign) <= navbits.HARD_ERRORS:
                 raise
-        eph, parity_ok = dataparser.parse_ephemerides(
-            navbits.clean_signs(self._soft_signs(prn)), cp_offset=0.0,
-            prn=prn)
+        return None
+
+    def _take_soft(self, prn: int, signs: np.ndarray):
+        """(ephemeris, words passing parity) parsed from channel `prn`'s
+        clean soft sign stream; raises unless all 50 words pass parity and
+        the ephemeris is complete."""
+        eph, parity_ok = dataparser.parse_ephemerides(signs, cp_offset=0.0,
+                                                      prn=prn)
         if parity_ok < navbits.WORDS or not eph.complete:
             raise ValueError(f"soft bits: parity {parity_ok}/"
                              f"{navbits.WORDS}, complete={eph.complete}")
         return eph, parity_ok
 
-    def _soft_signs(self, prn: int) -> np.ndarray:
-        """The prompt's complex sum of each completed code period of
-        channel `prn`, indexed like its cp_sign, against a smooth carrier
-        (navbits.soft_periods), from the prompt segments K4 logged for its
-        coherent windows. Raises ValueError where some update has none (a
-        1 ms cadence, or a log resumed from a checkpoint)."""
-        ch = self.channels[prn]
-        segs = ch.col("pseg")
-        u = len(segs)
+    def _parse(self, prn: int):
+        """(ephemeris, words passing parity) of channel `prn` by the plain
+        per-channel path, the reference `decode_ephemerides` is held to:
+        framed on its signs, or, where `_parse_hard` leaves it to the soft
+        path, on its soft bits (`navbits.clean_signs` of `_soft_signs`)."""
+        got = self._parse_hard(prn)
+        if got is not None:
+            return got
+        return self._take_soft(prn, navbits.clean_signs(self._soft_signs(prn)))
+
+    def _check_segments(self, prn: int) -> None:
+        """Raises ValueError unless channel `prn` logged prompt segments
+        for every update (not at a 1 ms cadence, nor in a log resumed from
+        a checkpoint)."""
+        u = sum(len(s) for s in self.channels[prn].data.get("pseg", ()))
         if u == 0 or u != self.mcount:
             raise ValueError(f"soft bits: prompt segments logged for {u} of "
                              f"{self.mcount} updates (coherent windows only)")
+
+    def _t_win(self) -> np.ndarray:
+        """[mcount] each update window's first sample time [s]."""
         m = self.coh_ms
         rf = self.rawfile
-        t_win = (np.asarray(self._m_samp[:u], np.float64)
-                 - round(rf.fs * 1e-3) * m) / rf.fs
-        return navbits.soft_periods(segs, ch.col("cp"), t_win, ch.col("rc"),
-                                    ch.col("fc"), ch.col("ri"), ch.col("fi"),
-                                    m, len(ch.cp_sign))
+        return (np.asarray(self._m_samp[:self.mcount], np.float64)
+                - round(rf.fs * 1e-3) * m) / rf.fs
+
+    def _soft_args(self, prn: int, t_win: np.ndarray | None = None) -> tuple:
+        """`navbits.soft_periods`' arguments for channel `prn`: the prompt
+        segments K4 logged for its coherent windows, its log at each
+        window's start (t_win, `_t_win()` where not given), and its
+        cp_sign's length. Raises `_check_segments`' error."""
+        self._check_segments(prn)
+        ch = self.channels[prn]
+        t_win = self._t_win() if t_win is None else t_win
+        return (ch.col("pseg"), ch.col("cp"), t_win, ch.col("rc"),
+                ch.col("fc"), ch.col("ri"), ch.col("fi"), self.coh_ms,
+                len(ch.cp_sign))
+
+    def _soft_signs(self, prn: int) -> np.ndarray:
+        """The prompt's complex sum of each completed code period of
+        channel `prn`, indexed like its cp_sign, against a smooth carrier
+        (navbits.soft_periods of `_soft_args`)."""
+        return navbits.soft_periods(*self._soft_args(prn))
 
     def set_ephemerides(self, eph_by_prn: dict[int, Ephemeris]):
         for prn, eph in eph_by_prn.items():

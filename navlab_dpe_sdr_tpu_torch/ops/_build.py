@@ -40,7 +40,9 @@ _libs: dict[str, ctypes.CDLL] = {}
 # "score_surface", K3 "correlate_window" (one window) and
 # "correlate_windows" (the windows mode), K4 "track_chunk" (m = 1),
 # "track_chunk_coherent" (m > 1) and "track_chunk_batched" (batch_k > 1),
-# K5 "windowed_correlate" (one call: its one cluster launch).
+# K5 "windowed_correlate" (one call: its one cluster launch), and the soft
+# LNAV decode's bit loop "navbits_loop" (one a decode attempt that takes the
+# soft path).
 # Each wrapper adds one right after its kernel launches, and nowhere else;
 # receivers of a fleet launch from threads of their own, so the count is
 # kept under a lock.
@@ -48,7 +50,7 @@ KERNEL_MODES = ("score_argmax", "score_argmax_sum", "score_argmax_factored",
                 "score_argmax_sum_factored", "score_surface",
                 "correlate_window", "correlate_windows", "track_chunk",
                 "track_chunk_coherent", "track_chunk_batched",
-                "windowed_correlate")
+                "windowed_correlate", "navbits_loop")
 _launches: dict[str, int] = {}
 _count_lock = threading.Lock()
 

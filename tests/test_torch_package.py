@@ -166,7 +166,8 @@ def test_build_dir_falls_back_to_the_user_cache(monkeypatch, tmp_path):
                     'touch "$2"\n')
     fake.chmod(0o755)
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
-    for name in ("score_argmax", "track_chunk", "windowed_correlate"):
+    for name in ("score_argmax", "track_chunk", "windowed_correlate",
+                 "navbits_loop"):
         lib = _build.build(name)
         assert lib.parent == want and lib.is_file(), lib
         assert lib.name.startswith(f"lib{name}_")
@@ -184,4 +185,4 @@ def test_build_dir_falls_back_to_the_user_cache(monkeypatch, tmp_path):
     want = {p.resolve() for p in (*_build.CSRC.glob("*.cu"),
                                   *native.glob("*.cpp"))}
     assert shipped == want
-    assert len(shipped) == 5
+    assert len(shipped) == 6

@@ -391,3 +391,257 @@ def test_soft_bits_follow_receiver_dynamics(profile, seed):
     ref, _ = dataparser.parse_ephemerides(clean, cp_offset=0.0, prn=eph.prn)
     assert parity == navbits.WORDS and got.complete
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+
+
+# -- the receiver's decode: the gate and the batched soft pass -------------
+
+def test_gate_is_exact_for_the_framer():
+    """MIN_FRAME_PERIODS is the shortest stream `_frames` can frame: a
+    noise-free stream whose first subframe starts at period 40 (bit edge 0,
+    two bits before it) decodes at 30 040 periods and raises the framer's
+    own error at 30 039."""
+    assert navbits.MIN_FRAME_PERIODS == 30_040
+    _, _, arr = make_scenario(nav_data=True)
+    eph = arr.ephs[1]
+    full = np.kron(1 - 2 * lnav.encode_stream(eph, 413994.0, 15),
+                   np.ones(20))
+    locs, _ = dataparser.find_subframe_starts(full)
+    start = int(locs[1]) - 40
+    stream = full[start:start + navbits.MIN_FRAME_PERIODS]
+    got, parity = dataparser.parse_ephemerides(
+        navbits.clean_signs(stream.astype(np.complex128)), cp_offset=0.0,
+        prn=eph.prn)
+    assert parity == navbits.WORDS and got.complete
+    with pytest.raises(ValueError, match=navbits.NO_FRAME):
+        navbits.clean_signs(stream[:-1].astype(np.complex128))
+
+
+def _soft_channels():
+    """Three channels' coherent logs from `_dynamic_log` (the ramp and two
+    swings), their streams 35 993, 35 986 and 35 380 periods long: (their
+    ephemeris, `soft_periods`' arguments each)."""
+    out = []
+    for (profile, seed), cut in zip((("ramp", 4), ("swing", 5),
+                                     ("swing", 6)), (0, 7, 613)):
+        eph, args, _, _ = _dynamic_log(seed, profile)
+        out.append(args[:-1] + (args[-1] - cut,))
+    return eph, out
+
+
+def test_soft_pass_equals_the_plain_path_channel_by_channel():
+    """`navbits.soft_bits` over three channels of unequal streams at once
+    (on the CPU: the pass in torch float64, `_loop` for the kernel) gives
+    each channel the bit edge and decisions of its own `bit_edge` and
+    `coherent_bits` of `soft_periods`, and its framed signs decode to
+    what `clean_signs` decodes, every word passing parity."""
+    eph, chans = _soft_channels()
+    got = navbits.soft_bits(chans, "cpu")
+    for args, (o, bits) in zip(chans, got):
+        soft = navbits.soft_periods(*args)
+        edge = navbits.bit_edge(soft)
+        nb = (len(soft) - edge) // navbits.PERIODS_A_BIT
+        plain = navbits.coherent_bits(soft[edge:edge + 20 * nb].reshape(
+            nb, 20).sum(axis=1))
+        assert o == edge
+        np.testing.assert_array_equal(bits, plain)
+        mine, parity = dataparser.parse_ephemerides(
+            navbits.framed_signs(bits, o, args[-1]), cp_offset=0.0,
+            prn=eph.prn)
+        ref, _ = dataparser.parse_ephemerides(
+            navbits.clean_signs(soft), cp_offset=0.0, prn=eph.prn)
+        assert parity == navbits.WORDS and mine.complete
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+
+
+def test_soft_pass_smooths_as_the_plain_filter():
+    """The pass's smooth carrier (the Savitzky-Golay filter as fixed
+    weights) is `smooth_doppler`'s within 1e-9 Hz, down to logs shorter
+    than its window."""
+    _, chans = _soft_channels()
+    fi = np.stack([a[6] for a in chans])
+    for u in (len(fi[0]), 500, 2):
+        want = np.stack([navbits.smooth_doppler(f[:u], 8e-3) for f in fi])
+        got = navbits._smooth(torch.from_numpy(fi[:, :u].copy()), 8e-3)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-9)
+
+
+def test_soft_pass_refuses_a_stream_too_short_to_frame():
+    _, chans = _soft_channels()
+    short = chans[0][:-1] + (navbits.MIN_FRAME_PERIODS - 1,)
+    with pytest.raises(ValueError, match="cannot frame"):
+        navbits.soft_bits([chans[1], short], "cpu")
+
+
+def _filled_receiver(logs):
+    """A CPU receiver whose channels hold `logs` ({prn: (soft_periods'
+    arguments, cp_sign)}, U = 4 500 windows of 8 ms each) as if tracked."""
+    prns = list(logs)
+    rx = ScalarReceiver(SampleFile(samples=np.zeros(16, DTYPE_IQ16), fs=FS),
+                        prns, device="cpu")
+    segs = next(iter(logs.values()))[0][0]
+    u, m = len(segs), segs.shape[1] - 2
+    rx.mcount, rx.coh_ms = u, m
+    rx._m_samp = list((np.arange(u) + 1) * round(FS * 1e-3) * m)
+    for p, (args, signs) in logs.items():
+        segs, cp, _, rc, fc, ri, fi, _, _ = args
+        rx.channels[p].data = {"pseg": [segs], "cp": [cp], "rc": [rc],
+                               "fc": [fc], "ri": [ri], "fi": [fi]}
+        rx.channels[p].cp_sign = signs
+    return rx
+
+
+def _decode_logs():
+    """Five channels: PRN 1 clean signs (the sign framer decodes), PRNs 2
+    and 3 soft (the ramp, a swing; streams of unequal length), PRN 4 soft
+    but 30 039 periods long (too short to frame), PRN 5 noise alone (the
+    soft path takes it and cannot frame)."""
+    _, chans = _soft_channels()
+    _, _, clean, _ = _dynamic_log(4, "ramp")
+    noisy = [np.sign(navbits.soft_periods(*a).real) for a in chans]
+    rng = np.random.default_rng(11)
+    noise = (rng.standard_normal(chans[0][0].shape)
+             + 1j * rng.standard_normal(chans[0][0].shape))
+    short = chans[2][:-1] + (navbits.MIN_FRAME_PERIODS - 1,)
+    return {1: (chans[0], clean), 2: (chans[0], noisy[0]),
+            3: (chans[1], noisy[1]),
+            4: (short, noisy[2][:navbits.MIN_FRAME_PERIODS - 1]),
+            5: ((noise,) + chans[2][1:],
+                np.sign(navbits.soft_periods(noise, *chans[2][1:]).real))}
+
+
+def test_decode_ephemerides_equals_the_plain_path():
+    """On a receiver whose logs were filled without tracking, the batched
+    decode takes the same PRNs, with the same ephemerides, and fails the
+    same channels with the same errors, as the plain path (`_parse`,
+    channel by channel); `decode_counts` counts each channel's outcome,
+    and a recorded decode nests its hard and soft spans in `scalar.decode`."""
+    rx = _filled_receiver(_decode_logs())
+    want, errors = {}, {}
+    for p in rx.prn_list:
+        try:
+            want[p] = rx._parse(p)[0]
+        except ValueError as e:
+            errors[p] = str(e)
+    assert sorted(want) == [1, 2, 3]
+    assert errors[4] == errors[5] == navbits.NO_FRAME
+    with tracing.recording():
+        good = rx.decode_ephemerides(verbose=False)
+    assert good == [1, 2, 3]
+    for p in good:
+        assert dataclasses.asdict(rx.channels[p].ephemeris) \
+            == dataclasses.asdict(want[p])
+    assert rx.decode_counts == {"hard": 1, "too_short": 1, "soft": 2,
+                                "failed": 1}
+    recs = tracing.spans()
+    assert Counter(s.name for s in recs) == {
+        "scalar.decode": 1, "scalar.decode.hard": 1, "scalar.decode.soft": 1}
+    (whole,), (hard,), (soft,) = (_named(recs, n) for n in (
+        "scalar.decode", "scalar.decode.hard", "scalar.decode.soft"))
+    assert _inside(hard, whole) and _inside(soft, whole)
+    assert _in_order(hard, soft)
+    assert rx.decode_ephemerides(verbose=False) == good
+    assert rx.decode_counts == {"hard": 2, "too_short": 2, "soft": 4,
+                                "failed": 2}
+
+
+@pytest.mark.parametrize("n", [navbits.MIN_FRAME_PERIODS - 1,
+                               navbits.MIN_FRAME_PERIODS])
+def test_gate_keeps_short_streams_from_the_soft_pass(monkeypatch, n):
+    """A soft-path channel of 30 039 periods fails with the framer's own
+    error and never reaches the pass (made to fail if called), its outcome
+    `too_short`; one of 30 040 reaches it."""
+    _, chans = _soft_channels()
+    args = chans[0][:-1] + (n,)
+    signs = np.sign(navbits.soft_periods(*args).real)
+    rx = _filled_receiver({7: (args, signs)})
+    taken = []
+
+    def soft_bits(channels, device="cpu"):
+        taken.append([a[-1] for a in channels])
+        if n < navbits.MIN_FRAME_PERIODS:
+            raise AssertionError("the soft pass ran on a stream too short")
+        return real(channels, device)
+
+    real = navbits.soft_bits
+    monkeypatch.setattr(navbits, "soft_bits", soft_bits)
+    rx.decode_ephemerides(verbose=False)
+    if n < navbits.MIN_FRAME_PERIODS:
+        assert taken == [] and rx.decode_counts["too_short"] == 1
+        with pytest.raises(ValueError, match=navbits.NO_FRAME):
+            rx._parse(7)
+    else:
+        assert taken == [[n]] and rx.decode_counts["too_short"] == 0
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_cpu_bit_loops_end_where_the_plain_loop_ends(seed):
+    """On the CPU `_bit_loops` returns each pass's end (phase, rate) in
+    float64, as `_loop` leaves it, beside its decisions."""
+    soft = _soft_stream(seed)[1]
+    o = navbits.bit_edge(soft)
+    nb = (len(soft) - o) // 20
+    z, phase, rate = navbits.loop_start(
+        soft[o:o + 20 * nb].reshape(nb, 20).sum(axis=1))
+    _, p_f, r_f = navbits._loop(z, phase, rate)
+    bits, p_b, r_b = navbits._loop(z[::-1], p_f, -r_f)
+    out = torch.zeros((1, nb), dtype=torch.int8)
+    ends = navbits._bit_loops(torch.from_numpy(z[None].copy()),
+                              torch.tensor([nb]),
+                              torch.tensor([[phase, rate]],
+                                           dtype=torch.float64), out)
+    assert ends.dtype == torch.float64
+    assert ends[0].tolist() == [p_f, r_f, p_b, r_b]
+    np.testing.assert_array_equal(out[0].numpy(), bits[::-1])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the bit loop kernel has no CPU "
+                    "mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_bit_loop_kernel_matches_the_plain_loop_on_card(cuda_device):
+    """The bit loop kernel over four channels at once (`_soft_stream`
+    seeds 1-3 and a `_dynamic_log` stream, unequal bit counts) decides as
+    `_loop` forward then backward, each pass ending within 1e-9 of the
+    plain loop's phase and rate, in one launch."""
+    from navlab_dpe_sdr_tpu_torch.ops import _build
+
+    streams = [_soft_stream(seed)[1] for seed in (1, 2, 3)]
+    streams.append(navbits.soft_periods(*_dynamic_log(4, "ramp")[1]))
+    sums, start, want, ends = [], [], [], []
+    for soft in streams:
+        o = navbits.bit_edge(soft)
+        nb = (len(soft) - o) // 20
+        z, phase, rate = navbits.loop_start(
+            soft[o:o + 20 * nb].reshape(nb, 20).sum(axis=1))
+        _, p_f, r_f = navbits._loop(z, phase, rate)
+        bits, p_b, r_b = navbits._loop(z[::-1], p_f, -r_f)
+        sums.append(z)
+        start.append((phase, rate))
+        want.append(bits[::-1])
+        ends.append((p_f, r_f, p_b, r_b))
+    nb = np.array([len(z) for z in sums])
+    padded = np.zeros((len(sums), nb.max()), np.complex128)
+    for c, z in enumerate(sums):
+        padded[c, :len(z)] = z
+    out = torch.zeros((len(sums), nb.max() + 1), dtype=torch.int8,
+                      device=cuda_device)
+    before = _build.launch_counts()["navbits_loop"]
+    got_ends = navbits._bit_loops(
+        torch.from_numpy(padded).to(cuda_device),
+        torch.from_numpy(nb).to(cuda_device),
+        torch.tensor(start, dtype=torch.float64, device=cuda_device),
+        out[:, 1:])
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["navbits_loop"] == before + 1
+    got = out.cpu().numpy()
+    assert not got[:, 0].any()
+    for c, k in enumerate(nb):
+        np.testing.assert_array_equal(got[c, 1:1 + k], want[c])
+        assert not got[c, 1 + k:].any()
+    np.testing.assert_allclose(got_ends.cpu().numpy(), np.array(ends),
+                               rtol=0, atol=1e-9)
